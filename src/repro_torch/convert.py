@@ -1,0 +1,21 @@
+"""Carry state across from the reference package.
+
+This system holds no weights: a region's input tensors and its noise operand
+are its whole state. ``to_torch`` turns the reference's region arguments —
+numpy arrays, as ``np.asarray`` gives them from a JAX region's ``args``
+tuple — into the port's tensors, so both packages compute on identical
+inputs.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+
+def to_torch(arrays: Sequence, device="cpu") -> tuple:
+    """numpy arrays -> contiguous tensors on ``device``, dtypes kept (int32
+    column indices stay int32)."""
+    return tuple(torch.from_numpy(np.array(a, copy=True, order="C"))
+                 .to(device) for a in arrays)

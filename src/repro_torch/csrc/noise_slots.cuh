@@ -1,0 +1,191 @@
+// Noise slots on Hopper: the device side of repro_torch/kernels/noise_slots.py,
+// shared by noise_probes.cu, spmv_ell.cu and noisy_matmul.cu.
+//
+// The reference (src/repro/kernels/noise_slots.py) runs Pallas grid steps in
+// order on one core, all adding into one (8,128) f32 `nacc` block. CTAs run
+// concurrently, so here every CTA owns an (8,128) f32 PARTIAL, kept in
+// registers (4 elements per thread, 256 threads) and written once when the
+// CTA ends. `nacc_reduce` then sums the partials per element in a fixed
+// order (chunks of 32 partials in CTA order, then the chunk sums in order):
+// deterministic, no atomics, so the runtime-k and static-k builds of a
+// kernel give bitwise-equal `nacc`.
+//
+// Modes (one pattern each; k patterns per grid step of the reference):
+//   fp   — acc += c, with c the (8,128) addend loaded once into registers.
+//          __fadd_rn and no fast-math: nvcc may neither contract nor
+//          reassociate the chain into k*c.
+//   mxu  — acc += noise[0:8,:] @ noise on the tensor cores: mma.sync
+//          m16n8k8 TF32 with an f32 accumulator. The 8-row A operand is
+//          padded to the instruction's 16 rows with zeros (rows 8..15 of the
+//          product are dropped). Operands are re-read from shared memory
+//          through volatile loads for every pattern, as the TPU's dot
+//          re-reads VMEM.
+//   vmem — acc[:, :w] += src[off:off+8, :w] with src a block in SHARED
+//          memory and off = (step*7 + j*13) % max(rows-8, 1). The offsets
+//          repeat every 120 patterns, so the loads are volatile: the
+//          compiler may not merge repeated reads of one address.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define REPRO_K_MAX 512
+#define REPRO_THREADS 256
+#define REPRO_NACC 1024        // 8 x 128 floats
+#define REPRO_REDUCE_CHUNK 32  // partials summed by one block of nacc_reduce
+#define REPRO_NZ_STRIDE 132    // row stride (floats) of a 128x128 operand staged
+                               // in shared memory: 16-byte rows, and the mxu
+                               // A-fragment reads hit 32 distinct banks
+
+enum { MODE_NONE = 0, MODE_FP = 1, MODE_MXU = 2, MODE_VMEM = 3 };
+
+// ---------------------------------------------------------------------------
+// Ownership of the (8,128) partial: which element acc[r] of thread `tid` is.
+//   none/fp/vmem: element tid + 256*r  -> row tid/128 + 2r, column tid%128
+//   mxu:          the mma C-fragment layout: warp w covers columns
+//                 w*16 .. w*16+15; lane (g = lane/4, t = lane%4) holds row g,
+//                 columns (2w+q)*8 + 2t + h for r = 2q + h.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ int own_row(int tid, int r) { return (tid >> 7) + 2 * r; }
+__device__ __forceinline__ int own_col(int tid) { return tid & 127; }
+
+template <int MODE>
+__device__ __forceinline__ int slot_elem(int tid, int r) {
+  if constexpr (MODE == MODE_MXU) {
+    const int w = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    return g * 128 + (2 * w + (r >> 1)) * 8 + 2 * t + (r & 1);
+  } else {
+    return tid + REPRO_THREADS * r;
+  }
+}
+
+template <int MODE>
+__device__ __forceinline__ void write_partial(float* part, const float (&acc)[4], int tid) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) part[slot_elem<MODE>(tid, r)] = acc[r];
+}
+
+// k patterns: fully unrolled when k is static (SK >= 0), a runtime loop
+// otherwise. Pattern j does the same arithmetic in both.
+template <int SK, typename F>
+__device__ __forceinline__ void repeat_k(int k, F&& body) {
+  if constexpr (SK >= 0) {
+#pragma unroll
+    for (int j = 0; j < SK; ++j) body(j);
+  } else {
+    for (int j = 0; j < k; ++j) body(j);
+  }
+}
+
+template <int SK>
+__device__ __forceinline__ void fp_noise(float (&acc)[4], const float (&c)[4], int k) {
+  repeat_k<SK>(k, [&](int) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[r] = __fadd_rn(acc[r], c[r]);
+  });
+}
+
+// src: `rows` x (>= w) floats in shared memory with row stride `stride`
+template <int SK>
+__device__ __forceinline__ void vmem_noise(float (&acc)[4], const float* src, int stride,
+                                           int rows, int w, int step, int k, int tid) {
+  const volatile float* vs = src;
+  const int m = rows - 8 > 1 ? rows - 8 : 1;
+  const int col = own_col(tid);
+  if (col >= w) return;   // lanes >= w never change (the reference adds +0.0)
+  repeat_k<SK>(k, [&](int j) {
+    const int off = (step * 7 + j * 13) % m;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      acc[r] = __fadd_rn(acc[r], vs[(off + own_row(tid, r)) * stride + col]);
+  });
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d += A(16x8, row) * B(8x8, col); TF32 inputs, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// nz: the 128x128 noise operand in shared memory, row stride `stride`.
+// One pattern: D = noise[0:8,:] @ noise (K = 128 in 16 mma steps, each warp
+// two 8-column tiles), then acc += D, as the reference's nacc += dot(a, b).
+template <int SK>
+__device__ __forceinline__ void mxu_noise(float (&acc)[4], const float* nz, int stride, int k,
+                                          int tid) {
+  const volatile float* v = nz;
+  const int w = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  repeat_k<SK>(k, [&](int) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int n0 = (2 * w + q) * 8;
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ks = 0; ks < 16; ++ks) {
+        const int kc = ks * 8;
+        const uint32_t a0 = to_tf32(v[g * stride + kc + t]);
+        const uint32_t a2 = to_tf32(v[g * stride + kc + t + 4]);
+        const uint32_t b0 = to_tf32(v[(kc + t) * stride + n0 + g]);
+        const uint32_t b1 = to_tf32(v[(kc + t + 4) * stride + n0 + g]);
+        mma_tf32(d, a0, 0u, a2, 0u, b0, b1);   // A rows 8..15 are the zero pad
+      }
+      acc[2 * q] = __fadd_rn(acc[2 * q], d[0]);
+      acc[2 * q + 1] = __fadd_rn(acc[2 * q + 1], d[1]);
+    }
+  });
+}
+
+// Copy a 128x128 f32 operand (16-byte aligned) into shared memory with row
+// stride REPRO_NZ_STRIDE. The caller synchronises before use.
+__device__ __forceinline__ void stage_noise(const float* __restrict__ noise, float* dst, int tid) {
+  const float4* src = reinterpret_cast<const float4*>(noise);
+  for (int i = tid; i < 128 * 32; i += REPRO_THREADS) {
+    const int r = i >> 5, c4 = i & 31;
+    *reinterpret_cast<float4*>(dst + r * REPRO_NZ_STRIDE + c4 * 4) = __ldg(src + i);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// nacc_reduce: block b sums partials [b*chunk, min(P, b*chunk+chunk)) in
+// order, one thread per element. Two launches: chunk sums into scratch, then
+// one block sums the chunk sums into nacc (one launch when P <= chunk).
+// ---------------------------------------------------------------------------
+static __global__ void __launch_bounds__(REPRO_NACC)
+nacc_reduce(const float* __restrict__ in, int P, int chunk, float* __restrict__ out) {
+  const int e = threadIdx.x;
+  const int p0 = blockIdx.x * chunk;
+  const int p1 = min(P, p0 + chunk);
+  float s = 0.f;
+  for (int p = p0; p < p1; ++p) s = __fadd_rn(s, in[(size_t)p * REPRO_NACC + e]);
+  out[(size_t)blockIdx.x * REPRO_NACC + e] = s;
+}
+
+// scratch: ceil(P / REPRO_REDUCE_CHUNK) * REPRO_NACC floats
+static inline cudaError_t reduce_partials(const float* partials, int P, float* scratch, float* nacc,
+                                          cudaStream_t st) {
+  const int C = (P + REPRO_REDUCE_CHUNK - 1) / REPRO_REDUCE_CHUNK;
+  nacc_reduce<<<C, REPRO_NACC, 0, st>>>(partials, P, REPRO_REDUCE_CHUNK, C == 1 ? nacc : scratch);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || C == 1) return e;
+  nacc_reduce<<<1, REPRO_NACC, 0, st>>>(scratch, C, C, nacc);
+  return cudaGetLastError();
+}
+
+// Dynamic shared memory above 48 KB needs an opt-in per kernel.
+template <typename Kernel>
+static inline cudaError_t allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+static inline int clip_k(int k) { return k < 0 ? 0 : (k > REPRO_K_MAX ? REPRO_K_MAX : k); }

@@ -1,0 +1,1 @@
+"""noisy_matmul kernel: CUDA wrapper (kernel.py) and plain PyTorch oracles (ref.py)."""
