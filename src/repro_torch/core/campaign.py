@@ -36,12 +36,21 @@ whole record but not its newline is healed in place. Corruption BEFORE the
 final record hard-fails. ``CampaignStore(path, readonly=True)`` loads
 without creating, healing, or truncating anything.
 
-Not ported yet: store merging, compaction, the segmented layout, analytic
-(``pred``) campaigns and DECAN variants.
+Fan-out: ``worker_store`` names a shard's store, ``merge_stores`` folds
+worker stores into one canonical store (sources in argument order, later
+ones superseding; records written in a canonical sorted order with sorted
+keys, so a merge is idempotent and matches the reference's byte for byte),
+and ``compact_store`` rewrites a store without its superseded records.
+``python -m repro_torch.core.campaign merge|inspect`` is the CLI.
+
+Not ported yet: the segmented layout (refused wherever a store is opened
+or merged), analytic (``pred``) campaigns and DECAN variants.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import itertools
 import json
 import logging
 import os
@@ -120,6 +129,67 @@ def _meta_settings(rec: dict) -> dict:
             if f not in ("kind", "region", "mode")}
 
 
+def segments_dir(path: str) -> str:
+    """Where the reference's segmented layout would keep a store:
+    ``base.jsonl`` -> ``base.segments``."""
+    return os.path.splitext(path)[0] + ".segments"
+
+
+def _refuse_segmented(path: str) -> None:
+    if os.path.isdir(segments_dir(path)):
+        raise CampaignStoreError(
+            f"{path}: a segmented store exists here; this package reads "
+            "the single-file layout only")
+
+
+def store_exists(path: str) -> bool:
+    """True when a store exists at ``path`` (a segment directory counts, so
+    callers see it and the store refuses it when opened)."""
+    return os.path.exists(path) or os.path.isdir(segments_dir(path))
+
+
+def remove_store(path: str) -> None:
+    """Delete the store file at ``path``; a segmented store is refused."""
+    _refuse_segmented(path)
+    if os.path.exists(path):
+        os.unlink(path)
+
+
+def worker_store(path: str, index: int, count: int) -> str:
+    """Per-worker store naming for fan-out: ``base.jsonl`` ->
+    ``base.w0of2.jsonl``."""
+    base, ext = os.path.splitext(path)
+    return f"{base}.w{index}of{count}{ext or '.jsonl'}"
+
+
+def host_store(path: str, host: str) -> str:
+    """Per-HOST namespacing of a store path: ``base.jsonl`` ->
+    ``base.h<host>-<hash6>.jsonl`` (host sanitized to filename-safe
+    characters, plus a short hash of the raw host name, so two hosts whose
+    sanitized names agree still get distinct staging files)."""
+    base, ext = os.path.splitext(path)
+    tag = "".join(c if c.isalnum() or c in "._-" else "-" for c in host)
+    h = hashlib.sha256(host.encode("utf-8")).hexdigest()[:6]
+    return f"{base}.h{tag}-{h}{ext or '.jsonl'}"
+
+
+@dataclasses.dataclass(frozen=True)
+class PairStatus:
+    """Grid completeness of one (region, mode) pair: the points present,
+    the points the sweep's ``done`` marker promised, and which of those are
+    missing (a truncated store)."""
+    points: int                       # point records present
+    expected: Optional[int]           # len(done ks); None until done-marked
+    done: bool                        # a "done" marker exists
+    missing: tuple[int, ...] = ()     # done-promised ks with no point record
+    quarantined: tuple[int, ...] = ()  # ks whose quality record condemns them
+
+    @property
+    def complete(self) -> bool:
+        """Replayable with zero new measurements."""
+        return self.done and not self.missing
+
+
 class CampaignStore:
     """Append-only measurement store, loaded eagerly on open.
 
@@ -145,10 +215,7 @@ class CampaignStore:
         self.body_sizes: dict[str, int] = {}
         self._lock = threading.Lock()
         self._f = None
-        if os.path.isdir(os.path.splitext(path)[0] + ".segments"):
-            raise CampaignStoreError(
-                f"{path}: a segmented store exists here; this package reads "
-                "the single-file layout only")
+        _refuse_segmented(path)
         has_file = os.path.exists(path)
         if readonly and not has_file:
             raise FileNotFoundError(f"campaign store {path} does not exist")
@@ -238,6 +305,27 @@ class CampaignStore:
         return tuple(sorted(k for k, rec in q.items()
                             if rec.get("verdict") == "quarantine"))
 
+    def pair_status(self, region: str, mode: str) -> PairStatus:
+        """Completeness of one (region, mode) pair (see ``PairStatus``)."""
+        key = (region, mode)
+        pts = self.points.get(key, {})
+        quar = self.quarantined_ks(region, mode)
+        rec = self.done.get(key)
+        if rec is None:
+            return PairStatus(points=len(pts), expected=None, done=False,
+                              quarantined=quar)
+        ks = [int(k) for k in rec["ks"]]
+        return PairStatus(points=len(pts), expected=len(ks), done=True,
+                          missing=tuple(k for k in ks if k not in pts),
+                          quarantined=quar)
+
+    def grid_status(self, pairs: Sequence[tuple[str, str]]
+                    ) -> dict[tuple[str, str], PairStatus]:
+        """Completeness of every (region, mode) pair in an expected grid —
+        what a fleet executor asks of worker stores to decide which shards
+        still need (re)launching."""
+        return {(r, m): self.pair_status(r, m) for r, m in pairs}
+
     def _drop_measured(self, key: tuple[str, str]) -> None:
         # audits and quality records are settings-scoped evidence measured
         # alongside the pair: stale ones must not feed apply_audit_evidence /
@@ -253,6 +341,189 @@ class CampaignStore:
         run's fresh appends supersede them on the next load."""
         self._drop_measured((region, mode))
         self.meta.pop((region, mode), None)
+
+
+# ---------------------------------------------------------------------------
+# Multi-store fan-out: merge worker stores into one canonical store
+# ---------------------------------------------------------------------------
+
+_KIND_ORDER = {"meta": 0, "sens": 1, "point": 2, "done": 3, "region": 4,
+               "decan": 5, "pred": 6, "audit": 7, "quality": 8, "calib": 9}
+
+
+def _canon_line(rec: dict) -> str:
+    return json.dumps(rec, sort_keys=True)
+
+
+def _canon_sort_key(rec: dict) -> tuple:
+    return (str(rec.get("region", "")),
+            str(rec.get("mode", rec.get("variant", ""))),
+            _KIND_ORDER.get(rec.get("kind"), 99),
+            int(rec.get("k", -1)),
+            _canon_line(rec))
+
+
+@dataclasses.dataclass
+class MergeStats:
+    """What ``merge_stores`` did: sources read, records in/out, and the
+    (region, mode) pairs whose meta conflicted (the later source won)."""
+    sources: int = 0
+    records_in: int = 0
+    records_out: int = 0
+    conflicts: list = dataclasses.field(default_factory=list)  # (region, mode)
+
+    def __str__(self) -> str:
+        s = (f"merged {self.records_in} records from {self.sources} stores "
+             f"into {self.records_out}")
+        if self.conflicts:
+            s += (f"; {len(self.conflicts)} pair(s) re-measured under newer "
+                  f"settings won: {sorted(set(self.conflicts))}")
+        return s
+
+
+class _MergeView:
+    """Raw-record mirror of CampaignStore's supersede semantics: the same
+    ingest rules, but keeping the winning record verbatim so the merged file
+    reproduces byte-exact replays."""
+
+    def __init__(self, stats: MergeStats):
+        self.meta: dict[tuple, dict] = {}
+        self.sens: dict[tuple, dict] = {}
+        self.points: dict[tuple, dict[int, dict]] = {}
+        self.done: dict[tuple, dict] = {}
+        self.preds: dict[tuple, dict] = {}
+        self.regions: dict[str, dict] = {}
+        self.decan: dict[tuple, dict] = {}
+        self.audits: dict[tuple, dict] = {}
+        self.quality: dict[tuple, dict[int, dict]] = {}
+        self.calib: dict[str, dict] = {}
+        self.other: dict[str, dict] = {}
+        self.stats = stats
+
+    def ingest(self, rec: dict) -> None:
+        self.stats.records_in += 1
+        kind = rec.get("kind")
+        key = (rec.get("region"), rec.get("mode"))
+        if kind == "point":
+            self.points.setdefault(key, {})[int(rec["k"])] = rec
+        elif kind == "sens":
+            self.sens[key] = rec
+        elif kind == "done":
+            self.done[key] = rec
+        elif kind == "meta":
+            old = self.meta.get(key)
+            if old is not None and _meta_settings(old) != _meta_settings(rec):
+                log.warning(
+                    "merge: %s/%s measured under %s and %s; keeping the "
+                    "later store's sweep", key[0], key[1],
+                    _meta_settings(old), _meta_settings(rec))
+                self.stats.conflicts.append(key)
+                # mirror CampaignStore._drop_measured: stale audit/quality
+                # evidence from the superseded settings must not survive
+                for d in (self.points, self.sens, self.done, self.audits,
+                          self.quality):
+                    d.pop(key, None)
+            self.meta[key] = rec
+        elif kind == "region":
+            self.regions[rec["region"]] = rec
+        elif kind == "pred":
+            self.preds[key] = rec
+        elif kind == "decan":
+            self.decan[(rec.get("region"), rec.get("variant"))] = rec
+        elif kind == "audit":
+            self.audits[key] = rec
+        elif kind == "quality":
+            self.quality.setdefault(key, {})[int(rec["k"])] = rec
+        elif kind == "calib":
+            self.calib[str(rec.get("hw", ""))] = rec
+        else:
+            self.other[_canon_line(rec)] = rec   # unknown: keep, dedup exact
+
+    def records(self) -> list[dict]:
+        out: list[dict] = []
+        out.extend(self.meta.values())
+        out.extend(self.sens.values())
+        for per_k in self.points.values():
+            out.extend(per_k.values())
+        out.extend(self.done.values())
+        out.extend(self.regions.values())
+        out.extend(self.decan.values())
+        out.extend(self.preds.values())
+        out.extend(self.audits.values())
+        for per_k in self.quality.values():
+            out.extend(per_k.values())
+        out.extend(self.calib.values())
+        out.extend(self.other.values())
+        return sorted(out, key=_canon_sort_key)
+
+
+# concurrent merges to the same dest never share a tmp name: each call gets a
+# pid+counter-unique one (the last os.replace still wins the dest)
+_MERGE_TMP_COUNT = itertools.count()
+
+
+def merge_stores(dest: str, sources: Sequence[str]) -> MergeStats:
+    """Fold worker stores into one canonical store at ``dest``.
+
+    Sources stream in argument order, so later sources supersede earlier
+    ones under the schema's supersede / meta-conflict rules; the output is
+    written with records in a canonical sort order and canonical key order,
+    then atomically renamed over ``dest``. Merging is idempotent (re-merging
+    the output is a byte-level no-op), order-independent when the sources'
+    keys are disjoint, and safe when ``dest`` is itself a source. Segmented
+    stores are refused (the layout is not ported)."""
+    for path in (dest, *sources):
+        _refuse_segmented(path)
+    stats = MergeStats(sources=len(sources))
+    view = _MergeView(stats)
+    d = os.path.dirname(dest)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    tmp = f"{dest}.merge-tmp.{os.getpid()}.{next(_MERGE_TMP_COUNT)}"
+    try:
+        with open(tmp, "w") as f:
+            # a corrupt source (CampaignStoreError) aborts mid-merge; the
+            # finally removes the tmp, so ``dest`` only ever sees the atomic
+            # rename of a COMPLETE merge
+            for src in sources:
+                for rec in read_store_records(src)[0]:
+                    view.ingest(rec)
+            records = view.records()
+            stats.records_out = len(records)
+            for rec in records:
+                f.write(_canon_line(rec) + "\n")
+        os.replace(tmp, dest)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return stats
+
+
+@dataclasses.dataclass
+class CompactStats:
+    """What ``compact_store`` reclaimed."""
+    records_in: int = 0
+    records_out: int = 0
+    bytes_in: int = 0
+    bytes_out: int = 0
+
+    def __str__(self) -> str:
+        pct = 1.0 - (self.bytes_out / self.bytes_in) if self.bytes_in else 0.0
+        return (f"compacted {self.records_in} -> {self.records_out} "
+                f"record(s), {self.bytes_in} -> {self.bytes_out} bytes "
+                f"({pct:.0%} reclaimed)")
+
+
+def compact_store(path: str) -> CompactStats:
+    """Rewrite a store in place with superseded and discarded records
+    dropped (the canonical full merge of the store into itself). Do not
+    compact a store a live writer is appending to."""
+    if not store_exists(path):
+        raise FileNotFoundError(f"campaign store {path} does not exist")
+    bytes_in = os.path.getsize(path) if os.path.exists(path) else 0
+    ms = merge_stores(path, [path])
+    return CompactStats(records_in=ms.records_in, records_out=ms.records_out,
+                        bytes_in=bytes_in, bytes_out=os.path.getsize(path))
 
 
 @dataclasses.dataclass
@@ -273,7 +544,7 @@ class Campaign:
     path and still bounds campaign latency on the compile-once path.
 
     ``measure_pairs``/``measure_shard`` measure one worker's slice of a
-    grid; merging worker stores is not ported yet.
+    grid; ``merge_stores`` folds the workers' stores into one.
     """
 
     def __init__(self, store: CampaignStore | str,
@@ -629,3 +900,105 @@ class Campaign:
         target-major, mode-minor order."""
         return self.measure_pairs([(t, m) for t in targets for m in modes],
                                   index=index, count=count)
+
+
+# ---------------------------------------------------------------------------
+# CLI: merge / inspect stores (the fan-out hosts' rendezvous step)
+# ---------------------------------------------------------------------------
+
+
+def _cli(argv: Optional[Sequence[str]] = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.core.campaign",
+        description="campaign store maintenance (merge worker stores, "
+                    "inspect contents)")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    mp = sub.add_parser("merge", help="fold worker stores into one "
+                                      "canonical store")
+    mp.add_argument("dest")
+    mp.add_argument("sources", nargs="+")
+    ip = sub.add_parser("inspect", help="summarize one store with per-"
+                                        "(region, mode) grid completeness")
+    ip.add_argument("path")
+    ip.add_argument("--plan", default=None, metavar="PLAN.json",
+                    help="a repro_torch.fleet SweepPlan: also check the "
+                         "store against the plan's full expected grid (exit "
+                         "1 when any pair is missing or incomplete)")
+    args = ap.parse_args(argv)
+
+    if args.cmd == "merge":
+        stats = merge_stores(args.dest, args.sources)
+        print(f"{args.dest}: {stats}")
+        return 0
+    try:   # readonly: inspecting must neither create nor heal the store
+        st = CampaignStore(args.path, readonly=True)
+    except FileNotFoundError as e:
+        print(e)
+        return 2
+    print(f"{args.path}:")
+    measured_keys = sorted(set(st.meta) | set(st.points) | set(st.done))
+    n_complete = 0
+    for key in measured_keys:
+        ps = st.pair_status(*key)
+        n_complete += ps.complete
+        if ps.done:
+            state = f"{ps.points}/{ps.expected} point(s), done"
+            if ps.missing:
+                state += f", MISSING ks {sorted(ps.missing)}"
+        else:
+            state = f"{ps.points} point(s), in progress"
+        if ps.quarantined:
+            reasons = sorted({(st.quality.get(key, {}).get(k) or {})
+                              .get("reason") or "?"
+                              for k in ps.quarantined})
+            state += (f", QUARANTINED ks {sorted(ps.quarantined)} "
+                      f"({', '.join(reasons)})")
+        meta = _meta_settings(st.meta[key]) if key in st.meta else "?"
+        print(f"  measured {key[0]}/{key[1]}: {state}  [settings {meta}]")
+    for key, rec in sorted(st.preds.items()):
+        terms = rec.get("terms", {})
+        dominant = max(terms, key=terms.get) if terms else "?"
+        print(f"  pred     {key[0]}/{key[1]}: {len(rec['ks'])} point(s), "
+              f"hw={rec['hw'].get('name', '?')} dominant={dominant} "
+              f"Abs={rec['fit']['k1']:.0f}")
+    for (region, variant), rec in sorted(st.decan.items()):
+        print(f"  decan    {region}/{variant}: t={rec['t']:.6f}s "
+              f"(reps={rec.get('reps')}, inner={rec.get('inner')})")
+    for hw, rec in sorted(st.calib.items()):
+        tag = "fitted" if rec.get("fitted") else "FALLBACK (paper defaults)"
+        print(f"  calib    hw={hw}: low={rec.get('low'):g} "
+              f"high={rec.get('high'):g} [{tag}] from "
+              f"{len(rec.get('samples', []))} sample(s)")
+    for key, rec in sorted(st.audits.items()):
+        surv = max(0.0, min(1.0, float(rec.get("survival", 0.0))))
+        agrees = rec.get("agrees")
+        extra = "" if agrees is None else f", {'' if agrees else 'DIS'}agrees"
+        corr = rec.get("corruption")
+        print(f"  audit    {key[0]}/{key[1]}: {rec.get('verdict')} "
+              f"(survival {surv:.0%}/pattern, predicts "
+              f"{rec.get('predicted')}{extra}"
+              + (f", {corr}" if corr else "") + ")")
+    if measured_keys:
+        print(f"  grid: {n_complete}/{len(measured_keys)} measured pair(s) "
+              "complete")
+    if args.plan:
+        from repro_torch.fleet.plan import SweepPlan   # fleet sits above core
+        plan = SweepPlan.load(args.plan)
+        grid = plan.grid()
+        status = st.grid_status(grid)
+        missing = [key for key in grid if not status[key].complete]
+        print(f"  plan {plan.name!r}: {len(grid) - len(missing)}/{len(grid)} "
+              "pair(s) complete")
+        for r, m in missing:
+            ps = status[(r, m)]
+            what = (f"{ps.points} point(s), in progress" if ps.points or ps.done
+                    else "absent")
+            print(f"    missing {r}/{m} ({what})")
+        return 1 if missing else 0
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(_cli())

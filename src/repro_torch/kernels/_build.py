@@ -10,6 +10,9 @@ Two builds of every kernel, both from ``src/repro_torch/csrc/``:
 * **static k** — one library per (kernel, mode, k), compiled with
   ``-DREPRO_STATIC_MODE=<mode id> -DREPRO_STATIC_K=<k>`` so the noise loop
   is fully unrolled: the trace-per-k fallback and the payload-check build.
+  A kernel with several variants (attention: head dim and element type)
+  adds its own ``-D`` defines, so a static build compiles the one variant
+  it is launched for.
 
 Libraries land in ``build/repro_torch/`` at the repository root, named by a
 hash of every source file, so an edited source rebuilds and an unchanged one
@@ -36,7 +39,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_PKG)), "build",
                          "repro_torch")
-KERNEL_SOURCES = ("noise_probes", "spmv_ell", "noisy_matmul")
+KERNEL_SOURCES = ("noise_probes", "spmv_ell", "noisy_matmul", "flash_attention")
 
 # no fast-math: the fp noise chain of k adds must not fold into k*c
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -124,17 +127,23 @@ def runtime_lib() -> ctypes.CDLL:
         return _load(path)
 
 
-def static_lib_path(kernel: str, mode_id: int, k: int) -> str:
-    """Where the static-k library of one (kernel, mode, k) lives."""
+def static_lib_path(kernel: str, mode_id: int, k: int,
+                    defines: tuple = ()) -> str:
+    """Where the static-k library of one (kernel, mode, k[, variant
+    defines]) lives."""
+    variant = "".join(f"_{name.lower()}{value}" for name, value in defines)
     return os.path.join(
-        BUILD_DIR, f"librepro_{kernel}_m{mode_id}_k{k}_{source_hash()}.so")
+        BUILD_DIR,
+        f"librepro_{kernel}_m{mode_id}_k{k}{variant}_{source_hash()}.so")
 
 
-def static_lib(kernel: str, mode_id: int, k: int) -> ctypes.CDLL:
-    """The static-k library of one (kernel, mode, k), built on first use."""
+def static_lib(kernel: str, mode_id: int, k: int,
+               defines: tuple = ()) -> ctypes.CDLL:
+    """The static-k library of one (kernel, mode, k), built on first use;
+    ``defines``: ((name, value), ...) selecting the kernel's variant."""
     if kernel not in KERNEL_SOURCES:
         raise ValueError(f"unknown kernel source {kernel!r}")
-    path = static_lib_path(kernel, mode_id, k)
+    path = static_lib_path(kernel, mode_id, k, defines)
     with _lock_for(path):
         if path in _LIBS:
             return _LIBS[path]
@@ -143,6 +152,7 @@ def static_lib(kernel: str, mode_id: int, k: int) -> ctypes.CDLL:
             tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
             _run([[nvcc_path(), *NVCC_FLAGS, "-shared",
                    f"-DREPRO_STATIC_MODE={mode_id}", f"-DREPRO_STATIC_K={k}",
+                   *(f"-D{name}={value}" for name, value in defines),
                    "-o", tmp, os.path.join(CSRC, f"{kernel}.cu")]])
             os.replace(tmp, path)   # atomic: no reader sees a partial file
         return _load(path)
@@ -160,19 +170,20 @@ def _bind(lib: ctypes.CDLL, name: str, n_ptrs: int, n_ints: int):
 
 
 def launch(kernel: str, entry: str, tensors, ints, *, mode_id: int, k: int,
-           static: bool) -> None:
+           static: bool, defines: tuple = ()) -> None:
     """Launch one kernel on the current stream of the tensors' device.
 
-    ``static``: ``repro_<entry>_static`` of the (kernel, mode, k) build;
-    else ``repro_<entry>_rt`` of the runtime-k library, with the mode and
-    ``k`` passed after ``ints``. Raises when the entry reports a CUDA
-    error."""
+    ``static``: ``repro_<entry>_static`` of the (kernel, mode, k,
+    ``defines``) build; else ``repro_<entry>_rt`` of the runtime-k library,
+    with the mode and ``k`` passed after ``ints``. Raises when the entry
+    reports a CUDA error."""
     dev = tensors[0].device
     ptrs = [t.data_ptr() for t in tensors]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if static:
-            fn = _bind(static_lib(kernel, mode_id, k if mode_id else 0),
+            fn = _bind(static_lib(kernel, mode_id, k if mode_id else 0,
+                                  defines),
                        f"repro_{entry}_static", len(ptrs), len(ints))
             err = fn(*ptrs, *ints, stream)
         else:

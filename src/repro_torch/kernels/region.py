@@ -16,8 +16,11 @@ tensors on the CPU:
     and none was duplicated.
 
 ``device``: "cuda" (the default; raises when no card is present) or "cpu"
-(the plain versions — what the tests use). The attention kernel is not
-ported yet.
+(the plain versions — what the tests use).
+
+``pallas_family`` spans a kernel's size (× q for spmxv) family under one
+store namespace, and ``family_names`` enumerates its region names without
+building anything — what fleet plans and their status queries use.
 """
 from __future__ import annotations
 
@@ -31,6 +34,9 @@ from repro_torch.convert import to_torch
 from repro_torch.core.controller import RegionTarget
 from repro_torch.core.payload import InjectionReport
 from repro_torch.kernels import noise_slots as ns
+from repro_torch.kernels.flash_attention.kernel import (flash_attention,
+                                                        flash_attention_rt,
+                                                        live_blocks)
 from repro_torch.kernels.noise_probes.kernel import probe, probe_rt
 from repro_torch.kernels.noise_probes.ref import probe_ref
 from repro_torch.kernels.noisy_matmul.kernel import matmul, matmul_rt
@@ -53,10 +59,6 @@ KERNEL_MODES = {
 SIZE_KW = {"matmul": "n", "spmxv": "n", "attention": "seq", "probe": "n_steps"}
 SIZE_DEFAULT = {"matmul": 256, "spmxv": 512, "attention": 128, "probe": 64}
 SIZE_ALIGN = {"matmul": 128, "spmxv": 128, "attention": 64, "probe": 1}
-
-ATTENTION_NOT_PORTED = ("the attention kernel is not ported yet (ROADMAP "
-                        "queue 2 item 4)")
-
 
 def validate_size(kernel: str, n: int) -> None:
     """The size rule every entry point shares: noise patterns read 8-row
@@ -85,8 +87,18 @@ def _spmxv_name(*, n=512, nnz_per_row=16, q=0.0, **_):
     return f"pallas_spmxv_n{n}_L{nnz_per_row}_q" + f"{q:g}".replace(".", "p")
 
 
+def _attention_name(*, batch=1, heads=2, seq=128, head_dim=64, **_):
+    # kv_heads is not in the name: the reference's naming, kept so stores
+    # of both packages share region names
+    return f"pallas_attn_b{batch}h{heads}s{seq}d{head_dim}"
+
+
 def _probe_name(*, n_steps=64, **_):
     return f"pallas_probe_s{n_steps}"
+
+
+_NAMERS = {"matmul": _matmul_name, "spmxv": _spmxv_name,
+           "attention": _attention_name, "probe": _probe_name}
 
 
 def resolve_device(device) -> torch.device:
@@ -112,7 +124,8 @@ class _KernelSpec:
     oracle: Callable[[str, int], Optional[torch.Tensor]]
     n_steps: int                                # grid steps visiting the slot
     body_size: int                              # |l1.l2| stand-in for Abs^rel
-    steps_per_cta: int                          # grid steps one partial holds
+    steps_per_cta: int                          # most grid steps one partial holds
+    n_cta: int = 0                              # partials (0: n_steps/steps_per_cta)
 
 
 def _chain(steps_per_cta: int, n_cta: int, k: int) -> int:
@@ -127,7 +140,7 @@ def payload_rtol(spec: "_KernelSpec", k: int) -> float:
     long chains. The oracle's terms are all non-negative, so the bound
     holds; at the main path's sizes it stays below 1/(2k), so one pattern
     too many or too few still fails the check."""
-    n_cta = -(-spec.n_steps // spec.steps_per_cta)
+    n_cta = spec.n_cta or -(-spec.n_steps // spec.steps_per_cta)
     return max(1e-4, _chain(spec.steps_per_cta, n_cta, k) * 2.0 ** -24)
 
 
@@ -190,6 +203,47 @@ def _spmxv_spec(device, *, n: int = 512, nnz_per_row: int = 16,
                        body_size=4, steps_per_cta=blocks_per_cta(nb))
 
 
+def _attention_spec(device, *, batch: int = 1, heads: int = 2,
+                    kv_heads: int = 2, seq: int = 128, head_dim: int = 64,
+                    bq: int = 64, bk: int = 64, causal: bool = True
+                    ) -> _KernelSpec:
+    # numpy RandomState(0)/(1)/(2) stand in for the reference's split of
+    # PRNGKey(0): jax's random bits cannot be reproduced here, so q, k, v
+    # differ from the reference region's (the tests feed both the same
+    # arrays)
+    q, k, v = to_torch(tuple(
+        np.random.RandomState(seed).standard_normal(
+            (batch, h, seq, head_dim)).astype(np.float32)
+        for seed, h in ((0, heads), (1, kv_heads), (2, kv_heads))), device)
+    noise = default_noise_operand(device)
+    bq, bk = min(bq, seq), min(bk, seq)
+    nq = seq // bq
+    # only LIVE kv blocks visit the noise slot (causal skip)
+    live = live_blocks(nq, seq // bk, bq, bk, causal, 0).sum(dim=1)
+    grid_steps = batch * heads * int(live.sum())
+
+    def static_fn(mode, kn):
+        return lambda q, k, v, noise: flash_attention(
+            q, k, v, noise, causal=causal, bq=bq, bk=bk, mode=mode,
+            k_noise=kn)
+
+    def rt_fn(mode):
+        return lambda kn, q, k, v, noise: flash_attention_rt(
+            kn, q, k, v, noise, causal=causal, bq=bq, bk=bk, mode=mode)
+
+    def oracle(mode, kn):
+        if mode == "fp":
+            return ns.expected_fp_noise(noise, kn, grid_steps)
+        return None
+
+    return _KernelSpec(_attention_name(batch=batch, heads=heads, seq=seq,
+                                       head_dim=head_dim),
+                       (q, k, v, noise), static_fn, rt_fn, oracle,
+                       grid_steps, body_size=12,
+                       steps_per_cta=int(live.max()),
+                       n_cta=batch * heads * nq)
+
+
 def _probe_spec(device, *, n_steps: int = 64) -> _KernelSpec:
     noise = default_noise_operand(device)
 
@@ -213,8 +267,30 @@ def _probe_spec(device, *, n_steps: int = 64) -> _KernelSpec:
 _SPECS = {
     "matmul": _matmul_spec,
     "spmxv": _spmxv_spec,
+    "attention": _attention_spec,
     "probe": _probe_spec,
 }
+
+
+def launch_counts() -> dict[str, list[int]]:
+    """This process's calls of each kernel: {kernel source: [CUDA launches,
+    plain-version calls]}, read from the wrappers' counters (a fleet worker
+    reports them in its stats file)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.noise_probes import kernel as probe_k
+    from repro_torch.kernels.noisy_matmul import kernel as matmul_k
+    from repro_torch.kernels.spmv_ell import kernel as spmv_k
+
+    return {
+        "noise_probes": [probe_k.probe_cuda.launches,
+                         probe_k.probe_plain.launches],
+        "spmv_ell": [spmv_k.spmv_ell_cuda.launches,
+                     spmv_k.spmv_ell_plain.launches],
+        "noisy_matmul": [matmul_k.matmul_cuda.launches,
+                         matmul_k.matmul_plain.launches],
+        "flash_attention": [fa_k.flash_attention_cuda.launches,
+                            fa_k.flash_attention_plain.launches],
+    }
 
 
 def _nacc_of(result):
@@ -232,8 +308,6 @@ def pallas_region(kernel: str, *, device="cuda", name: str = "",
     counts builds (the ≤2-per-sweep guarantee). ``sizes``: forwarded to the
     kernel's spec builder (e.g. ``n=``, ``q=``).
     """
-    if kernel == "attention":
-        raise NotImplementedError(ATTENTION_NOT_PORTED)
     if kernel not in _SPECS:
         raise ValueError(f"unknown pallas kernel {kernel!r}; "
                          f"one of {sorted(KERNEL_MODES)}")
@@ -290,3 +364,70 @@ def pallas_region(kernel: str, *, device="cuda", name: str = "",
                         payload_check=payload_check,
                         audit_hint={"scoped": False, "in_loop": True,
                                     "steps": spec.n_steps})
+
+
+def family_params(kernel: str) -> frozenset:
+    """Keyword params the kernel's spec builder accepts — the allowlist
+    plan validation checks declarative params against."""
+    import inspect
+
+    sig = inspect.signature(_SPECS[kernel])
+    return frozenset(p.name for p in sig.parameters.values()
+                     if p.kind == p.KEYWORD_ONLY)
+
+
+def check_family_args(kernel: str, sizes, qs, common: dict) -> None:
+    """The family argument rules, shared by ``pallas_family``,
+    ``family_names`` and SweepPlan validation — so a bad family is rejected
+    when the plan is BUILT, not when a worker subprocess resolves it."""
+    if kernel not in _SPECS:
+        raise ValueError(f"unknown pallas kernel {kernel!r}; "
+                         f"one of {sorted(_SPECS)}")
+    if qs is not None and kernel != "spmxv":
+        raise ValueError(f"qs= applies to the 'spmxv' kernel only, "
+                         f"not {kernel!r}")
+    allowed = family_params(kernel) - {SIZE_KW[kernel], "q"}
+    bad = sorted(set(common) - allowed)
+    if bad:
+        raise ValueError(f"kernel {kernel!r} spec does not accept param(s) "
+                         f"{bad}; allowed: {sorted(allowed)}")
+    for n in sizes:
+        validate_size(kernel, int(n))
+
+
+def _family_grid(kernel: str, sizes, qs):
+    for n in sizes:
+        for q in (qs if qs is not None else (None,)):
+            kw = {SIZE_KW[kernel]: int(n)}
+            if q is not None:
+                kw["q"] = float(q)
+            yield kw
+
+
+def family_names(kernel: str, sizes, *, qs=None, **common) -> list[str]:
+    """The region names ``pallas_family(kernel, sizes, qs=qs, **common)``
+    would produce, WITHOUT building a single tensor — what fleet status and
+    the launcher use to enumerate a plan's grid cheaply."""
+    check_family_args(kernel, sizes, qs, common)
+    return [_NAMERS[kernel](**{**common, **kw})
+            for kw in _family_grid(kernel, sizes, qs)]
+
+
+def pallas_family(kernel: str, sizes, *, qs=None, device="cuda",
+                  trace_hook: Optional[Callable[[], None]] = None,
+                  **common) -> list[RegionTarget]:
+    """One RegionTarget per size (× swap probability q for spmxv), sharing
+    one campaign-store namespace: every member's name encodes its
+    coordinates, so one store (and one fleet plan) holds the whole family.
+    ``sizes`` drives the kernel's size knob (``SIZE_KW``); ``qs`` is
+    spmxv-only; ``common`` (e.g. ``heads=``) goes to every member's spec.
+    """
+    check_family_args(kernel, sizes, qs, common)
+    out = [pallas_region(kernel, device=device, trace_hook=trace_hook,
+                         **{**common, **kw})
+           for kw in _family_grid(kernel, sizes, qs)]
+    names = [r.name for r in out]
+    if len(set(names)) != len(names):
+        raise ValueError(f"family members collide in one store namespace: "
+                         f"{names}")
+    return out

@@ -1,19 +1,31 @@
 """Noise-injection bottleneck probe over the port's kernels — the paper's
-experiment at kernel granularity, on the card.
+experiment at kernel granularity, on the card — and the FLEET's
+single-process worker entry.
 
-One kernel region is characterized through a resumable campaign: every
-(mode, k, t) point persists to a JSONL store (default
-``experiments/campaigns/<region>.jsonl``) and re-running replays it with
-zero new measurements. The sweep uses the compile-once path (one runtime-k
-CUDA function per mode, plus one static-k build for the payload check):
+Every measured path runs through the fleet spine (``repro_torch.fleet``):
+the CLI flags build a one-target ``SweepPlan`` and hand it to
+``run_worker`` — the same code path a fleet shard executes — so ad-hoc
+probes, subprocess shards and plan files all measure through one campaign
+tail (store naming, shard dispatch, reporting). Every (mode, k, t) point
+persists to a JSONL store (default ``experiments/campaigns/<region>.jsonl``)
+and re-running replays it with zero new measurements. The sweep uses the
+compile-once path (one runtime-k CUDA function per mode, plus one static-k
+build for the payload check):
 
-    PYTHONPATH=src python -m repro_torch.launch.probe --pallas spmxv \\
-        --pallas-n 2097152 [--modes fp,vmem] [--store PATH] \\
-        [--expect-no-measure] [--device cuda|cpu]
+    PYTHONPATH=src python -m repro_torch.launch.probe --pallas attention \\
+        --pallas-n 1024 [--modes fp,mxu,vmem] [--store PATH] \\
+        [--expect-no-measure] [--shard I/N] [--device cuda|cpu]
 
-``--device cpu`` runs the plain PyTorch versions (tests, a card-less box);
-the default ``cuda`` refuses to run without a card. The reference's fleet
-plan, sharding, serving, analytic and model-step probes are not ported.
+Fleet worker mode executes a slice of a saved ``SweepPlan`` — what
+``python -m repro_torch.fleet run`` spawns:
+
+    PYTHONPATH=src python -m repro_torch.launch.probe --plan plan.json \\
+        --shard 0/2
+
+``--device cpu`` (the plan's ``backend``) runs the plain PyTorch versions
+(tests, a card-less box); the default ``cuda`` refuses to run without a
+card. The reference's model-step, serving and analytic probes are not
+ported.
 """
 from __future__ import annotations
 
@@ -24,36 +36,54 @@ from typing import Optional, Sequence
 CAMPAIGN_DIR = "experiments/campaigns"
 
 
-def finish_stats(stats, expect_no_measure: bool) -> None:
-    """The campaign tail: how much was measured and replayed;
-    ``--expect-no-measure`` turns "the store covers this run" into an exit
-    code."""
-    print(f"  [{stats.measured} points measured, "
-          f"{stats.cached} replayed from store]")
-    if expect_no_measure and stats.measured:
-        raise SystemExit(
-            f"--expect-no-measure: store was incomplete, {stats.measured} "
-            "fresh measurements were needed")
+def _run_adhoc(spec, *, reps: int, store: Optional[str], fresh: bool,
+               workers: int, compile_once: bool,
+               shard: Optional[tuple[int, int]], expect_no_measure: bool,
+               header: str, device: str, quality: str = "gate",
+               audit: str = "off"):
+    """Build a one-target SweepPlan from CLI flags and execute it through
+    the fleet worker."""
+    from repro_torch.fleet.executor import FleetError, run_worker
+    from repro_torch.fleet.plan import PlanError, SweepPlan
+    from repro_torch.kernels.region import resolve_device
+
+    try:
+        resolve_device(device)      # no card: fail before any store exists
+    except RuntimeError as e:
+        raise SystemExit(str(e))
+    plan = SweepPlan(name=header, store=store or "", targets=[spec],
+                     reps=reps, shards=(shard[1] if shard else 1),
+                     workers=workers, compile_once=compile_once,
+                     backend=device)
+    if not plan.store:
+        plan.store = os.path.join(CAMPAIGN_DIR,
+                                  f"{spec.region_names()[0]}.jsonl")
+    try:
+        plan.validate()
+        return run_worker(plan, index=(shard[0] if shard else None),
+                          count=(shard[1] if shard else None), fresh=fresh,
+                          expect_no_measure=expect_no_measure, header=header,
+                          audit=audit, quality=quality)
+    except (FleetError, PlanError) as e:
+        raise SystemExit(str(e))
 
 
 def pallas_probe(kernel: str, modes: Optional[list[str]], *, reps: int,
                  n: Optional[int] = None, store: Optional[str] = None,
-                 fresh: bool = False, compile_once: bool = True,
-                 expect_no_measure: bool = False, device: str = "cuda"):
-    """Characterize one kernel region through a campaign, print its report
-    and the measured/replayed tally; returns the RegionReport."""
-    from repro_torch.core.campaign import Campaign
-    from repro_torch.core.controller import Controller
-    from repro_torch.kernels.region import (ATTENTION_NOT_PORTED,
-                                            KERNEL_MODES, SIZE_DEFAULT,
-                                            SIZE_KW, pallas_region,
-                                            resolve_device, validate_size)
+                 fresh: bool = False, workers: int = 1,
+                 compile_once: bool = True,
+                 shard: Optional[tuple[int, int]] = None,
+                 expect_no_measure: bool = False, device: str = "cuda",
+                 quality: str = "gate", audit: str = "off"):
+    """Characterize one kernel region through the fleet worker; returns
+    ``run_worker``'s ``(reports or shard results, CampaignStats)``."""
+    from repro_torch.fleet.plan import TargetSpec
+    from repro_torch.kernels.region import (KERNEL_MODES, SIZE_DEFAULT,
+                                            validate_size)
 
     if kernel not in KERNEL_MODES:
         raise SystemExit(f"unknown pallas kernel {kernel!r}; one of "
                          f"{', '.join(sorted(KERNEL_MODES))}")
-    if kernel == "attention":
-        raise SystemExit(ATTENTION_NOT_PORTED)
     modes = modes or list(KERNEL_MODES[kernel])
     unknown = [m for m in modes if m not in KERNEL_MODES[kernel]]
     if unknown:
@@ -64,23 +94,43 @@ def pallas_probe(kernel: str, modes: Optional[list[str]], *, reps: int,
         validate_size(kernel, n)
     except ValueError as e:
         raise SystemExit(f"--pallas-n: {e}")
+    spec = TargetSpec("pallas", tuple(modes), {"kernel": kernel,
+                                               "sizes": [n]})
+    return _run_adhoc(spec, reps=reps, store=store, fresh=fresh,
+                      workers=workers, compile_once=compile_once,
+                      shard=shard, expect_no_measure=expect_no_measure,
+                      header=f"pallas probe: {kernel} on {device}",
+                      device=device, quality=quality, audit=audit)
+
+
+def plan_probe(plan_path: str, *, shard: Optional[tuple[int, int]],
+               fresh: bool, expect_no_measure: bool, quality: str = "gate",
+               audit: str = "off"):
+    """The fleet worker entry: execute (a shard of) a saved SweepPlan."""
+    from repro_torch.fleet.executor import FleetError, run_worker
+    from repro_torch.fleet.plan import PlanError, SweepPlan
+
     try:
-        dev = resolve_device(device)
-    except RuntimeError as e:
+        plan = SweepPlan.load(plan_path)
+    except (OSError, ValueError) as e:       # PlanError is a ValueError
+        raise SystemExit(f"--plan {plan_path}: {e}")
+    try:
+        return run_worker(plan, index=(shard[0] if shard else None),
+                          count=(shard[1] if shard else None), fresh=fresh,
+                          expect_no_measure=expect_no_measure, audit=audit,
+                          quality=quality)
+    except (FleetError, PlanError) as e:
         raise SystemExit(str(e))
-    region = pallas_region(kernel, device=dev, **{SIZE_KW[kernel]: n})
-    store = store or os.path.join(CAMPAIGN_DIR, f"{region.name}.jsonl")
-    if fresh and os.path.exists(store):
-        os.unlink(store)
-    camp = Campaign(store, Controller(reps=reps, compile_once=compile_once))
+
+
+def _parse_shard(text: str) -> tuple[int, int]:
     try:
-        print(f"== pallas probe: {kernel} on {dev} (campaign store: {store})")
-        rep = camp.characterize(region, modes)
-        print(rep.summary())
-        finish_stats(camp.stats, expect_no_measure)
-    finally:
-        camp.store.close()
-    return rep
+        idx, cnt = (int(p) for p in text.split("/"))
+    except ValueError:
+        raise SystemExit(f"--shard wants I/N (e.g. 0/2), got {text!r}")
+    if not (0 <= idx < cnt):
+        raise SystemExit(f"--shard index {idx} not in [0, {cnt})")
+    return idx, cnt
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -89,13 +139,24 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m repro_torch.launch.probe",
         description="noise-injection bottleneck probe of one kernel region "
                     "(CUDA kernels on the card, or their plain PyTorch "
-                    "versions with --device cpu)")
-    ap.add_argument("--pallas", required=True,
-                    metavar="{matmul,spmxv,probe}",
-                    help="the kernel region to probe")
+                    "versions with --device cpu), and the fleet worker "
+                    "entry (--plan)")
+    ap.add_argument("--pallas", default=None,
+                    metavar="{matmul,spmxv,attention,probe}",
+                    help="the kernel region to probe (required unless "
+                         "--plan)")
     ap.add_argument("--pallas-n", type=int, default=None,
-                    help="kernel size knob (rows for matmul/spmxv, grid "
-                         "steps for probe)")
+                    help="kernel size knob (rows for matmul/spmxv, seq for "
+                         "attention, grid steps for probe)")
+    ap.add_argument("--plan", default=None, metavar="PLAN.json",
+                    help="execute a repro_torch.fleet SweepPlan: with "
+                         "--shard I/N measure that slice into its worker "
+                         "store (the fleet worker entry); without, run the "
+                         "whole plan, classify, and write the report")
+    ap.add_argument("--shard", default=None, metavar="I/N",
+                    help="measure only worker I's slice of the grid into a "
+                         "per-worker store (N must match the plan's shards "
+                         "under --plan)")
     ap.add_argument("--modes", default=None,
                     help="noise modes (default: the kernel's fp/mxu/vmem set)")
     ap.add_argument("--reps", type=int, default=3,
@@ -105,28 +166,63 @@ def build_parser() -> argparse.ArgumentParser:
                          f"{CAMPAIGN_DIR}/)")
     ap.add_argument("--fresh", action="store_true",
                     help="discard any existing campaign store first")
+    ap.add_argument("--workers", type=int, default=1,
+                    help="fan independent mode sweeps over N threads")
     ap.add_argument("--expect-no-measure", action="store_true",
                     help="exit non-zero if any fresh measurement was needed "
                          "(assert a complete store replays fully)")
     ap.add_argument("--no-compile-once", action="store_true",
                     help="force the trace-per-k fallback (one static-k "
                          "build per sweep point)")
+    ap.add_argument("--quality", default="gate",
+                    choices=("gate", "warn", "off"),
+                    help="runtime measurement-quality policy for whole-plan/"
+                         "ad-hoc runs: gate (default) refuses a majority-"
+                         "quarantined classification, warn reports it, off "
+                         "attaches no quality evidence")
+    ap.add_argument("--audit", default="off", choices=("gate", "warn", "off"),
+                    help="static noise-audit policy: off (the default) "
+                         "only; gate and warn are refused until the audit "
+                         "is ported")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                    help="where the region computes: cuda (default; fails "
-                         "without a card) or cpu (plain PyTorch versions)")
+                    help="where the region computes (the plan's backend): "
+                         "cuda (default; fails without a card) or cpu "
+                         "(plain PyTorch versions)")
     return ap
 
 
 def main(argv: Optional[Sequence[str]] = None):
-    """CLI entry; returns the RegionReport."""
+    """CLI entry; returns ``run_worker``'s ``(reports or shard results,
+    CampaignStats)``."""
     args = build_parser().parse_args(argv)
     modes = ([m.strip() for m in args.modes.split(",") if m.strip()]
              if args.modes else None)
+    shard = _parse_shard(args.shard) if args.shard is not None else None
+    if args.plan is not None:
+        # the plan carries all of these; silently ignoring one would let a
+        # user believe they changed the measurement settings
+        overridden = [flag for flag, given in (
+            ("--pallas", args.pallas), ("--pallas-n", args.pallas_n),
+            ("--modes", modes), ("--store", args.store),
+            ("--reps", args.reps != 3), ("--workers", args.workers != 1),
+            ("--no-compile-once", args.no_compile_once),
+            ("--device", args.device != "cuda")) if given]
+        if overridden:
+            raise SystemExit("--plan carries its own targets, modes and "
+                             "settings; drop the conflicting flag(s): "
+                             + ", ".join(overridden))
+        return plan_probe(args.plan, shard=shard, fresh=args.fresh,
+                          expect_no_measure=args.expect_no_measure,
+                          quality=args.quality, audit=args.audit)
+    if args.pallas is None:
+        raise SystemExit("--pallas is required unless --plan is given")
     return pallas_probe(args.pallas, modes, reps=args.reps, n=args.pallas_n,
                         store=args.store, fresh=args.fresh,
-                        compile_once=not args.no_compile_once,
+                        workers=args.workers,
+                        compile_once=not args.no_compile_once, shard=shard,
                         expect_no_measure=args.expect_no_measure,
-                        device=args.device)
+                        device=args.device, quality=args.quality,
+                        audit=args.audit)
 
 
 if __name__ == "__main__":

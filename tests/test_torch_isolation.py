@@ -46,6 +46,8 @@ def test_scan_sees_the_whole_package():
     names = {os.path.relpath(p, ROOT) for p in PORT_FILES}
     assert "src/repro_torch/launch/probe.py" in names
     assert "src/repro_torch/kernels/spmv_ell/kernel.py" in names
+    assert "src/repro_torch/fleet/executor.py" in names
+    assert "src/repro_torch/kernels/flash_attention/kernel.py" in names
     assert len(PORT_FILES) >= 15
 
 
@@ -53,6 +55,36 @@ def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.join(ROOT, "src")
     return env
+
+
+BLOCKED_IMPORT = """
+import importlib.abc, sys
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):
+            raise ImportError(f'{name} is blocked')
+        return None
+sys.meta_path.insert(0, _Block())
+"""
+
+SPINE_MODULES = ("repro_torch.fleet", "repro_torch.fleet.__main__",
+                 "repro_torch.fleet.cli", "repro_torch.fleet.executor",
+                 "repro_torch.fleet.launchers", "repro_torch.fleet.plan",
+                 "repro_torch.kernels.flash_attention",
+                 "repro_torch.kernels.flash_attention.kernel",
+                 "repro_torch.kernels.flash_attention.ref",
+                 "repro_torch.launch.probe", "repro_torch.core.campaign")
+
+
+def test_fleet_and_attention_import_with_jax_and_reference_blocked():
+    code = (BLOCKED_IMPORT
+            + "import importlib\n"
+            + "".join(f"importlib.import_module({m!r})\n"
+                      for m in SPINE_MODULES)
+            + "from repro_torch.fleet.cli import build_parser\n"
+            + "build_parser().parse_args(['status', '--plan', 'p.json'])\n")
+    subprocess.run([sys.executable, "-c", code], env=_env(), check=True,
+                   timeout=120)
 
 
 def test_importing_the_port_loads_no_jax():

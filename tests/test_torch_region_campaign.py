@@ -78,8 +78,10 @@ def test_region_names_modes_and_errors_match_the_reference():
         region.build("mxu", 2)
     with pytest.raises(ValueError, match="unknown pallas kernel"):
         pallas_region("nope", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 2 item 4"):
-        pallas_region("attention", device="cpu")
+    assert pallas_region("attention", device="cpu", seq=64, heads=4,
+                         kv_heads=2).name == \
+        ref_pallas_region("attention", backend="interpret", seq=64, heads=4,
+                          kv_heads=2).name == "pallas_attn_b1h4s64d64"
     with pytest.raises(ValueError, match="multiple"):
         validate_size("matmul", 200)
 
