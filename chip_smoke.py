@@ -9,17 +9,19 @@ JAX or of the reference package. Phases, each of which fails the run:
 1. environment: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions; TF32 is switched off for the plain versions;
 2. build: the runtime-k library and the static-k builds the check needs,
-   one ``nvcc`` per library, all started together; the SASS FADD count of
-   the static fp probe and fp attention at k=8 and k=24 (the fp adds must
-   survive);
+   one ``nvcc`` per library, all started together; the registers of every
+   kernel of the two wgmma sources (``nvcc -Xptxas -v``, no spills
+   allowed); the SASS FADD count of the static fp probe, matmul and
+   attention at k=8 and k=24 (the fp adds must survive);
 3. check: every kernel, mode and k in {0, 1, 24, K_MAX+7} against its plain
    PyTorch version on the card at moderate sizes (attention: B=2, H=8,
    KH=2, S=512, hd 64, 128 and 256, causal / non-causal / window 128, f32
    and bf16, and seq 24), and every mode at k in {0, 1} at the main path's
    shapes; the K_MAX clamp; runtime k bitwise equal to static k at k=24
-   (attention: hd 128 f32, hd 256 f32 and bf16). Attention's output is held
-   row by row (``row_excess``); the same check must refuse the kernel fed
-   bf16-rounded q, k, v (a control that the tolerance is tight enough);
+   (attention: hd 128 f32, hd 256 f32 and bf16). The outputs of attention
+   and the matmul are held row by row (``row_excess``); the same check must
+   refuse each kernel fed bf16-rounded operands (a control that the
+   tolerance is tight enough);
 4. the main path, through the user's entry points, each path driven with
    every launch count set to 0 just before it and read just after:
    a. Qwen3-30B-A3B's attention (32 query heads, 4 KV heads, head_dim 128,
@@ -39,7 +41,10 @@ JAX or of the reference package. Phases, each of which fails the run:
 6. timings with CUDA events (median of 25) at the main path's shapes, k=0:
    kernel, plain version, bound, and one PyTorch library call where one
    computes the same function (attention: SDPA in f32 as ``library_ms``,
-   and beside it SDPA with TF32 allowed and SDPA in bf16).
+   and beside it SDPA with TF32 allowed and SDPA in bf16); the kernel's and
+   the library call's device time from a ``torch.profiler`` trace, each
+   kernel's share of its bound and its ratio to the library call on both
+   clocks.
 
 The last lines are the card, one ``{"kernels": [...]}`` JSON object, and
 ``{"ok": true, "device": {...}}``.
@@ -66,6 +71,7 @@ TF32_FLOPS = 495e12
 FP32_FLOPS = 67e12
 
 CHECK_KS = (0, 1, 24)           # plus K_MAX + 7 (the clamp)
+WGMMA_SOURCES = ("noisy_matmul", "flash_attention")   # held to no spills
 STATIC_CHECK_K = 24
 TIMING_REPS = 25
 
@@ -265,6 +271,7 @@ def _static_set():
              for _, hd, dtype, _, _, _, static in ATTENTION_CASES if static
              for m in KERNEL_MODES["attention"]]
     return want + [("noise_probes", MODE_IDS["fp"], 8, ()),
+                   ("noisy_matmul", MODE_IDS["fp"], 8, ()),
                    ("flash_attention", MODE_IDS["fp"], 8,
                     attention_variant(128, "float32"))]
 
@@ -283,6 +290,24 @@ def _fadd_grows(kernel: str, defines: tuple, per_pattern: int) -> None:
         raise RuntimeError(f"{kernel}: fp noise adds were folded: the k=24 "
                            f"build has {fp24 - fp8} more FADD than k=8, "
                            f"want >= {want}")
+
+
+def _no_spills(usage: dict) -> None:
+    """Print the registers of every entry of the wgmma sources (``nvcc
+    -Xptxas -v``); a spill in one of their kernels fails the run."""
+    spilled = []
+    for kernel, entries in usage.items():
+        names = []
+        for entry, (regs, st, ld) in sorted(entries.items()):
+            name = entry.replace("(int)", "").replace("void ", "")
+            name = name[:name.rfind(">") + 1] or name.split("(")[0]
+            names.append(f"{name} {regs}" + (f" SPILLS {st}/{ld}"
+                                              if st or ld else ""))
+            if st or ld:
+                spilled.append(name)
+        print(f"ptxas registers, {kernel}.cu: " + "; ".join(names))
+    if spilled:
+        raise RuntimeError(f"register spills in {spilled}")
 
 
 def phase_build() -> None:
@@ -306,8 +331,10 @@ def phase_build() -> None:
           f"parallel nvcc + link): {rt_s:.1f} s; {len(statics)} static-k "
           f"builds alongside (slowest {max(static_s):.1f} s): "
           f"{time.perf_counter() - t0:.1f} s in all")
+    _no_spills({k: _build.ptxas_usage(k) for k in WGMMA_SOURCES})
     # 4 elements per thread and pattern: k=24 holds 16 patterns more
     _fadd_grows("noise_probes", (), 4)
+    _fadd_grows("noisy_matmul", (), 4)
     _fadd_grows("flash_attention", attention_variant(128, "float32"), 4)
 
 
@@ -317,21 +344,21 @@ def _max_err(got, want) -> float:
 
 def _close(got, want, what, failures, tol="exact"):
     """Hold ``got`` against ``want``: "exact" (rtol 1e-5, atol 1e-6),
-    "tf32" (max|d| <= 1e-2 max|want|) or "rows" (attention's per-row limit,
-    ``row_excess`` <= 1); returns max|d|."""
+    "tf32" (max|d| <= 1e-2 max|want|, the mxu nacc) or a float: a per-row
+    limit of that share of each row's largest value (``row_excess`` <= 1;
+    attention's and the matmul's output); returns max|d|."""
     import torch
 
-    from repro_torch.kernels.flash_attention.ref import (TF32_ROW_TOL,
-                                                         row_excess)
+    from repro_torch.kernels.flash_attention.ref import row_excess
 
     err = _max_err(got, want)
     if not torch.isfinite(got.float()).all():
         failures.append(f"{what}: non-finite values")
-    elif tol == "rows":
-        excess = row_excess(got, want)
+    elif isinstance(tol, float):
+        excess = row_excess(got, want, tol)
         if excess > 1:
             failures.append(f"{what}: max|d|={err:.3g}, {excess:.3g} times "
-                            f"its per-row limit (TF32 rows, {TF32_ROW_TOL})")
+                            f"its per-row limit (TF32 rows, {tol})")
     elif tol == "tf32":
         lim = 1e-2 * float(want.float().abs().max())
         if err > lim:
@@ -357,6 +384,7 @@ def _cases(noise, pnoise, n_steps, vals, cols, x, a, b):
                                                          probe_rt)
     from repro_torch.kernels.noisy_matmul.kernel import (matmul, matmul_plain,
                                                          matmul_rt)
+    from repro_torch.kernels.noisy_matmul.ref import TF32_ROW_TOL
     from repro_torch.kernels.spmv_ell.kernel import (spmv_ell, spmv_ell_plain,
                                                      spmv_ell_rt)
 
@@ -375,7 +403,7 @@ def _cases(noise, pnoise, n_steps, vals, cols, x, a, b):
                          lambda m, k: matmul_rt(k, a, b, noise, mode=m),
                          lambda m, k: matmul(a, b, noise, mode=m, k_noise=k),
                          lambda m, k: matmul_plain(a, b, noise, mode=m, k_noise=k),
-                         "tf32"),
+                         TF32_ROW_TOL),
     }
 
 
@@ -384,6 +412,7 @@ def _attention_case(q, k, v, noise, **kw):
     of the attention kernel on one input set."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention, flash_attention_plain, flash_attention_rt)
+    from repro_torch.kernels.flash_attention.ref import TF32_ROW_TOL
 
     return (("fp", "mxu", "vmem"),
             lambda m, kn: flash_attention_rt(kn, q, k, v, noise, mode=m, **kw),
@@ -391,7 +420,7 @@ def _attention_case(q, k, v, noise, **kw):
                                           **kw),
             lambda m, kn: flash_attention_plain(q, k, v, noise, mode=m,
                                                 k_noise=kn, **kw),
-            "rows")
+            TF32_ROW_TOL)
 
 
 def _check_cases(cases, ks, failures, max_err, full: bool) -> None:
@@ -459,23 +488,43 @@ def _attention_inputs(dev, B, H, KH, S, hd, dtype, seed):
                  to_torch([a.astype(np.float32) for a in arrays], dev))
 
 
-def _bf16_control(q, k, v, noise, label, failures) -> None:
-    """The attention check must refuse what a kernel with bf16 operands
-    would give: the TF32 kernel fed q, k, v rounded to bf16, held against
-    the plain version on the unrounded inputs."""
-    from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_plain, flash_attention_rt)
+def _bf16_control(name, rt, plain, operands, row_tol, label,
+                  failures) -> None:
+    """The per-row output check of kernel ``name`` must refuse what a
+    kernel with bf16 operands would give: the TF32 kernel (``rt``) fed
+    ``operands`` rounded to bf16, held against the plain version on the
+    unrounded inputs."""
     from repro_torch.kernels.flash_attention.ref import row_excess
 
-    want = flash_attention_plain(q, k, v, noise)[0]
-    tf32 = row_excess(flash_attention_rt(0, q, k, v, noise)[0], want)
-    ctl = row_excess(flash_attention_rt(
-        0, *(t.bfloat16().float() for t in (q, k, v)), noise)[0], want)
-    print(f"flash_attention ({label}): per-row excess (<= 1 passes): TF32 "
-          f"kernel {tf32:.3g}, bf16-operand control {ctl:.3g}", flush=True)
+    want = plain(*operands)[0]
+    tf32 = row_excess(rt(*operands)[0], want, row_tol)
+    ctl = row_excess(rt(*(t.bfloat16().float() for t in operands))[0], want,
+                     row_tol)
+    print(f"{name} ({label}): per-row excess (<= 1 passes): TF32 kernel "
+          f"{tf32:.3g}, bf16-operand control {ctl:.3g}", flush=True)
     if ctl <= 1:
-        failures.append(f"flash_attention ({label}): the per-row check passes "
-                        f"a bf16-operand control (excess {ctl:.3g})")
+        failures.append(f"{name} ({label}): the per-row check passes a "
+                        f"bf16-operand control (excess {ctl:.3g})")
+
+
+def _attention_control(q, k, v, noise, label, failures) -> None:
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_plain, flash_attention_rt)
+    from repro_torch.kernels.flash_attention.ref import TF32_ROW_TOL
+
+    _bf16_control("flash_attention",
+                  lambda *qkv: flash_attention_rt(0, *qkv, noise),
+                  lambda *qkv: flash_attention_plain(*qkv, noise),
+                  (q, k, v), TF32_ROW_TOL, label, failures)
+
+
+def _matmul_control(a, b, noise, label, failures) -> None:
+    from repro_torch.kernels.noisy_matmul.kernel import matmul_plain, matmul_rt
+    from repro_torch.kernels.noisy_matmul.ref import TF32_ROW_TOL
+
+    _bf16_control("noisy_matmul", lambda *ab: matmul_rt(0, *ab, noise),
+                  lambda *ab: matmul_plain(*ab, noise), (a, b), TF32_ROW_TOL,
+                  label, failures)
 
 
 def phase_check(main: dict) -> dict:
@@ -504,6 +553,7 @@ def phase_check(main: dict) -> dict:
     all_ks = CHECK_KS + (ns.K_MAX + 7,)
     _check_cases(_cases(noise, noise, 64, vals, cols, x, a, b), all_ks,
                  failures, max_err, full=True)
+    _matmul_control(a, b, noise, "n=512", failures)
     for i, (label, hd, dtype, seq, causal, window, static) in enumerate(
             ATTENTION_CASES):
         q, k, v = _attention_inputs(dev, 2, 8, 2, seq, hd,
@@ -512,7 +562,7 @@ def phase_check(main: dict) -> dict:
                          q, k, v, noise, causal=causal, window=window)},
                      all_ks, failures, max_err, full=static)
         if i == 0:
-            _bf16_control(q, k, v, noise, label, failures)
+            _attention_control(q, k, v, noise, label, failures)
     print(f"main path's shapes: probe {MAIN_PROBE_STEPS} steps, spmv "
           f"n={MAIN_SPMXV_N} L=16 q=0, matmul n={MAIN_MATMUL_N}, attention "
           f"{MAIN_ATTENTION}")
@@ -522,8 +572,10 @@ def phase_check(main: dict) -> dict:
     main_cases["flash_attention"] = _attention_case(
         main["q"], main["k"], main["v"], main["noise"])
     _check_cases(main_cases, (0, 1), failures, max_err, full=False)
-    _bf16_control(main["q"], main["k"], main["v"], main["noise"],
-                  "main shape", failures)
+    _attention_control(main["q"], main["k"], main["v"], main["noise"],
+                       "main shape", failures)
+    _matmul_control(main["a"], main["b"], main["noise"], f"n={MAIN_MATMUL_N}",
+                    failures)
     if failures:
         raise RuntimeError("kernel check failed:\n  " + "\n  ".join(failures))
     return max_err
@@ -692,15 +744,38 @@ def phase_main(tmp: str, kernels: Kernels) -> dict:
     return {name: n_cuda for name, (n_cuda, _) in counts.items()}
 
 
-def _attention_work(q, k, bq=64, bk=64):
+def _attention_work(q, k, causal=True, window=0):
     """Bytes and operations of one attention call: q, k, v read and out
-    written once; two products of 2*bq*bk*hd per live block."""
-    from repro_torch.kernels.flash_attention.kernel import live_blocks
-
+    written once; two products of 2*hd per (query, key) pair the mask
+    keeps (key <= query when causal, query - key < window when set), not
+    the masked half of each diagonal block the kernel also computes."""
     B, H, S, hd = q.shape
-    live = int(live_blocks(S // bq, S // bk, bq, bk, True, 0).sum())
+    pairs = sum((i + 1 if causal else S) - (max(0, i - window + 1)
+                                              if window else 0)
+                for i in range(S))
     nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-    return nbytes + 4 * 1024, 2 * 2 * bq * bk * hd * B * H * live
+    return nbytes + 4 * 1024, 2 * 2 * hd * B * H * pairs
+
+
+def _map_encode_us(a, n: int, iters: int = 10000) -> float:
+    """Host microseconds of the two tensor-map encodes (A and B^T) that
+    every matmul launch makes, the mean of ``iters`` pairs."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import _build
+
+    fn = _build.runtime_lib().repro_matmul_map_us
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+    fn.restype = ctypes.c_double
+    bt = torch.empty_like(a)
+    us = fn(a.data_ptr(), bt.data_ptr(), n, n, n, iters)
+    if us < 0:
+        raise RuntimeError("noisy_matmul: a tensor-map encode failed")
+    print(f"noisy_matmul: two tensor-map encodes per launch take {us!r} us "
+          f"on the host (mean of {iters})")
+    return us
 
 
 def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
@@ -747,6 +822,7 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
                  lambda: matmul_plain(a, b, noise, mode="fp", k_noise=0),
                  tf32_matmul, 4 * (3 * n * n + 1024), 2 * n ** 3, TF32_FLOPS,
                  "torch.matmul with TF32 allowed"))
+    extra = {"noisy_matmul": {"map_encode_us": _map_encode_us(a, n)}}
 
     # noise_probes, 1056 steps
     pnoise = main["noise"]
@@ -771,9 +847,12 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
             torch.backends.cuda.matmul.allow_tf32 = False
 
     qh, kh, vh = (t.bfloat16() for t in (q, k, v))
-    tf32_ms = time_ms(tf32_sdpa)
-    bf16_ms = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True,
-                                   enable_gqa=True))
+
+    def bf16_sdpa():
+        return sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)
+
+    tf32_ms, tf32_dev = time_ms(tf32_sdpa), device_ms(tf32_sdpa)[0]
+    bf16_ms, bf16_dev = time_ms(bf16_sdpa), device_ms(bf16_sdpa)[0]
     rows.append(("flash_attention",
                  lambda: flash_attention_rt(0, q, k, v, noise, mode="fp"),
                  lambda: flash_attention_plain(q, k, v, noise, mode="fp",
@@ -782,9 +861,10 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
                  fa_bytes, fa_ops, TF32_FLOPS,
                  "scaled_dot_product_attention f32, is_causal, enable_gqa "
                  f"(max|d| vs plain {lib_err:.3g}); beside it the same call "
-                 f"with TF32 allowed {tf32_ms!r} ms (the like-for-like "
-                 f"yardstick: TF32 products, as the kernel's) and in bf16 "
-                 f"{bf16_ms!r} ms"))
+                 f"with TF32 allowed {tf32_ms!r} ms, {tf32_dev!r} ms on the "
+                 f"device (the like-for-like yardstick: TF32 products, as "
+                 f"the kernel's) and in bf16 {bf16_ms!r} ms, {bf16_dev!r} ms "
+                 f"on the device"))
 
     meta = Kernels().rows
     out = []
@@ -794,10 +874,16 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
         dev_ms, per_kernel = device_ms(kern)
         plain_ms = time_ms(plain)
         library_ms = time_ms(lib) if lib is not None else None
+        lib_dev_ms = device_ms(lib)[0] if lib is not None else None
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / peak * 1e3
         bound_ms = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        share = {"event": bound_ms / kernel_ms,
+                 "device": bound_ms / dev_ms if dev_ms else None}
+        vs_lib = {"event": kernel_ms / library_ms if library_ms else None,
+                  "device": (dev_ms / lib_dev_ms
+                             if dev_ms and lib_dev_ms else None)}
         print(f"{name}: kernel_ms={kernel_ms!r} (host clock with "
               f"synchronize: {kernel_host_ms!r}) plain_ms={plain_ms!r} "
               f"bound_ms={bound_ms!r} ({bound_by}; {nbytes} bytes, {nops} "
@@ -805,14 +891,20 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
               + (f" [{lib_what}]" if lib_what else "")
               + f" launches on the main path={launches[name]}", flush=True)
         print(f"  device time per call (torch.profiler): {dev_ms!r} ms = "
-              + ", ".join(f"{k} {v!r}" for k, v in per_kernel.items()))
+              + ", ".join(f"{k} {v!r}" for k, v in per_kernel.items())
+              + f"; library call on the device: {lib_dev_ms!r} ms")
+        print(f"  share of the bound (bound / time): {share}; kernel / "
+              f"library call: {vs_lib}", flush=True)
         out.append({"name": name, "route": "cuda",
                     "source": meta[name]["source"],
                     "replaces": meta[name]["replaces"],
                     "launches": launches[name], "max_abs_err": max_err[name],
                     "ms": kernel_ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": library_ms})
+                    "library_ms": library_ms, "device_ms": dev_ms,
+                    "library_device_ms": lib_dev_ms,
+                    "bound_share": share, "vs_library": vs_lib,
+                    **extra.get(name, {})})
     return out
 
 

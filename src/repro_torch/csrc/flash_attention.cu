@@ -10,54 +10,57 @@
 // LIVE block at step = bh*131 + qi*17 + ki, the vmem source being the noise
 // operand (the reference passes src_ref=None).
 //
-// What bounds it on the H100: operations. Per live (bq=64, bk=64) block at
-// hd=128 there are two products of 2*64*64*128 = 1.05 MFLOP; Qwen3-30B-A3B's
-// attention (B=1, H=32, KH=4, S=4096, causal) has 32 x 2080 live blocks,
-// 1.40e11 operations, 0.28 ms at the 495 TFLOP/s TF32 dense peak. Its bytes
-// (q + out 128 MiB, k + v 16 MiB) take 0.045 ms at 3.35 TB/s.
+// What bounds it on the H100: operations. Each (query, key) pair the mask
+// keeps needs two products of 2*hd operations; Qwen3-30B-A3B's attention
+// (B=1, H=32, KH=4, S=4096, causal, hd=128) keeps S(S+1)/2 pairs a head,
+// 1.375e11 operations, 0.278 ms at the 495 TFLOP/s TF32 dense peak (its
+// 32 x 2080 live 64 x 64 blocks also compute the masked half of each
+// diagonal block, 1.5% more). Its bytes (q + out 128 MiB, k + v 16 MiB)
+// take 0.045 ms at 3.35 TB/s.
 //
-// Design (simple first; wgmma, TMA and a pipelined K/V ring come later):
-// * One CTA per (bh, qi), 256 threads = 8 warps, a loop over the live kv
-//   blocks ki inside the CTA in place of Pallas's sequential kv grid axis.
-//   CTAs are issued heaviest-first (largest qi) so causal tails overlap.
-//   Running max and sum live in shared memory, one float per row; the
-//   output accumulator lives in registers as mma C fragments (warp w owns
-//   rows 16*(w%4).. and half of the hd columns).
-// * S = Q K^T and O += P V run on the tensor cores: mma.sync m16n8k8 TF32
-//   with f32 accumulation (the fragment code of noisy_matmul.cu), the fair
-//   counterpart of the TPU's default-precision f32 dot. Softmax runs in IEEE
-//   f32 (expf), four threads per row.
-// * Shared memory: Q (scaled, f32) 64 x (hd+4), one K/V buffer 64 x (hd+8)
-//   that holds K for S and then V for P V, S/P 64 x 68, and for mxu/vmem
-//   the 128 x 132 noise operand: 151 KiB at hd=128, 215 KiB at hd=256 (opt
-//   in with cudaFuncSetAttribute). bf16 q/k/v are widened to f32 when they
-//   are staged, as astype(float32) does.
-// * Blocks smaller than 64 (seq 8..63) are padded: spare Q/K/V rows are
-//   zero, spare S columns take no part in the max and get p = 0, spare
-//   output rows are not stored.
-// * Noise goes into the CTA's (8,128) partial once per live block; the
-//   partials (4 KiB per CTA, 8 MiB at the main shape) are summed by
-//   nacc_reduce in CTA order (bh*nq + qi), so static and runtime k agree
-//   bitwise and the plain version can follow the same order.
+// Design for hd 64 and 128 (f32 and bf16): wgmma fed by a TMA ring.
+// * One CTA per (bh, qi), 256 threads = two warpgroups, issued
+//   heaviest-first (largest qi) so causal tails overlap; a loop over the
+//   live kv blocks ki in place of Pallas's sequential kv grid axis.
+// * A first kernel (fa_prep) writes K rounded to TF32 and V^T rounded to
+//   TF32 per 64-row kv block, widening bf16 and zero-padding blocks below
+//   64 rows (16 MiB of traffic at the main shape): TF32 wgmma takes K-major
+//   operands only, and V (kv x hd, hd contiguous) is not K-major for P V.
+// * Q is loaded once (scaled as the reference does, rounded to TF32) and
+//   held in registers as wgmma A fragments for the whole kv loop. K and
+//   V^T blocks stream through a ring of two stages each (128B-swizzled
+//   shared memory), loaded by TMA and completed on mbarriers; the loads
+//   of the next blocks are in flight during this block's products.
+// * Warpgroup w computes S = Q K^T for kv columns 32w..32w+31 of the block
+//   (wgmma m64n32k8, K from shared memory) and keeps it in registers: the
+//   softmax runs on the accumulator fragments, the two halves exchanging
+//   one row maximum per block through shared memory, which is also the
+//   point where the freed stages are refilled. Then O_w += P_w V_w (wgmma
+//   m64n{hd}k8, P from registers): each warpgroup holds a 64 x hd f32
+//   partial output, summed across the two at the end. P's accumulator
+//   layout gives each thread S columns 2t and 2t+1 of every 8; fa_prep
+//   orders V^T's kv columns to match, so P feeds the product without
+//   shuffles.
+// * The noise slot of a live block runs after its P V products are issued,
+//   overlapping them; it is emitted by the 256 threads in noise_slots.cuh's
+//   ownership layout into the CTA's partial (bh*nq + qi).
+// * Blocks smaller than 64 (seq 8..63): spare Q rows are zero, spare S
+//   columns take no part in the max and get p = 0, spare K/V rows are zero,
+//   spare output rows are not stored.
+// hd 256 keeps the mma.sync kernel below (fa_kernel_mma): two K and two V
+// stages would take 256 KiB, over the 227 KiB a block may hold, and Q's A
+// fragments (128 registers a thread) beside the 64 x 256 output
+// accumulator (128 more) exceed the 255 registers a thread may have.
 #include <cuda_bf16.h>
 
 #include <cmath>
 
+#include "hopper.cuh"
 #include "noise_slots.cuh"
 
 #define FA_BLOCK 64       // the largest bq and bk the kernel takes
 #define FA_SS 68          // S/P row stride (floats): A-fragment reads conflict-free
 #define FA_NEG_INF -1e30f
-
-template <int HD> __host__ __device__ constexpr int fa_qs() { return HD + 4; }   // Q row stride
-template <int HD> __host__ __device__ constexpr int fa_kvs() { return HD + 8; }  // K/V row stride
-
-template <int HD, int MODE>
-constexpr int fa_smem_bytes() {
-  return (FA_BLOCK * fa_qs<HD>() + FA_BLOCK * fa_kvs<HD>() + FA_BLOCK * FA_SS + 3 * FA_BLOCK +
-          ((MODE == MODE_MXU || MODE == MODE_VMEM) ? 128 * REPRO_NZ_STRIDE : 0)) *
-         (int)sizeof(float);
-}
 
 // 4 consecutive elements in and 2 out, for each element type
 template <typename T> struct Elem;
@@ -81,6 +84,359 @@ template <> struct Elem<__nv_bfloat16> {
   }
 };
 
+__device__ __forceinline__ float tf32f(float x) { return __uint_as_float(to_tf32(x)); }
+
+// ===========================================================================
+// wgmma design: hd 64 and 128
+// ===========================================================================
+#define FA_NZ_BYTES (128 * REPRO_NZ_STRIDE * 4)
+#define FA_SLICE_BYTES (FA_BLOCK * HOP_ROW_BYTES)   // 64 rows x 32 floats of Q or K
+
+template <int HD> __host__ __device__ constexpr int fa_tile_bytes() { return FA_BLOCK * HD * 4; }
+template <int MODE> __host__ __device__ constexpr bool fa_staged_noise() {
+  return MODE == MODE_MXU || MODE == MODE_VMEM;
+}
+#define FA_DEPTH 2   // K and V^T stages in the ring
+
+// mirrored by kernels/flash_attention/kernel.py smem_bytes: FA_DEPTH K and
+// V^T stages (Q passes through the first K stage on its way to registers),
+// the noise operand (mxu, vmem), the row-max exchange (2 x 2 x 64 floats),
+// the K and V barriers, and slack to align to 1024
+template <int HD, int MODE>
+__host__ __device__ constexpr int fa_wgmma_bytes() {
+  return fa_tile_bytes<HD>() * 2 * FA_DEPTH + (fa_staged_noise<MODE>() ? FA_NZ_BYTES : 0) +
+         1024 + 16 * FA_DEPTH + 1024;
+}
+
+// One block per (kv head, kv block): kp = K rounded to TF32, 64 rows of hd
+// (rows >= bk zero); vt = V^T rounded to TF32, hd rows of 64 kv columns,
+// column 8j + e holding kv row 8j + 2e (e < 4) or 8j + 2(e-4) + 1 (e >= 4),
+// the order in which P's accumulator fragments hold the columns.
+template <typename T, int HD>
+__global__ void __launch_bounds__(REPRO_THREADS)
+fa_prep(const T* __restrict__ k, const T* __restrict__ v, float* __restrict__ kp,
+        float* __restrict__ vt, int Sk, int bk, int nk) {
+  __shared__ float vs[FA_BLOCK][HD + 1];
+  const int blk = blockIdx.x, kvh = blk / nk, ki = blk % nk;
+  const size_t src = ((size_t)kvh * Sk + (size_t)ki * bk) * HD;
+  float* kd = kp + (size_t)blk * FA_BLOCK * HD;
+  for (int i = threadIdx.x; i < FA_BLOCK * HD / 4; i += REPRO_THREADS) {
+    const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
+    if (r < bk) {
+      x = Elem<T>::load4(k + src + (size_t)r * HD + c);
+      y = Elem<T>::load4(v + src + (size_t)r * HD + c);
+    }
+    *reinterpret_cast<float4*>(kd + r * HD + c) =
+        make_float4(tf32f(x.x), tf32f(x.y), tf32f(x.z), tf32f(x.w));
+    vs[r][c] = y.x; vs[r][c + 1] = y.y; vs[r][c + 2] = y.z; vs[r][c + 3] = y.w;
+  }
+  __syncthreads();
+  float* vd = vt + (size_t)blk * HD * FA_BLOCK;
+  for (int i = threadIdx.x; i < HD * FA_BLOCK; i += REPRO_THREADS) {
+    const int c = i / FA_BLOCK, pos = i % FA_BLOCK, e = pos & 7;
+    vd[i] = tf32f(vs[(pos & ~7) + (e < 4 ? 2 * e : 2 * e - 7)][c]);
+  }
+}
+
+template <typename T, int HD, int MODE, int SK>
+__global__ void __launch_bounds__(REPRO_THREADS, 1)
+fa_kernel_wgmma(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                const T* __restrict__ q, const float* __restrict__ noise, T* __restrict__ out,
+                float* __restrict__ partials, int H, int KH, int Sq, int Sk, int bq, int bk,
+                int causal, int window, float scale, int kn) {
+  constexpr int D = FA_DEPTH;
+  static_assert(fa_wgmma_bytes<HD, MODE>() <= REPRO_SMEM_MAX, "shared memory");
+  constexpr int TILE = fa_tile_bytes<HD>();
+  constexpr int NJ = HD / 8;   // 8-column output chunks: o holds 4 floats of each
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Ks = align_1024(smem_raw);              // D stages of K: HD/32 swizzled 64 x 32 slices
+  uint8_t* Qs = Ks;                                // Q, like K, until it is in registers
+  uint8_t* Vs = Ks + D * TILE;                     // D stages of V^T: two hd x 32 halves
+  float* Ns = reinterpret_cast<float*>(Vs + D * TILE);   // mxu / vmem: noise operand
+  float* red = reinterpret_cast<float*>(reinterpret_cast<uint8_t*>(Ns) +
+                                        (fa_staged_noise<MODE>() ? FA_NZ_BYTES : 0));
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(red + 256);
+  uint64_t* vfull = kfull + D;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int nq = Sq / bq, nk = Sk / bk;
+  const int bh = blockIdx.x / nq;
+  const int qi = nq - 1 - blockIdx.x % nq;  // heaviest causal blocks first
+  const int kvh = (bh / H) * KH + (bh % H) / (H / KH);
+  const int q0 = qi * bq;
+  // live kv blocks lo..hi: not entirely above the diagonal, not entirely
+  // out of the window
+  int hi = nk - 1, lo = 0;
+  if (causal) hi = min(hi, (q0 + bq - 1) / bk);
+  if (window)
+    while (lo <= hi && q0 - (lo * bk + bk - 1) >= window) ++lo;
+  const int n_live = hi - lo + 1;
+
+  if (tid == 0) {
+    for (int s = 0; s < D; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&vfull[s], 1);
+    }
+    fence_barrier_init();
+  }
+  for (int i = tid; i < FA_BLOCK * HD / 4; i += REPRO_THREADS) {   // Q * scale, TF32
+    const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < bq) {
+      x = Elem<T>::load4(q + ((size_t)bh * Sq + q0 + r) * HD + c);
+      x = make_float4(tf32f(x.x * scale), tf32f(x.y * scale), tf32f(x.z * scale),
+                      tf32f(x.w * scale));
+    }
+    *reinterpret_cast<float4*>(reinterpret_cast<float*>(Qs + (c >> 5) * FA_SLICE_BYTES) +
+                               swz(r, c & 31)) = x;
+  }
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  float fc[4];
+  if constexpr (MODE == MODE_FP) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) fc[r] = __ldg(noise + own_row(tid, r) * 128 + own_col(tid));
+  }
+  if constexpr (fa_staged_noise<MODE>()) stage_noise(noise, Ns, tid);
+  __syncthreads();
+
+  // Q as wgmma A fragments, held for the whole kv loop: k-step kc of warp
+  // w's rows r0 = 16w + g and r1 = r0 + 8 at columns 8kc + t and 8kc + t + 4
+  const int r0 = (warp & 3) * 16 + g, r1 = r0 + 8;   // this thread's two rows
+  uint32_t qa[HD / 8][4];
+#pragma unroll
+  for (int kc = 0; kc < HD / 8; ++kc) {
+    const uint32_t* qs = reinterpret_cast<const uint32_t*>(Qs + (kc >> 2) * FA_SLICE_BYTES);
+    const int col = (kc & 3) * 8 + t;
+    qa[kc][0] = qs[swz(r0, col)];
+    qa[kc][1] = qs[swz(r1, col)];
+    qa[kc][2] = qs[swz(r0, col + 4)];
+    qa[kc][3] = qs[swz(r1, col + 4)];
+  }
+  fence_proxy_async();   // Q's slot in the first K stage goes back to TMA
+  __syncthreads();
+
+  const CUtensorMap* mk = &tk;
+  const CUtensorMap* mv = &tv;
+  auto load_k = [=](int i) {   // live block i into K stage i % D
+    const int s = i % D, row = (kvh * nk + lo + i) * FA_BLOCK;
+    mbar_expect_tx(&kfull[s], TILE);
+    for (int c = 0; c < HD / 32; ++c)
+      tma_load_2d(Ks + s * TILE + c * FA_SLICE_BYTES, mk, &kfull[s], c * 32, row);
+  };
+  auto load_v = [=](int i) {   // and its V^T into V stage i % D
+    const int s = i % D, row = (kvh * nk + lo + i) * HD;
+    mbar_expect_tx(&vfull[s], TILE);
+    for (int h = 0; h < 2; ++h)
+      tma_load_2d(Vs + s * TILE + h * HD * HOP_ROW_BYTES, mv, &vfull[s], h * 32, row);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < D && i < n_live; ++i) load_k(i);
+    for (int i = 0; i < D - 1 && i < n_live; ++i) load_v(i);
+  }
+
+  float o[HD / 2];
+#pragma unroll
+  for (int j = 0; j < HD / 2; ++j) o[j] = 0.f;
+  const int qp0 = q0 + r0, qp1 = q0 + r1;
+  float m0 = FA_NEG_INF, m1 = FA_NEG_INF, l0 = 0.f, l1 = 0.f;
+
+  for (int i = 0; i < n_live; ++i) {
+    const int ki = lo + i, k0 = ki * bk, s = i % D;
+    const uint32_t par = (i / D) & 1;
+
+    // S = (q * scale) K^T for this warpgroup's 32 kv columns
+    float sc[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) sc[j] = 0.f;
+    mbar_wait(&kfull[s], par);
+    wgmma_fence();
+    const uint8_t* ks = Ks + s * TILE + wg * 32 * HOP_ROW_BYTES;
+#pragma unroll
+    for (int kc = 0; kc < HD / 8; ++kc)
+      wgmma_m64n32k8_rs(sc, qa[kc], desc_sw128(ks + (kc >> 2) * FA_SLICE_BYTES) + (kc & 3) * 2, 1);
+    wgmma_commit();
+    wgmma_wait<0>();   // also the previous block's P V
+    fence_regs(sc);
+    fence_regs(o);
+
+    // mask; this half's row maxima, exchanged with the other warpgroup
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = wg * 32 + j * 8 + 2 * t + e, kpos = k0 + col;
+        const bool keep0 = (!causal || qp0 >= kpos) && (!window || qp0 - kpos < window);
+        const bool keep1 = (!causal || qp1 >= kpos) && (!window || qp1 - kpos < window);
+        sc[4 * j + e] = keep0 ? sc[4 * j + e] : FA_NEG_INF;
+        sc[4 * j + 2 + e] = keep1 ? sc[4 * j + 2 + e] : FA_NEG_INF;
+        if (col < bk) {
+          mx0 = fmaxf(mx0, sc[4 * j + e]);
+          mx1 = fmaxf(mx1, sc[4 * j + 2 + e]);
+        }
+      }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+    }
+    float* rb = red + (i & 1) * 128;
+    if (t == 0) {
+      rb[wg * 64 + r0] = mx0;
+      rb[wg * 64 + r1] = mx1;
+    }
+    __syncthreads();   // both halves' S are done: K stage s and V of block i-1 are free
+    if (tid == 0) {
+      if (i + D < n_live) load_k(i + D);
+      if (i + D - 1 < n_live) load_v(i + D - 1);
+    }
+    const float mn0 = fmaxf(m0, fmaxf(rb[r0], rb[64 + r0]));
+    const float mn1 = fmaxf(m1, fmaxf(rb[r1], rb[64 + r1]));
+
+    // P = exp(S - m), row sums, corrections
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool valid = wg * 32 + j * 8 + 2 * t + e < bk;
+        const float p0 = valid ? expf(sc[4 * j + e] - mn0) : 0.f;
+        const float p1 = valid ? expf(sc[4 * j + 2 + e] - mn1) : 0.f;
+        sc[4 * j + e] = p0;
+        sc[4 * j + 2 + e] = p1;
+        sum0 += p0;
+        sum1 += p1;
+      }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      sum0 += __shfl_xor_sync(0xffffffffu, sum0, x);
+      sum1 += __shfl_xor_sync(0xffffffffu, sum1, x);
+    }
+    const float cr0 = expf(m0 - mn0), cr1 = expf(m1 - mn1);
+    l0 = cr0 * l0 + sum0;
+    l1 = cr1 * l1 + sum1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      o[4 * j] *= cr0; o[4 * j + 1] *= cr0;
+      o[4 * j + 2] *= cr1; o[4 * j + 3] *= cr1;
+    }
+
+    // O_w += P_w V_w: P's fragment columns t and t+4 are S columns 2t, 2t+1
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      pa[j][0] = to_tf32(sc[4 * j]);
+      pa[j][1] = to_tf32(sc[4 * j + 2]);
+      pa[j][2] = to_tf32(sc[4 * j + 1]);
+      pa[j][3] = to_tf32(sc[4 * j + 3]);
+    }
+    mbar_wait(&vfull[s], par);
+    wgmma_fence();
+    const uint64_t dv = desc_sw128(Vs + s * TILE + wg * HD * HOP_ROW_BYTES);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (HD == 128) wgmma_m64n128k8_rs(o, pa[j], dv + 2 * j, 1);
+      else wgmma_m64n64k8_rs(o, pa[j], dv + 2 * j, 1);
+    }
+    wgmma_commit();
+
+    // noise slot of this live block, overlapping the P V products
+    const int step = bh * 131 + qi * 17 + ki;
+    if constexpr (MODE == MODE_FP) fp_noise<SK>(acc, fc, kn);
+    else if constexpr (MODE == MODE_VMEM) vmem_noise<SK>(acc, Ns, REPRO_NZ_STRIDE, 128, 128, step, kn, tid);
+    else if constexpr (MODE == MODE_MXU) mxu_noise_lean<SK>(acc, Ns, REPRO_NZ_STRIDE, kn, tid);
+  }
+  wgmma_wait<0>();
+  fence_regs(o);
+
+  // out = (O_0 + O_1) / (l_0 + l_1): warpgroup w finishes columns of half w
+  __syncthreads();   // no product reads the stages any more
+  constexpr int XS = HD + 8;
+  float* xo = reinterpret_cast<float*>(Ks);   // 64 x XS: the other half's partial
+  if (t == 0) {
+    red[wg * 64 + r0] = l0;
+    red[wg * 64 + r1] = l1;
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+    if (j / (NJ / 2) != wg) {
+      const int col = j * 8 + 2 * t;
+      *reinterpret_cast<float2*>(xo + r0 * XS + col) = make_float2(o[4 * j], o[4 * j + 1]);
+      *reinterpret_cast<float2*>(xo + r1 * XS + col) = make_float2(o[4 * j + 2], o[4 * j + 3]);
+    }
+  __syncthreads();
+  const float lt0 = red[r0] + red[64 + r0], lt1 = red[r1] + red[64 + r1];
+  const float sf0 = lt0 == 0.f ? 1.f : lt0, sf1 = lt1 == 0.f ? 1.f : lt1;
+  T* orow = out + ((size_t)bh * Sq + q0) * HD;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+    if (j / (NJ / 2) == wg) {
+      const int col = j * 8 + 2 * t;
+      const float2 x0 = *reinterpret_cast<const float2*>(xo + r0 * XS + col);
+      const float2 x1 = *reinterpret_cast<const float2*>(xo + r1 * XS + col);
+      if (r0 < bq)
+        Elem<T>::store2(orow + (size_t)r0 * HD + col, (o[4 * j] + x0.x) / sf0,
+                        (o[4 * j + 1] + x0.y) / sf0);
+      if (r1 < bq)
+        Elem<T>::store2(orow + (size_t)r1 * HD + col, (o[4 * j + 2] + x1.x) / sf1,
+                        (o[4 * j + 3] + x1.y) / sf1);
+    }
+  write_partial<MODE>(partials + ((size_t)bh * nq + qi) * REPRO_NACC, acc, tid);
+}
+
+// kp, vt: f32 scratch of B*KH*(Sk/bk)*64*hd floats each
+template <typename T, int HD, int MODE, int SK>
+static cudaError_t launch_fa_wgmma(const void* q, const void* k, const void* v,
+                                   const float* noise, void* out, float* kp, float* vt,
+                                   float* partials, float* scratch, float* nacc, int B, int H,
+                                   int KH, int Sq, int Sk, int bq, int bk, int causal, int window,
+                                   int smem, int kn, cudaStream_t st) {
+  if (smem != fa_wgmma_bytes<HD, MODE>()) return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(fa_kernel_wgmma<T, HD, MODE, SK>, smem);
+  if (e != cudaSuccess) return e;
+  const int nk = Sk / bk, blocks = B * KH * nk;
+  CUtensorMap tk, tv;
+  if ((e = make_map_f32(&tk, kp, HD, blocks * FA_BLOCK, FA_BLOCK)) != cudaSuccess) return e;
+  if ((e = make_map_f32(&tv, vt, FA_BLOCK, blocks * HD, HD)) != cudaSuccess) return e;
+  fa_prep<T, HD><<<blocks, REPRO_THREADS, 0, st>>>((const T*)k, (const T*)v, kp, vt, Sk, bk, nk);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  // the reference's scale: 1.0 / math.sqrt(hd) in double, used as an f32
+  const float scale = (float)(1.0 / std::sqrt((double)HD));
+  const int n_cta = B * H * (Sq / bq);
+  fa_kernel_wgmma<T, HD, MODE, SK><<<n_cta, REPRO_THREADS, smem, st>>>(
+      tk, tv, (const T*)q, noise, (T*)out, partials, H, KH, Sq, Sk, bq, bk, causal, window, scale,
+      kn);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  return reduce_partials(partials, n_cta, scratch, nacc, st);
+}
+
+// ===========================================================================
+// mma.sync design, kept for hd 256
+// ===========================================================================
+// * 256 threads = 8 warps; running max and sum in shared memory, one float
+//   per row; the output accumulator in mma C fragments (warp w owns rows
+//   16*(w%4).. and half of the hd columns). S = Q K^T and O += P V run as
+//   mma.sync m16n8k8 TF32 from shared memory; softmax in IEEE f32 (expf),
+//   four threads per row through an S/P tile in shared memory.
+// * Shared memory: Q (scaled, f32) 64 x (hd+4), one K/V buffer 64 x (hd+8)
+//   that holds K for S and then V for P V, S/P 64 x 68, and for mxu/vmem
+//   the 128 x 132 noise operand: 215 KiB at hd=256. bf16 q/k/v are
+//   widened to f32 when they are staged.
+
+template <int HD> __host__ __device__ constexpr int fa_qs() { return HD + 4; }   // Q row stride
+template <int HD> __host__ __device__ constexpr int fa_kvs() { return HD + 8; }  // K/V row stride
+
+template <int HD, int MODE>
+__host__ __device__ constexpr int fa_mma_bytes() {
+  return (FA_BLOCK * fa_qs<HD>() + FA_BLOCK * fa_kvs<HD>() + FA_BLOCK * FA_SS + 3 * FA_BLOCK +
+          ((MODE == MODE_MXU || MODE == MODE_VMEM) ? 128 * REPRO_NZ_STRIDE : 0)) *
+         (int)sizeof(float);
+}
+
 // Copy `rows` rows of HD elements (row-major, contiguous) into a 64-row f32
 // tile with row stride `stride`, multiplied by `mul`; rows >= `rows` are zero.
 template <typename T, int HD>
@@ -100,7 +456,7 @@ __device__ __forceinline__ void stage_tile(const T* __restrict__ src, int rows, 
 
 template <typename T, int HD, int MODE, int SK>
 __global__ void __launch_bounds__(REPRO_THREADS)
-fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+fa_kernel_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           const float* __restrict__ noise, T* __restrict__ out, float* __restrict__ partials,
           int H, int KH, int Sq, int Sk, int bq, int bk, int causal, int window, float scale,
           int kn) {
@@ -262,17 +618,17 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 }
 
 template <typename T, int HD, int MODE, int SK>
-static cudaError_t launch_fa(const void* q, const void* k, const void* v, const float* noise,
-                             void* out, float* partials, float* scratch, float* nacc, int B,
-                             int H, int KH, int Sq, int Sk, int bq, int bk, int causal,
-                             int window, int kn, cudaStream_t st) {
-  const int smem = fa_smem_bytes<HD, MODE>();
-  cudaError_t e = allow_smem(fa_kernel<T, HD, MODE, SK>, smem);
+static cudaError_t launch_fa_mma(const void* q, const void* k, const void* v,
+                                 const float* noise, void* out, float* partials, float* scratch,
+                                 float* nacc, int B, int H, int KH, int Sq, int Sk, int bq, int bk,
+                                 int causal, int window, int smem, int kn, cudaStream_t st) {
+  if (smem != fa_mma_bytes<HD, MODE>()) return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(fa_kernel_mma<T, HD, MODE, SK>, smem);
   if (e != cudaSuccess) return e;
   // the reference's scale: 1.0 / math.sqrt(hd) in double, used as an f32
   const float scale = (float)(1.0 / std::sqrt((double)HD));
   const int n_cta = B * H * (Sq / bq);
-  fa_kernel<T, HD, MODE, SK><<<n_cta, REPRO_THREADS, smem, st>>>(
+  fa_kernel_mma<T, HD, MODE, SK><<<n_cta, REPRO_THREADS, smem, st>>>(
       (const T*)q, (const T*)k, (const T*)v, noise, (T*)out, partials, H, KH, Sq, Sk, bq, bk,
       causal, window, scale, kn);
   e = cudaGetLastError();
@@ -280,15 +636,22 @@ static cudaError_t launch_fa(const void* q, const void* k, const void* v, const 
   return reduce_partials(partials, n_cta, scratch, nacc, st);
 }
 
-// dtype: 0 = float32, 1 = bfloat16
+// dtype: 0 = float32, 1 = bfloat16; hd 64 and 128 take the wgmma kernel,
+// hd 256 the mma.sync one
 template <int MODE, int SK>
 static cudaError_t dispatch_fa(const void* q, const void* k, const void* v, const float* noise,
-                               void* out, float* partials, float* scratch, float* nacc, int B,
-                               int H, int KH, int Sq, int Sk, int hd, int bq, int bk, int causal,
-                               int window, int dtype, int kn, cudaStream_t st) {
-#define FA_CASE(TYPE, HDV)                                                                      \
-  return launch_fa<TYPE, HDV, MODE, SK>(q, k, v, noise, out, partials, scratch, nacc, B, H, KH, \
-                                        Sq, Sk, bq, bk, causal, window, kn, st)
+                               void* out, float* kp, float* vt, float* partials, float* scratch,
+                               float* nacc, int B, int H, int KH, int Sq, int Sk, int hd, int bq,
+                               int bk, int causal, int window, int dtype, int smem, int kn,
+                               cudaStream_t st) {
+#define FA_CASE(TYPE, HDV)                                                                       \
+  if constexpr (HDV == 256)                                                                      \
+    return launch_fa_mma<TYPE, HDV, MODE, SK>(q, k, v, noise, out, partials, scratch, nacc, B, H, \
+                                              KH, Sq, Sk, bq, bk, causal, window, smem, kn, st); \
+  else                                                                                           \
+    return launch_fa_wgmma<TYPE, HDV, MODE, SK>(q, k, v, noise, out, kp, vt, partials, scratch,   \
+                                                nacc, B, H, KH, Sq, Sk, bq, bk, causal, window,  \
+                                                smem, kn, st)
 #ifdef REPRO_STATIC_HD   // a static-k build holds the one variant it was built for
   if (hd != REPRO_STATIC_HD || dtype != REPRO_STATIC_BF16) return cudaErrorInvalidValue;
 #if REPRO_STATIC_BF16
@@ -298,40 +661,43 @@ static cudaError_t dispatch_fa(const void* q, const void* k, const void* v, cons
 #endif
 #else
   if (dtype == 0) {
-    if (hd == 64) FA_CASE(float, 64);
-    if (hd == 128) FA_CASE(float, 128);
-    if (hd == 256) FA_CASE(float, 256);
+    if (hd == 64) { FA_CASE(float, 64); }
+    if (hd == 128) { FA_CASE(float, 128); }
+    if (hd == 256) { FA_CASE(float, 256); }
   } else if (dtype == 1) {
-    if (hd == 64) FA_CASE(__nv_bfloat16, 64);
-    if (hd == 128) FA_CASE(__nv_bfloat16, 128);
-    if (hd == 256) FA_CASE(__nv_bfloat16, 256);
+    if (hd == 64) { FA_CASE(__nv_bfloat16, 64); }
+    if (hd == 128) { FA_CASE(__nv_bfloat16, 128); }
+    if (hd == 256) { FA_CASE(__nv_bfloat16, 256); }
   }
   return cudaErrorInvalidValue;
 #endif
 #undef FA_CASE
 }
 
+// kp, vt: scratch for the wgmma kernel's K and V^T (unused at hd 256);
+// smem: the wrapper's mirror of the kernel's shared memory (refused if it
+// disagrees)
 #ifdef REPRO_STATIC_K
 extern "C" int repro_attention_static(const void* q, const void* k, const void* v,
-                                      const float* noise, void* out, float* partials,
-                                      float* scratch, float* nacc, int B, int H, int KH, int Sq,
-                                      int Sk, int hd, int bq, int bk, int causal, int window,
-                                      int dtype, void* stream) {
+                                      const float* noise, void* out, float* kp, float* vt,
+                                      float* partials, float* scratch, float* nacc, int B, int H,
+                                      int KH, int Sq, int Sk, int hd, int bq, int bk, int causal,
+                                      int window, int dtype, int smem, void* stream) {
   return (int)dispatch_fa<REPRO_STATIC_MODE, REPRO_STATIC_K>(
-      q, k, v, noise, out, partials, scratch, nacc, B, H, KH, Sq, Sk, hd, bq, bk, causal, window,
-      dtype, REPRO_STATIC_K, (cudaStream_t)stream);
+      q, k, v, noise, out, kp, vt, partials, scratch, nacc, B, H, KH, Sq, Sk, hd, bq, bk, causal,
+      window, dtype, smem, REPRO_STATIC_K, (cudaStream_t)stream);
 }
 #else
 extern "C" int repro_attention_rt(const void* q, const void* k, const void* v, const float* noise,
-                                  void* out, float* partials, float* scratch, float* nacc, int B,
-                                  int H, int KH, int Sq, int Sk, int hd, int bq, int bk,
-                                  int causal, int window, int dtype, int mode, int kn,
-                                  void* stream) {
+                                  void* out, float* kp, float* vt, float* partials,
+                                  float* scratch, float* nacc, int B, int H, int KH, int Sq,
+                                  int Sk, int hd, int bq, int bk, int causal, int window,
+                                  int dtype, int smem, int mode, int kn, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   kn = clip_k(kn);
-#define FA_MODE(M)                                                                           \
-  return (int)dispatch_fa<M, -1>(q, k, v, noise, out, partials, scratch, nacc, B, H, KH, Sq, \
-                                 Sk, hd, bq, bk, causal, window, dtype, kn, st)
+#define FA_MODE(M)                                                                             \
+  return (int)dispatch_fa<M, -1>(q, k, v, noise, out, kp, vt, partials, scratch, nacc, B, H, KH, \
+                                 Sq, Sk, hd, bq, bk, causal, window, dtype, smem, kn, st)
   switch (mode) {
     case MODE_NONE: FA_MODE(MODE_NONE);
     case MODE_FP: FA_MODE(MODE_FP);

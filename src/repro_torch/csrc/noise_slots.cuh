@@ -145,6 +145,40 @@ __device__ __forceinline__ void mxu_noise(float (&acc)[4], const float* nz, int 
   });
 }
 
+// mxu_noise for kernels whose accumulators hold most of the registers (the
+// wgmma matmul and attention): the same loads and products in the same
+// order per 8-column tile, with the K loop unrolled by two only, so at most
+// two k-steps' operands are in flight and nothing spills. mxu_noise stays
+// where it fits: in the same kernel on the H100 this slot costs 7% (probe)
+// to 22% (hd-256 attention) more a pattern (src/repro_torch/launch/slot_cost.py).
+template <int SK>
+__device__ __forceinline__ void mxu_noise_lean(float (&acc)[4], const float* nz, int stride, int k,
+                                               int tid) {
+  const volatile float* v = nz;
+  const int w = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  repeat_k<SK>(k, [&](int) {
+    float d[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll 2
+    for (int ks = 0; ks < 16; ++ks) {
+      const int kc = ks * 8;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int n0 = (2 * w + q) * 8;
+        const uint32_t a0 = to_tf32(v[g * stride + kc + t]);
+        const uint32_t a2 = to_tf32(v[g * stride + kc + t + 4]);
+        const uint32_t b0 = to_tf32(v[(kc + t) * stride + n0 + g]);
+        const uint32_t b1 = to_tf32(v[(kc + t + 4) * stride + n0 + g]);
+        mma_tf32(d[q], a0, 0u, a2, 0u, b0, b1);   // A rows 8..15 are the zero pad
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      acc[2 * q] = __fadd_rn(acc[2 * q], d[q][0]);
+      acc[2 * q + 1] = __fadd_rn(acc[2 * q + 1], d[q][1]);
+    }
+  });
+}
+
 // Copy a 128x128 f32 operand (16-byte aligned) into shared memory with row
 // stride REPRO_NZ_STRIDE. The caller synchronises before use.
 __device__ __forceinline__ void stage_noise(const float* __restrict__ noise, float* dst, int tid) {

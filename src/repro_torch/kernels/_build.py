@@ -6,7 +6,9 @@ Two builds of every kernel, both from ``src/repro_torch/csrc/``:
 * **runtime k** — one shared library holding every kernel, each templated
   on its noise mode, with k a plain ``int`` argument clipped to [0, K_MAX].
   Each ``.cu`` compiles to an object in its own ``nvcc`` process, all
-  started together, and one ``nvcc -shared`` links them;
+  started together, and one ``nvcc -shared`` links them; ptxas's register
+  and spill report of every kernel (``-Xptxas -v``) is kept beside the
+  library (``ptxas_usage``);
 * **static k** — one library per (kernel, mode, k), compiled with
   ``-DREPRO_STATIC_MODE=<mode id> -DREPRO_STATIC_K=<k>`` so the noise loop
   is fully unrolled: the trace-per-k fallback and the payload-check build.
@@ -26,6 +28,7 @@ import ctypes
 import functools
 import glob
 import hashlib
+import json
 import os
 import re
 import shutil
@@ -80,17 +83,21 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def _run(cmds: list[list[str]]) -> None:
+def _run(cmds: list[list[str]]) -> list[str]:
+    """Run the commands together; their merged stdout and stderr, in order.
+    Raises with the output of every command that failed."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
-    errors = []
+    outs, errors = [], []
     for cmd, p in zip(cmds, procs):
         out, _ = p.communicate()
+        outs.append(out)
         if p.returncode:
             errors.append(f"$ {' '.join(cmd)}\n{out}")
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    return outs
 
 
 def _load(path: str) -> ctypes.CDLL:
@@ -110,21 +117,66 @@ def runtime_lib() -> ctypes.CDLL:
     with _lock_for(path):
         if path in _LIBS:
             return _LIBS[path]
-        if not os.path.exists(path):
+        if not (os.path.exists(path) and os.path.exists(_usage_path(path))):
             os.makedirs(BUILD_DIR, exist_ok=True)
             nvcc = nvcc_path()
             tag = f"{os.getpid()}.{threading.get_ident()}"
             objs = [os.path.join(BUILD_DIR, f"{name}.{tag}.o")
                     for name in KERNEL_SOURCES]
-            _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj,
-                   os.path.join(CSRC, f"{name}.cu")]
-                  for name, obj in zip(KERNEL_SOURCES, objs)])
+            outs = _run([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                          obj, os.path.join(CSRC, f"{name}.cu")]
+                         for name, obj in zip(KERNEL_SOURCES, objs)])
+            usage = {name: _parse_ptxas(out, nvcc)
+                     for name, out in zip(KERNEL_SOURCES, outs)}
+            with open(f"{path}.{tag}.ptxas", "w") as f:
+                json.dump(usage, f)
+            os.replace(f"{path}.{tag}.ptxas", _usage_path(path))
             tmp = f"{path}.{tag}.tmp"
             _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
             for obj in objs:
                 os.remove(obj)
             os.replace(tmp, path)   # atomic: no reader sees a partial file
         return _load(path)
+
+
+def _usage_path(lib_path: str) -> str:
+    return lib_path[:-len(".so")] + ".ptxas.json"
+
+
+def _parse_ptxas(out: str, nvcc: str) -> dict:
+    """{kernel entry: [registers, spill store bytes, spill load bytes]}
+    from ``-Xptxas -v`` output; entries are demangled when the toolkit has
+    ``cu++filt``."""
+    usage, entry, spills = {}, None, [0, 0]
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            usage[entry] = [int(m.group(1)), *spills]
+            entry, spills = None, [0, 0]
+    filt = os.path.join(os.path.dirname(nvcc), "cu++filt")
+    if usage and os.path.isfile(filt):
+        names = subprocess.run([filt], input="\n".join(usage), text=True,
+                               capture_output=True, check=True).stdout
+        usage = dict(zip(names.splitlines(), usage.values()))
+    return usage
+
+
+def ptxas_usage(kernel: str) -> dict:
+    """{kernel entry: [registers, spill store bytes, spill load bytes]} of
+    every entry in ``csrc/<kernel>.cu`` as the runtime-k build compiled it
+    (its ``-Xptxas -v`` output, kept beside the library)."""
+    path = runtime_lib_path()
+    if not os.path.exists(_usage_path(path)):
+        runtime_lib()
+    with open(_usage_path(path)) as f:
+        return json.load(f)[kernel]
 
 
 def static_lib_path(kernel: str, mode_id: int, k: int,

@@ -12,7 +12,8 @@ window) compute, and each live block adds k noise patterns at
 return ``(out, nacc)``. For tensors on the CPU they take the plain version
 ``flash_attention_plain``; for CUDA tensors they launch
 ``csrc/flash_attention.cu`` (f32 or bf16, hd in ``HEAD_DIMS``, blocks of at
-most 64, TF32 tensor cores) or raise.
+most 64, TF32 tensor cores: wgmma fed by a TMA ring at hd 64 and 128,
+mma.sync at hd 256) or raise.
 """
 from __future__ import annotations
 
@@ -26,8 +27,31 @@ from repro_torch.kernels.noisy_matmul.ref import default_noise_operand
 
 TILE = 64                       # the CUDA kernel's largest bq and bk
 HEAD_DIMS = (64, 128, 256)      # the head dims the CUDA kernel is built for
+WGMMA_HEAD_DIMS = (64, 128)     # ... by its wgmma design; hd 256 by mma.sync
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 NEG_INF = -1e30
+
+# csrc/flash_attention.cu's shared-memory layouts, mirrored (f32 in shared
+# memory whatever the input type, so the dtype does not enter).
+NZ_BYTES = 128 * 132 * 4     # the staged noise operand (mxu, vmem)
+KV_DEPTH = 2                 # K and V^T stages in the wgmma kernel's ring
+
+
+def smem_bytes(hd: int, mode: str) -> int:
+    """Dynamic shared memory the CUDA kernel takes at head dim ``hd`` in
+    ``mode``; the launch passes it and the kernel refuses a value other
+    than its own. hd 64 and 128 (wgmma): ``KV_DEPTH`` K and V^T stages of
+    64 x hd f32 (Q passes through the first K stage on its way to
+    registers), the noise operand in mxu and vmem, the row-max exchange
+    (2 x 2 x 64 f32), a K and a V mbarrier per stage, and slack to align
+    the tiles to 1024. hd 256 (mma.sync): Q (hd+4), one K/V buffer (hd+8)
+    and S/P (68) row strides over 64 rows, m, l and the correction, the
+    noise operand in mxu and vmem."""
+    noise = NZ_BYTES if mode in ("mxu", "vmem") else 0
+    if hd in WGMMA_HEAD_DIMS:
+        return (TILE * hd * 4 * 2 * KV_DEPTH + noise + 1024 + 16 * KV_DEPTH
+                + 1024)
+    return 4 * (TILE * (hd + 4) + TILE * (hd + 8) + TILE * 68 + 3 * TILE) + noise
 
 
 def _shapes(q, k, v, bq, bk):
@@ -162,12 +186,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"noise must be a float32 {ns.NOISE_REF_SHAPE}")
     q, k, v, noise = (t.contiguous() for t in (q, k, v, noise))
     out = torch.empty_like(q)
+    # the wgmma kernel's K and V^T, rounded to TF32, per 64-row kv block
+    n_kv = B * KH * (Sk // bk) * TILE * hd if hd in WGMMA_HEAD_DIMS else 0
+    kp = torch.empty(n_kv, dtype=torch.float32, device=q.device)
+    vt = torch.empty(n_kv, dtype=torch.float32, device=q.device)
     partials, scratch, nacc = ns.card_buffers(B * H * (Sq // bq), q.device)
     dtype_id = DTYPE_IDS[q.dtype]
     _build.launch("flash_attention", "attention",
-                  (q, k, v, noise, out, partials, scratch, nacc),
+                  (q, k, v, noise, out, kp, vt, partials, scratch, nacc),
                   (B, H, KH, Sq, Sk, hd, bq, bk, int(bool(causal)),
-                   int(window), dtype_id),
+                   int(window), dtype_id, smem_bytes(hd, mode)),
                   mode_id=ns.MODE_IDS[mode], k=k_noise, static=static,
                   defines=(("REPRO_STATIC_HD", hd),
                            ("REPRO_STATIC_BF16", dtype_id)))

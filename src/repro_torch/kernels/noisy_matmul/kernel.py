@@ -6,7 +6,7 @@ product at ``step = i*131 + j*17 + kk``, the vmem source being the A tile.
 ``matmul_rt(k, a, b, noise, mode=...)`` takes k at run time. Both return
 ``(out, nacc)``. For tensors on the CPU they take the plain version
 ``matmul_plain``; for CUDA tensors they launch ``csrc/noisy_matmul.cu``
-(f32, 128-wide tiles, TF32 tensor cores) or raise.
+(f32, 128-wide tiles, TF32 wgmma fed by a TMA ring) or raise.
 """
 from __future__ import annotations
 
@@ -16,6 +16,26 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import noise_slots as ns
 
 TILE = 128   # the CUDA kernel's bm = bn = bk
+
+# csrc/noisy_matmul.cu's shared-memory layout, mirrored: a ring of stages,
+# each a 32-wide K slice of A and of B^T (128 x 32 f32 each), the staged
+# noise operand in mxu mode (128 rows of REPRO_NZ_STRIDE floats), a full
+# and an empty mbarrier per stage, and slack to align the ring to 1024.
+SLICE_BYTES = TILE * 32 * 4
+NZ_BYTES = 128 * 132 * 4
+
+
+def ring_depth(mode: str) -> int:
+    """Stages in the kernel's ring: mxu gives two of six to the noise."""
+    return 4 if mode == "mxu" else 6
+
+
+def smem_bytes(mode: str) -> int:
+    """Dynamic shared memory the CUDA kernel takes in ``mode``; the launch
+    passes it and the kernel refuses a value other than its own."""
+    depth = ring_depth(mode)
+    return (depth * 2 * SLICE_BYTES + (NZ_BYTES if mode == "mxu" else 0)
+            + 2 * depth * 8 + 1024)
 
 
 def _shapes(a, b, bm, bn, bk):
@@ -73,10 +93,12 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, noise: torch.Tensor, *,
         raise ValueError(f"noise must be {ns.NOISE_REF_SHAPE}")
     a, b, noise = a.contiguous(), b.contiguous(), noise.contiguous()
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    bt = torch.empty((N, K), dtype=torch.float32, device=a.device)  # B^T
     partials, scratch, nacc = ns.card_buffers((M // TILE) * (N // TILE),
                                               a.device)
     _build.launch("noisy_matmul", "matmul",
-                  (a, b, noise, out, partials, scratch, nacc), (M, N, K),
+                  (a, b, noise, out, bt, partials, scratch, nacc),
+                  (M, N, K, smem_bytes(mode)),
                   mode_id=ns.MODE_IDS[mode], k=k_noise, static=static)
     matmul_cuda.launches += 1
     return out, nacc
