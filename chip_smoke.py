@@ -10,9 +10,9 @@ JAX or of the reference package. Phases, each of which fails the run:
    CUDA versions; TF32 is switched off for the plain versions;
 2. build: the runtime-k library and the static-k builds the check needs,
    one ``nvcc`` per library, all started together; the registers of every
-   kernel of the two wgmma sources (``nvcc -Xptxas -v``, no spills
-   allowed); the SASS FADD count of the static fp probe, matmul and
-   attention at k=8 and k=24 (the fp adds must survive);
+   kernel (``nvcc -Xptxas -v``, no spills allowed); the SASS FADD count of
+   the static fp probe, matmul and attention at k=8 and k=24 (the fp adds
+   must survive);
 3. check: every kernel, mode and k in {0, 1, 24, K_MAX+7} against its plain
    PyTorch version on the card at moderate sizes (attention: B=2, H=8,
    KH=2, S=512, hd 64, 128 and 256, causal / non-causal / window 128, f32
@@ -21,7 +21,14 @@ JAX or of the reference package. Phases, each of which fails the run:
    (attention: hd 128 f32, hd 256 f32 and bf16). The outputs of attention
    and the matmul are held row by row (``row_excess``); the same check must
    refuse each kernel fed bf16-rounded operands (a control that the
-   tolerance is tight enough);
+   tolerance is tight enough). The one-launch reduction of the probe and
+   spmv: nacc bitwise equal to the plain versions (mxu to TF32) at 1, 31,
+   33, 64 and 1056 probe CTAs and at 500 and 33 spmv CTAs (partial last
+   chunks; spmv at L = 16, 112 and 128, the ring's three and two stages
+   and the register path), after 200 calls back to back without a
+   synchronize and on two streams at once; runtime k equal to static k
+   (probe at 1056 steps, spmv at L=128); every workspace counter 0
+   afterwards;
 4. the main path, through the user's entry points, each path driven with
    every launch count set to 0 just before it and read just after:
    a. Qwen3-30B-A3B's attention (32 query heads, 4 KV heads, head_dim 128,
@@ -38,13 +45,16 @@ JAX or of the reference package. Phases, each of which fails the run:
    measured;
 5. each kernel's launch counter above 0 and its plain version's at 0 on the
    main path (fleet workers report their counts in their stats files);
-6. timings with CUDA events (median of 25) at the main path's shapes, k=0:
-   kernel, plain version, bound, and one PyTorch library call where one
-   computes the same function (attention: SDPA in f32 as ``library_ms``,
-   and beside it SDPA with TF32 allowed and SDPA in bf16); the kernel's and
-   the library call's device time from a ``torch.profiler`` trace, each
+6. timings with CUDA events (median of 25) at the main path's shapes, k=0
+   (spmv at q=0 and q=1): kernel, plain version, bound, and one PyTorch
+   library call where one computes the same function (spmv: CSR ``@ x`` on
+   the same matrix; attention: SDPA in f32 as ``library_ms``, and beside it
+   SDPA with TF32 allowed and SDPA in bf16); the kernel's and the library
+   call's device time from a ``torch.profiler`` trace, the kernels each
+   call launches (1 for the probe and spmv, or the run fails), each
    kernel's share of its bound and its ratio to the library call on both
-   clocks.
+   clocks; the launch floor (an empty kernel through ``_build.launch``);
+   the probe's µs a pattern for fp, vmem and mxu (``launch/slot_cost.py``).
 
 The last lines are the card, one ``{"kernels": [...]}`` JSON object, and
 ``{"ok": true, "device": {...}}``.
@@ -71,7 +81,6 @@ TF32_FLOPS = 495e12
 FP32_FLOPS = 67e12
 
 CHECK_KS = (0, 1, 24)           # plus K_MAX + 7 (the clamp)
-WGMMA_SOURCES = ("noisy_matmul", "flash_attention")   # held to no spills
 STATIC_CHECK_K = 24
 TIMING_REPS = 25
 
@@ -143,8 +152,9 @@ def host_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
 
 def device_ms(fn, reps: int = TIMING_REPS):
     """Device time of one call of ``fn`` from a torch.profiler trace (CUPTI):
-    (ms per call summed over its kernels, {kernel: ms per call}); (None, {})
-    when the trace holds no device events."""
+    (ms per call summed over its kernels, {kernel: ms per call}, kernels
+    launched per call); (None, {}, 0) when the trace holds no device
+    events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -155,14 +165,16 @@ def device_ms(fn, reps: int = TIMING_REPS):
             fn()
         torch.cuda.synchronize()
     per_kernel: dict = {}
+    n_kernels = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             name = e.name.split("(")[0].replace("void ", "")
             per_kernel[name] = (per_kernel.get(name, 0.0)
                                 + e.time_range.elapsed_us() / 1e3 / reps)
+            n_kernels += 1
     if not per_kernel:
-        return None, {}
-    return sum(per_kernel.values()), per_kernel
+        return None, {}, 0
+    return sum(per_kernel.values()), per_kernel, n_kernels / reps
 
 
 def time_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
@@ -293,8 +305,8 @@ def _fadd_grows(kernel: str, defines: tuple, per_pattern: int) -> None:
 
 
 def _no_spills(usage: dict) -> None:
-    """Print the registers of every entry of the wgmma sources (``nvcc
-    -Xptxas -v``); a spill in one of their kernels fails the run."""
+    """Print the registers of every kernel entry (``nvcc -Xptxas -v``); a
+    spill in one of them fails the run."""
     spilled = []
     for kernel, entries in usage.items():
         names = []
@@ -331,7 +343,7 @@ def phase_build() -> None:
           f"parallel nvcc + link): {rt_s:.1f} s; {len(statics)} static-k "
           f"builds alongside (slowest {max(static_s):.1f} s): "
           f"{time.perf_counter() - t0:.1f} s in all")
-    _no_spills({k: _build.ptxas_usage(k) for k in WGMMA_SOURCES})
+    _no_spills({k: _build.ptxas_usage(k) for k in _build.KERNEL_SOURCES})
     # 4 elements per thread and pattern: k=24 holds 16 patterns more
     _fadd_grows("noise_probes", (), 4)
     _fadd_grows("noisy_matmul", (), 4)
@@ -527,6 +539,134 @@ def _matmul_control(a, b, noise, label, failures) -> None:
                   label, failures)
 
 
+FUSED_PROBE_CTAS = (1, 31, 33, 64, MAIN_PROBE_STEPS)
+# (rows, L): 500 and 33 CTAs (one 128-row block each), a last chunk of 20
+# and of 1, in the ring's three stages (L=16) and two (L=112), and in the
+# register path (L=128)
+FUSED_SPMV = ((128 * 500, 16), (128 * 33, 16), (128 * 40, 112), (128 * 40, 128))
+FUSED_K = 5
+BACK_TO_BACK = 200
+
+
+def _check_fused(main: dict, failures: list) -> None:
+    """The one-launch reduction of the probe and spmv (``reduce_fused`` in
+    ``csrc/noise_slots.cuh``): nacc bitwise equal to the plain versions
+    (mxu to TF32) at CTA counts that fill, split and leave partial chunks;
+    200 calls back to back without a synchronize; two streams at once, each
+    with its own inputs; runtime k bitwise equal to static k at the main
+    probe size; every workspace counter 0 afterwards."""
+    import numpy as np
+    import torch
+
+    from repro_torch.convert import to_torch
+    from repro_torch.kernels import noise_slots as ns
+    from repro_torch.kernels.noise_probes.kernel import (probe, probe_plain,
+                                                         probe_rt)
+    from repro_torch.kernels.spmv_ell.kernel import (spmv_ell, spmv_ell_plain,
+                                                     spmv_ell_rt)
+    from repro_torch.kernels.spmv_ell.ref import make_band_ell
+
+    noise = main["noise"]
+    for n_steps in FUSED_PROBE_CTAS:
+        for mode in ("fp", "vmem", "mxu"):
+            got = probe_rt(FUSED_K, noise, mode=mode, n_steps=n_steps)
+            want = probe_plain(noise, mode=mode, k_noise=FUSED_K,
+                               n_steps=n_steps)
+            torch.cuda.synchronize()
+            what = f"fused probe {n_steps} CTAs {mode}"
+            if mode == "mxu":
+                _close(got, want, what, failures, tol="tf32")
+            else:
+                _equal(got, want, what, failures)
+    for mode in ("fp", "vmem", "mxu"):
+        _equal(probe_rt(STATIC_CHECK_K, noise, mode=mode,
+                        n_steps=MAIN_PROBE_STEPS),
+               probe(noise, mode=mode, k_noise=STATIC_CHECK_K,
+                     n_steps=MAIN_PROBE_STEPS),
+               f"fused probe {MAIN_PROBE_STEPS} CTAs {mode} runtime k vs "
+               f"static k={STATIC_CHECK_K}", failures)
+    dev = noise.device
+    spmv_in = {}
+    for n, L in FUSED_SPMV:
+        vals, cols = make_band_ell(n, L, 0.5, seed=n + L)
+        x = np.random.RandomState(n + 1).standard_normal(n).astype(np.float32)
+        spmv_in[n, L] = to_torch((vals, cols, x), dev)
+        for mode in ("fp", "vmem"):
+            got = spmv_ell_rt(FUSED_K, *spmv_in[n, L], mode=mode)
+            want = spmv_ell_plain(*spmv_in[n, L], mode=mode, k_noise=FUSED_K)
+            torch.cuda.synchronize()
+            what = f"fused spmv n={n} L={L} ({n // 128} CTAs) {mode}"
+            _equal(got[1], want[1], what + " nacc", failures)
+            _close(got[0], want[0], what + " y", failures)
+    for mode in ("fp", "vmem"):   # the register path's static build
+        _equal(spmv_ell_rt(STATIC_CHECK_K, *spmv_in[FUSED_SPMV[-1]], mode=mode),
+               spmv_ell(*spmv_in[FUSED_SPMV[-1]], mode=mode,
+                        k_noise=STATIC_CHECK_K),
+               f"fused spmv L=128 {mode} runtime k vs static k="
+               f"{STATIC_CHECK_K}", failures)
+
+    # back to back: no synchronize between the calls
+    n_spmv = FUSED_SPMV[0]
+    calls = {
+        f"probe {MAIN_PROBE_STEPS} CTAs vmem": (
+            lambda: probe_rt(FUSED_K, noise, mode="vmem",
+                             n_steps=MAIN_PROBE_STEPS),
+            probe_plain(noise, mode="vmem", k_noise=FUSED_K,
+                        n_steps=MAIN_PROBE_STEPS)),
+        f"spmv (n, L)={n_spmv} vmem": (
+            lambda: spmv_ell_rt(FUSED_K, *spmv_in[n_spmv], mode="vmem")[1],
+            spmv_ell_plain(*spmv_in[n_spmv], mode="vmem",
+                           k_noise=FUSED_K)[1]),
+    }
+    for what, (call, want) in calls.items():
+        torch.cuda.synchronize()
+        outs = [call() for _ in range(BACK_TO_BACK)]
+        torch.cuda.synchronize()
+        bad = sum(not torch.equal(o, want) for o in outs)
+        if bad:
+            failures.append(f"fused {what}: {bad} of {BACK_TO_BACK} "
+                            f"back-to-back calls differ from the plain "
+                            f"version")
+    # two streams at once, each with its own inputs
+    noise_b = noise.flip(0).contiguous()
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    wants = (probe_plain(noise, mode="vmem", k_noise=FUSED_K,
+                         n_steps=MAIN_PROBE_STEPS),
+             probe_plain(noise_b, mode="vmem", k_noise=FUSED_K,
+                         n_steps=MAIN_PROBE_STEPS))
+    spmv_wants = tuple(spmv_ell_plain(*spmv_in[FUSED_SPMV[i]], mode="fp",
+                                      k_noise=FUSED_K) for i in range(2))
+    torch.cuda.synchronize()
+    outs = ([], [])
+    for _ in range(BACK_TO_BACK // 4):
+        for i, (st, nz) in enumerate(zip(streams, (noise, noise_b))):
+            with torch.cuda.stream(st):
+                outs[i].append((probe_rt(FUSED_K, nz, mode="vmem",
+                                         n_steps=MAIN_PROBE_STEPS),
+                                spmv_ell_rt(FUSED_K,
+                                            *spmv_in[FUSED_SPMV[i]],
+                                            mode="fp")))
+    torch.cuda.synchronize()
+    for i in range(2):
+        bad = sum(not (torch.equal(p, wants[i])
+                       and torch.equal(sp[1], spmv_wants[i][1]))
+                  for p, sp in outs[i])
+        if bad:
+            failures.append(f"fused, stream {i}: {bad} of {len(outs[i])} "
+                            f"probe + spmv calls differ from the plain "
+                            f"versions")
+    left = {f"{dev_}/{st:#x}": int(ws.counters.abs().sum())
+            for (dev_, st), ws in ns.WORKSPACES.items()}
+    if any(left.values()):
+        failures.append(f"workspace counters not 0 after the phase: {left}")
+    print(f"fused reduction: probe at {list(FUSED_PROBE_CTAS)} CTAs and spmv "
+          f"at (CTAs, L) {[(n // 128, L) for n, L in FUSED_SPMV]} against "
+          f"the plain versions (fp, vmem bitwise; mxu TF32), runtime == "
+          f"static k at {MAIN_PROBE_STEPS} probe steps and spmv L=128, "
+          f"{BACK_TO_BACK} back-to-back calls, two streams; {len(left)} "
+          f"workspaces, counters {left}", flush=True)
+
+
 def phase_check(main: dict) -> dict:
     import numpy as np
     import torch
@@ -576,6 +716,7 @@ def phase_check(main: dict) -> dict:
                        "main shape", failures)
     _matmul_control(main["a"], main["b"], main["noise"], f"n={MAIN_MATMUL_N}",
                     failures)
+    _check_fused(main, failures)
     if failures:
         raise RuntimeError("kernel check failed:\n  " + "\n  ".join(failures))
     return max_err
@@ -785,27 +926,35 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
         flash_attention_plain, flash_attention_rt)
     from repro_torch.kernels.noise_probes.kernel import probe_plain, probe_rt
     from repro_torch.kernels.noisy_matmul.kernel import matmul_plain, matmul_rt
+    from repro_torch.kernels.region import pallas_region
     from repro_torch.kernels.spmv_ell.kernel import spmv_ell_plain, spmv_ell_rt
 
     banner("6. timings at the main path's shapes, k=0 (CUDA events, median "
            f"of {TIMING_REPS})")
     rows = []
 
-    # spmv_ell, q=0
-    vals, cols, x = main["vals"], main["cols"], main["x"]
-    R, L = vals.shape
-    order = torch.argsort(cols, dim=1)
+    # spmv_ell, q=0 and q=1 (n=2^21, L=16), CSR @ x on the same matrix
     warnings.filterwarnings("ignore", message="Sparse")   # beta / invariants
-    csr = torch.sparse_csr_tensor(
-        torch.arange(0, R * L + 1, L, device=vals.device, dtype=torch.int64),
-        torch.gather(cols, 1, order).flatten().long(),
-        torch.gather(vals, 1, order).flatten(), size=(R, x.shape[0]))
-    lib_err = _max_err(csr @ x, spmv_ell_plain(vals, cols, x)[0])
-    spmv_bytes = 4 * (2 * R * L + x.shape[0] + R + 1024)
-    rows.append(("spmv_ell", lambda: spmv_ell_rt(0, vals, cols, x, mode="fp"),
-                 lambda: spmv_ell_plain(vals, cols, x, mode="fp", k_noise=0),
-                 lambda: csr @ x, spmv_bytes, 2 * R * L, FP32_FLOPS,
-                 f"torch.sparse_csr_tensor @ x (max|d| vs plain {lib_err:.3g})"))
+    spmv_q1 = pallas_region("spmxv", n=MAIN_SPMXV_N, nnz_per_row=16,
+                            q=1.0).args_for_rt("fp")
+    for q, (vals, cols, x) in ((0, (main["vals"], main["cols"], main["x"])),
+                               (1, spmv_q1)):
+        R, L = vals.shape
+        order = torch.argsort(cols, dim=1)
+        csr = torch.sparse_csr_tensor(
+            torch.arange(0, R * L + 1, L, device=vals.device,
+                         dtype=torch.int64),
+            torch.gather(cols, 1, order).flatten().long(),
+            torch.gather(vals, 1, order).flatten(), size=(R, x.shape[0]))
+        lib_err = _max_err(csr @ x, spmv_ell_plain(vals, cols, x)[0])
+        rows.append((
+            "spmv_ell", f"spmv_ell q={q}",
+            lambda v=vals, c=cols, xx=x: spmv_ell_rt(0, v, c, xx, mode="fp"),
+            lambda v=vals, c=cols, xx=x: spmv_ell_plain(v, c, xx, mode="fp",
+                                                        k_noise=0),
+            lambda m=csr, xx=x: m @ xx, 4 * (2 * R * L + x.shape[0] + R + 1024),
+            2 * R * L, FP32_FLOPS,
+            f"torch.sparse_csr_tensor @ x (max|d| vs plain {lib_err:.3g})"))
 
     # noisy_matmul, n=4096
     a, b, noise = main["a"], main["b"], main["noise"]
@@ -818,7 +967,8 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
 
-    rows.append(("noisy_matmul", lambda: matmul_rt(0, a, b, noise, mode="fp"),
+    rows.append(("noisy_matmul", "noisy_matmul",
+                 lambda: matmul_rt(0, a, b, noise, mode="fp"),
                  lambda: matmul_plain(a, b, noise, mode="fp", k_noise=0),
                  tf32_matmul, 4 * (3 * n * n + 1024), 2 * n ** 3, TF32_FLOPS,
                  "torch.matmul with TF32 allowed"))
@@ -826,7 +976,7 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
 
     # noise_probes, 1056 steps
     pnoise = main["noise"]
-    rows.append(("noise_probes",
+    rows.append(("noise_probes", "noise_probes",
                  lambda: probe_rt(0, pnoise, mode="fp", n_steps=MAIN_PROBE_STEPS),
                  lambda: probe_plain(pnoise, mode="fp", k_noise=0,
                                      n_steps=MAIN_PROBE_STEPS),
@@ -853,7 +1003,7 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
 
     tf32_ms, tf32_dev = time_ms(tf32_sdpa), device_ms(tf32_sdpa)[0]
     bf16_ms, bf16_dev = time_ms(bf16_sdpa), device_ms(bf16_sdpa)[0]
-    rows.append(("flash_attention",
+    rows.append(("flash_attention", "flash_attention",
                  lambda: flash_attention_rt(0, q, k, v, noise, mode="fp"),
                  lambda: flash_attention_plain(q, k, v, noise, mode="fp",
                                                k_noise=0),
@@ -867,11 +1017,12 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
                  f"on the device"))
 
     meta = Kernels().rows
-    out = []
-    for (name, kern, plain, lib, nbytes, nops, peak, lib_what) in rows:
+    out = {}
+    one_launch = []
+    for (name, label, kern, plain, lib, nbytes, nops, peak, lib_what) in rows:
         kernel_ms = time_ms(kern)
         kernel_host_ms = host_ms(kern)
-        dev_ms, per_kernel = device_ms(kern)
+        dev_ms, per_kernel, n_kernels = device_ms(kern)
         plain_ms = time_ms(plain)
         library_ms = time_ms(lib) if lib is not None else None
         lib_dev_ms = device_ms(lib)[0] if lib is not None else None
@@ -884,7 +1035,7 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
         vs_lib = {"event": kernel_ms / library_ms if library_ms else None,
                   "device": (dev_ms / lib_dev_ms
                              if dev_ms and lib_dev_ms else None)}
-        print(f"{name}: kernel_ms={kernel_ms!r} (host clock with "
+        print(f"{label}: kernel_ms={kernel_ms!r} (host clock with "
               f"synchronize: {kernel_host_ms!r}) plain_ms={plain_ms!r} "
               f"bound_ms={bound_ms!r} ({bound_by}; {nbytes} bytes, {nops} "
               f"operations) library_ms={library_ms!r}"
@@ -892,20 +1043,72 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
               + f" launches on the main path={launches[name]}", flush=True)
         print(f"  device time per call (torch.profiler): {dev_ms!r} ms = "
               + ", ".join(f"{k} {v!r}" for k, v in per_kernel.items())
-              + f"; library call on the device: {lib_dev_ms!r} ms")
+              + f"; library call on the device: {lib_dev_ms!r} ms; kernels "
+              f"launched per call: {n_kernels!r}")
         print(f"  share of the bound (bound / time): {share}; kernel / "
               f"library call: {vs_lib}", flush=True)
-        out.append({"name": name, "route": "cuda",
-                    "source": meta[name]["source"],
-                    "replaces": meta[name]["replaces"],
-                    "launches": launches[name], "max_abs_err": max_err[name],
-                    "ms": kernel_ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": library_ms, "device_ms": dev_ms,
-                    "library_device_ms": lib_dev_ms,
-                    "bound_share": share, "vs_library": vs_lib,
-                    **extra.get(name, {})})
-    return out
+        if name in ("noise_probes", "spmv_ell") and n_kernels != 1:
+            one_launch.append(f"{label}: {n_kernels!r} kernels a call")
+        row = {"name": name, "route": "cuda",
+               "source": meta[name]["source"],
+               "replaces": meta[name]["replaces"],
+               "launches": launches[name], "max_abs_err": max_err[name],
+               "ms": kernel_ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": library_ms, "device_ms": dev_ms,
+               "library_device_ms": lib_dev_ms,
+               "bound_share": share, "vs_library": vs_lib,
+               "kernels_per_call": n_kernels, **extra.get(name, {})}
+        if name in out:     # spmv at q=1: beside the q=0 row
+            out[name]["q1"] = {k: v for k, v in row.items()
+                               if k not in ("name", "route", "source",
+                                            "replaces", "launches",
+                                            "max_abs_err")}
+        else:
+            out[name] = row
+    out["noise_probes"]["launch_floor"] = _launch_floor()
+    out["noise_probes"]["us_per_pattern"] = _probe_slot_costs()
+    if one_launch:
+        raise RuntimeError("the probe and spmv must launch one kernel a "
+                           "call: " + "; ".join(one_launch))
+    return list(out.values())
+
+
+def _launch_floor() -> dict:
+    """An empty kernel launched through ``_build.launch``: the least a
+    wrapper call can cost, by events, host clock and on the device."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    t = torch.empty(1, device="cuda")
+
+    def empty():
+        _build.launch("noise_probes", "empty", (t,), (), mode_id=0, k=0,
+                      static=False)
+
+    floor = {"ms": time_ms(empty), "host_ms": host_ms(empty),
+             "device_ms": device_ms(empty)[0]}
+    print(f"launch floor (an empty kernel through _build.launch): "
+          f"{floor['ms']!r} ms by events, {floor['host_ms']!r} ms host clock "
+          f"with synchronize, {floor['device_ms']!r} ms on the device",
+          flush=True)
+    return floor
+
+
+def _probe_slot_costs() -> dict:
+    """µs a noise pattern of each mode in the probe at 1056 steps
+    (``launch/slot_cost.py``, k in {0, 64, 128, 256}: fp and vmem patterns
+    are too cheap to resolve at smaller k), beside the earlier kernel's mxu
+    in PERF.md (6.42 µs, fitted at k in {0, 4, 8, 16})."""
+    from repro_torch.launch.slot_cost import slot_costs
+
+    costs = slot_costs(("fp", "vmem", "mxu"), (0, 64, 128, 256),
+                       kernels=("noise_probes",))["noise_probes s1056"]
+    per = {m: c["us_per_pattern"] for m, c in costs.items()}
+    print(f"probe, µs a pattern (launch/slot_cost.py): {per} (earlier, in "
+          f"PERF.md: mxu 6.42)", flush=True)
+    return per
 
 
 def main() -> int:

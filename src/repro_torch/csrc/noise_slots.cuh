@@ -1,14 +1,19 @@
 // Noise slots on Hopper: the device side of repro_torch/kernels/noise_slots.py,
-// shared by noise_probes.cu, spmv_ell.cu and noisy_matmul.cu.
+// shared by noise_probes.cu, spmv_ell.cu, noisy_matmul.cu and flash_attention.cu.
 //
 // The reference (src/repro/kernels/noise_slots.py) runs Pallas grid steps in
 // order on one core, all adding into one (8,128) f32 `nacc` block. CTAs run
 // concurrently, so here every CTA owns an (8,128) f32 PARTIAL, kept in
 // registers (4 elements per thread, 256 threads) and written once when the
-// CTA ends. `nacc_reduce` then sums the partials per element in a fixed
-// order (chunks of 32 partials in CTA order, then the chunk sums in order):
-// deterministic, no atomics, so the runtime-k and static-k builds of a
-// kernel give bitwise-equal `nacc`.
+// CTA ends. The partials are summed per element in a fixed order (chunks of
+// 32 partials in CTA order, then the chunk sums in order): deterministic, no
+// floating-point atomics, so the runtime-k and static-k builds of a kernel
+// give bitwise-equal `nacc`. Two ways to the same order:
+//   reduce_fused   — in the kernel's own epilogue, one launch a call (the
+//                    probe and spmv): the last CTA of each chunk sums it,
+//                    the last chunk to finish sums the chunk sums;
+//   reduce_partials — `nacc_reduce`, one or two launches after the kernel
+//                    (the matmul and attention).
 //
 // Modes (one pattern each; k patterns per grid step of the reference):
 //   fp   — acc += c, with c the (8,128) addend loaded once into registers.
@@ -29,10 +34,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #define REPRO_K_MAX 512
 #define REPRO_THREADS 256
 #define REPRO_NACC 1024        // 8 x 128 floats
-#define REPRO_REDUCE_CHUNK 32  // partials summed by one block of nacc_reduce
+#define REPRO_REDUCE_CHUNK 32  // partials summed in order into one chunk sum
 #define REPRO_NZ_STRIDE 132    // row stride (floats) of a 128x128 operand staged
                                // in shared memory: 16-byte rows, and the mxu
                                // A-fragment reads hit 32 distinct banks
@@ -63,6 +70,104 @@ template <int MODE>
 __device__ __forceinline__ void write_partial(float* part, const float (&acc)[4], int tid) {
 #pragma unroll
   for (int r = 0; r < 4; ++r) part[slot_elem<MODE>(tid, r)] = acc[r];
+}
+
+// ---------------------------------------------------------------------------
+// reduce_fused: the cross-CTA reduction in the kernel's epilogue.
+//   workspace (kernels/noise_slots.py `Workspace`, one per device and
+//   stream): partials P x 1024 floats, chunk sums C x 1024 floats
+//   (C = ceil(P / 32)), counters 1 + C unsigned: [0] counts finished
+//   chunks, [1 + c] the CTAs of chunk c that have written their partial.
+// Every CTA writes its partial and takes a ticket on its chunk's counter.
+// The chunk's last arriver sums the chunk's partials in CTA order (not in
+// arrival order) into chunk sum c -- into nacc when C == 1 -- and takes a
+// ticket on counter 0; the last chunk to finish sums the C chunk sums in
+// order into nacc. That is nacc_reduce's order, so nacc is bitwise the
+// same. Each last arriver sets the counter it consumed back to 0: the
+// counters are 0 again when the launch ends, and the next launch on the
+// stream needs no memset. Partials and chunk sums that other CTAs of this
+// launch wrote are read through L2 (ld_coherent: ld.global.cg), never with
+// __ldg: the non-coherent path may return stale lines.
+// ---------------------------------------------------------------------------
+
+// 16 bytes that other SMs wrote in this launch: through L2 (.cg, coherent
+// across SMs), and volatile with a memory clobber, so the compiler keeps it
+// after the barrier and fence that order it
+__device__ __forceinline__ float4 ld_coherent(const float* p) {
+  float4 v;
+  asm volatile("ld.global.cg.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// blocks whose loads are in flight at once: 16 registers, so the probe and
+// spmv keep 8 CTAs an SM (32 registers a thread)
+#define REPRO_SUM_BATCH 4
+
+// Sum the n (8,128) blocks src[0], src[1024], ... in order into dst: thread
+// tid owns elements 4*tid .. 4*tid+3. The loads of REPRO_SUM_BATCH blocks
+// are in flight before their adds, so a chunk costs n / 4 round trips to L2,
+// not n.
+__device__ __forceinline__ void sum_in_order(const float* src, int n, float* dst, int tid) {
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int p0 = 0; p0 < n; p0 += REPRO_SUM_BATCH) {
+    float4 v[REPRO_SUM_BATCH];
+#pragma unroll
+    for (int j = 0; j < REPRO_SUM_BATCH; ++j)
+      if (p0 + j < n) v[j] = ld_coherent(src + (size_t)(p0 + j) * REPRO_NACC + 4 * tid);
+#pragma unroll
+    for (int j = 0; j < REPRO_SUM_BATCH; ++j)
+      if (p0 + j < n) {
+        s.x = __fadd_rn(s.x, v[j].x);
+        s.y = __fadd_rn(s.y, v[j].y);
+        s.z = __fadd_rn(s.z, v[j].z);
+        s.w = __fadd_rn(s.w, v[j].w);
+      }
+  }
+  *reinterpret_cast<float4*>(dst + 4 * tid) = s;
+}
+
+// a release and acquire fence at device scope (lighter than __threadfence,
+// whose fence.sc orders every memory operation device-wide)
+__device__ __forceinline__ void fence_acq_rel_gpu() {
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+// Called by every thread of the CTA after its writes: true in all of them
+// when this CTA is the n-th and last to arrive on *counter, which it then
+// resets to 0. One thread fences for the CTA, after the barrier that orders
+// the others' writes before it (the pattern of cooperative groups' grid
+// sync): its release covers them, its acquire the reads that follow.
+__device__ __forceinline__ bool last_to_arrive(unsigned* counter, unsigned n, int tid) {
+  __shared__ unsigned last;
+  __syncthreads();
+  if (tid == 0) {
+    fence_acq_rel_gpu();   // release: the CTA's writes before its ticket
+    last = atomicAdd(counter, 1u) == n - 1;
+    if (last) {
+      *counter = 0u;         // every arrival has happened: nobody else touches it
+      fence_acq_rel_gpu();   // acquire: the other CTAs' writes before our reads
+    }
+  }
+  __syncthreads();
+  return last;
+}
+
+template <int MODE>
+__device__ __forceinline__ void reduce_fused(const float (&acc)[4], float* partials,
+                                             float* chunk_sums, unsigned* counters, float* nacc,
+                                             int cta, int P, int tid) {
+  write_partial<MODE>(partials + (size_t)cta * REPRO_NACC, acc, tid);
+  const int C = (P + REPRO_REDUCE_CHUNK - 1) / REPRO_REDUCE_CHUNK;
+  const int c = cta / REPRO_REDUCE_CHUNK, p0 = c * REPRO_REDUCE_CHUNK;
+  const int n = min(P - p0, REPRO_REDUCE_CHUNK);
+  if (!last_to_arrive(counters + 1 + c, n, tid)) return;
+  sum_in_order(partials + (size_t)p0 * REPRO_NACC, n,
+               C == 1 ? nacc : chunk_sums + (size_t)c * REPRO_NACC, tid);
+  if (C == 1 || !last_to_arrive(counters, C, tid)) return;
+  sum_in_order(chunk_sums, C, nacc, tid);
 }
 
 // k patterns: fully unrolled when k is static (SK >= 0), a runtime loop
@@ -220,6 +325,22 @@ template <typename Kernel>
 static inline cudaError_t allow_smem(Kernel kernel, int bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// allow_smem once per device: `bytes` must be the most the kernel ever
+// launches with, and `done` (a static of the caller, one per kernel
+// instantiation) records the devices already opted in. Two threads racing
+// on one device both set the same value.
+template <typename Kernel>
+static inline cudaError_t allow_smem_once(Kernel kernel, int bytes,
+                                          std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  if ((e = allow_smem(kernel, bytes)) == cudaSuccess) done.fetch_or(bit);
+  return e;
 }
 
 static inline int clip_k(int k) { return k < 0 ? 0 : (k > REPRO_K_MAX ? REPRO_K_MAX : k); }

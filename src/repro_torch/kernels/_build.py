@@ -21,6 +21,14 @@ hash of every source file, so an edited source rebuilds and an unchanged one
 is loaded as it is. Builds happen at first use, never at import. Every C
 entry point returns ``cudaGetLastError()`` as an int; ``launch`` raises
 when it is not 0. There is no fallback: without ``nvcc`` a build raises.
+
+``launch`` is the host path every wrapper call takes, so it stays lean: the
+bound C entry is looked up once per (kernel, entry, build) and kept, the
+stream is the raw handle of the current one, and the device guard is
+entered only for tensors off the current device. The ctypes route is kept
+(``torch.utils.cpp_extension`` builds take minutes), and no CUDA graph
+stands in for the call: a sweep times one dispatched call per point, as
+the reference does.
 """
 from __future__ import annotations
 
@@ -221,27 +229,63 @@ def _bind(lib: ctypes.CDLL, name: str, n_ptrs: int, n_ints: int):
     return fn
 
 
+# (kernel, entry, static, mode id, k, defines) -> the bound C entry; the
+# runtime-k entries are keyed with mode and k at -1 (they take both as
+# arguments). Filled at a launch's first call, read without a lock after.
+_ENTRIES: dict = {}
+
+
+def _entry(kernel: str, entry: str, n_ptrs: int, n_ints: int, mode_id: int,
+           k: int, static: bool, defines: tuple):
+    key = ((kernel, entry, True, mode_id, k, defines) if static
+           else (kernel, entry, False, -1, -1, ()))
+    fn = _ENTRIES.get(key)
+    if fn is None:
+        if static:
+            fn = _bind(static_lib(kernel, mode_id, k, defines),
+                       f"repro_{entry}_static", n_ptrs, n_ints)
+        else:
+            fn = _bind(runtime_lib(), f"repro_{entry}_rt", n_ptrs,
+                       n_ints + 2)
+        _ENTRIES[key] = fn
+    return fn
+
+
+def stream_handle(device_index: int) -> int:
+    """The raw handle of the device's current stream, without building a
+    ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
 def launch(kernel: str, entry: str, tensors, ints, *, mode_id: int, k: int,
-           static: bool, defines: tuple = ()) -> None:
-    """Launch one kernel on the current stream of the tensors' device.
+           static: bool, defines: tuple = (),
+           stream: Optional[int] = None) -> None:
+    """Launch one kernel on ``stream`` (default: the current stream of the
+    tensors' device).
 
     ``static``: ``repro_<entry>_static`` of the (kernel, mode, k,
     ``defines``) build; else ``repro_<entry>_rt`` of the runtime-k library,
-    with the mode and ``k`` passed after ``ints``. Raises when the entry
-    reports a CUDA error."""
-    dev = tensors[0].device
-    ptrs = [t.data_ptr() for t in tensors]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if static:
-            fn = _bind(static_lib(kernel, mode_id, k if mode_id else 0,
-                                  defines),
-                       f"repro_{entry}_static", len(ptrs), len(ints))
-            err = fn(*ptrs, *ints, stream)
-        else:
-            fn = _bind(runtime_lib(), f"repro_{entry}_rt", len(ptrs),
-                       len(ints) + 2)
-            err = fn(*ptrs, *ints, mode_id, int(k), stream)
+    with the mode and ``k`` passed after ``ints``. The device guard is
+    entered only when the tensors' device is not the current one. Raises
+    when the entry reports a CUDA error."""
+    dev = tensors[0].get_device()
+    if stream is None:
+        stream = stream_handle(dev)
+    if static:
+        k = k if mode_id else 0
+        fn = _entry(kernel, entry, len(tensors), len(ints), mode_id, k, True,
+                    defines)
+        args = (*[t.data_ptr() for t in tensors], *ints, stream)
+    else:
+        fn = _entry(kernel, entry, len(tensors), len(ints), mode_id, k,
+                    False, ())
+        args = (*[t.data_ptr() for t in tensors], *ints, mode_id, int(k),
+                stream)
+    if dev == torch._C._cuda_getDevice():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{kernel} (mode {mode_id}, k={k}): CUDA error "
                            f"{err} at launch")

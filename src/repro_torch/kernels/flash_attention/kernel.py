@@ -190,7 +190,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n_kv = B * KH * (Sk // bk) * TILE * hd if hd in WGMMA_HEAD_DIMS else 0
     kp = torch.empty(n_kv, dtype=torch.float32, device=q.device)
     vt = torch.empty(n_kv, dtype=torch.float32, device=q.device)
-    partials, scratch, nacc = ns.card_buffers(B * H * (Sq // bq), q.device)
+    stream = _build.stream_handle(q.device.index)
+    partials, scratch, nacc = ns.card_buffers(B * H * (Sq // bq), q.device,
+                                              stream)
     dtype_id = DTYPE_IDS[q.dtype]
     _build.launch("flash_attention", "attention",
                   (q, k, v, noise, out, kp, vt, partials, scratch, nacc),
@@ -198,7 +200,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    int(window), dtype_id, smem_bytes(hd, mode)),
                   mode_id=ns.MODE_IDS[mode], k=k_noise, static=static,
                   defines=(("REPRO_STATIC_HD", hd),
-                           ("REPRO_STATIC_BF16", dtype_id)))
+                           ("REPRO_STATIC_BF16", dtype_id)), stream=stream)
     flash_attention_cuda.launches += 1
     return out, nacc
 

@@ -45,15 +45,21 @@ def _check(noise: torch.Tensor, mode: str, n_steps: int) -> None:
 def probe_cuda(noise: torch.Tensor, *, mode: str, k_noise: int, n_steps: int,
                static: bool) -> torch.Tensor:
     """Launch ``csrc/noise_probes.cu``: the static-k build of (mode, k) or
-    the runtime-k library (k clipped to [0, K_MAX] there)."""
+    the runtime-k library (k clipped to [0, K_MAX] there). One launch: the
+    CTAs reduce their partials into ``nacc`` in the kernel's epilogue, with
+    the current stream's workspace."""
     if not (noise.is_cuda and noise.dtype == torch.float32
             and noise.is_contiguous()):
         raise ValueError("the CUDA probe takes a contiguous float32 CUDA "
                          "noise operand")
-    partials, scratch, nacc = ns.card_buffers(n_steps, noise.device)
-    _build.launch("noise_probes", "probe", (noise, partials, scratch, nacc),
+    dev = noise.device
+    stream = _build.stream_handle(dev.index)
+    ws = ns.workspace(n_steps, dev, stream)
+    nacc = ns.new_nacc(dev)
+    _build.launch("noise_probes", "probe",
+                  (noise, ws.partials, ws.chunk_sums, ws.counters, nacc),
                   (n_steps,), mode_id=ns.MODE_IDS[mode], k=k_noise,
-                  static=static)
+                  static=static, stream=stream)
     probe_cuda.launches += 1
     return nacc
 

@@ -20,12 +20,15 @@ the card the same contract holds between the runtime-k shared library and
 the static-k builds (``kernels/_build.py``).
 
 On the card every CTA adds its patterns into its own (8,128) partial and
-``nacc_reduce`` sums the partials in a fixed order (``reduce_partials``
-below is that order in plain PyTorch). The plain versions of the kernels
-follow the same decomposition, one pattern at a time, so the card's fp and
-vmem accumulators can be held against them tightly; against the reference,
-which adds every grid step into one accumulator, they differ only by the
-order of f32 additions.
+the partials are summed in a fixed order (``reduce_partials`` below is that
+order in plain PyTorch): in the kernel's own epilogue for the probe and
+spmv (one launch a call), by ``nacc_reduce`` launches after the kernel for
+the matmul and attention. The partials, the chunk sums and the epilogue's
+counters are a ``Workspace`` kept per (device, stream). The plain versions
+of the kernels follow the same decomposition, one pattern at a time, so the
+card's fp and vmem accumulators can be held against them tightly; against
+the reference, which adds every grid step into one accumulator, they
+differ only by the order of f32 additions.
 """
 from __future__ import annotations
 
@@ -115,7 +118,7 @@ def emit_noise_rt(mode: str, k: int, nacc: torch.Tensor,
     emit_noise(mode, clip_k(k), nacc, noise, src, step)
 
 
-REDUCE_CHUNK = 32    # partials per chunk of the card's nacc_reduce
+REDUCE_CHUNK = 32    # partials per chunk sum of the card's reduction
 
 
 def _sum_in_order(parts: torch.Tensor) -> torch.Tensor:
@@ -141,13 +144,57 @@ def new_partials(n: int, device) -> torch.Tensor:
     return torch.zeros((n, *NOISE_SHAPE), dtype=torch.float32, device=device)
 
 
-def card_buffers(n_cta: int, device):
-    """What one launch on the card writes besides its outputs: the CTAs'
-    partials, the scratch of the reduction's first level, and ``nacc``."""
-    def empty(*lead):
-        return torch.empty((*lead, *NOISE_SHAPE), dtype=torch.float32,
-                           device=device)
-    return empty(n_cta), empty(-(-n_cta // REDUCE_CHUNK)), empty()
+def n_chunks(n_cta: int) -> int:
+    return -(-n_cta // REDUCE_CHUNK)
+
+
+class Workspace:
+    """Scratch of the card's cross-CTA reduction for one (device, stream):
+    ``partials`` (n_cta, 8, 128) f32, ``chunk_sums`` (n_chunks, 8, 128) f32
+    and ``counters`` (1 + n_chunks,) int32 for the ticket epilogue of
+    ``csrc/noise_slots.cuh`` (``reduce_fused``). The counters are zeroed
+    here, on the stream, and every launch leaves them at 0."""
+
+    __slots__ = ("n_cta", "partials", "chunk_sums", "counters")
+
+    def __init__(self, n_cta: int, device: torch.device):
+        self.n_cta = n_cta
+        self.partials = torch.empty((n_cta, *NOISE_SHAPE),
+                                    dtype=torch.float32, device=device)
+        self.chunk_sums = torch.empty((n_chunks(n_cta), *NOISE_SHAPE),
+                                      dtype=torch.float32, device=device)
+        self.counters = torch.zeros(1 + n_chunks(n_cta), dtype=torch.int32,
+                                    device=device)
+
+
+# (device, raw stream handle) -> Workspace. Keyed by stream: two streams
+# sharing counters would mix their tickets. Launches on one stream run in
+# order, so one workspace serves them all, and a workspace replaced by a
+# larger one is freed to the stream it was allocated on.
+WORKSPACES: dict = {}
+
+
+def workspace(n_cta: int, device: torch.device, stream: int) -> Workspace:
+    """The workspace of ``stream`` on ``device`` (the stream current when it
+    is used), grown to hold ``n_cta`` partials; never shrunk."""
+    ws = WORKSPACES.get((device, stream))
+    if ws is None or ws.n_cta < n_cta:
+        ws = WORKSPACES[(device, stream)] = Workspace(n_cta, device)
+    return ws
+
+
+def new_nacc(device) -> torch.Tensor:
+    """A fresh (8,128) f32 ``nacc`` output: callers keep it, so it is never
+    workspace."""
+    return torch.empty(NOISE_SHAPE, dtype=torch.float32, device=device)
+
+
+def card_buffers(n_cta: int, device, stream: int):
+    """What one matmul or attention launch writes besides its outputs: the
+    CTAs' partials and ``nacc_reduce``'s chunk sums (views of the stream's
+    workspace), and a fresh ``nacc``."""
+    ws = workspace(n_cta, device, stream)
+    return ws.partials, ws.chunk_sums, new_nacc(device)
 
 
 def expected_fp_noise(noise: torch.Tensor, k: int, n_steps: int

@@ -94,12 +94,14 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, noise: torch.Tensor, *,
     a, b, noise = a.contiguous(), b.contiguous(), noise.contiguous()
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
     bt = torch.empty((N, K), dtype=torch.float32, device=a.device)  # B^T
+    stream = _build.stream_handle(a.device.index)
     partials, scratch, nacc = ns.card_buffers((M // TILE) * (N // TILE),
-                                              a.device)
+                                              a.device, stream)
     _build.launch("noisy_matmul", "matmul",
                   (a, b, noise, out, bt, partials, scratch, nacc),
                   (M, N, K, smem_bytes(mode)),
-                  mode_id=ns.MODE_IDS[mode], k=k_noise, static=static)
+                  mode_id=ns.MODE_IDS[mode], k=k_noise, static=static,
+                  stream=stream)
     matmul_cuda.launches += 1
     return out, nacc
 

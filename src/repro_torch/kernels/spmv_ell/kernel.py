@@ -18,8 +18,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import noise_slots as ns
 
-# CTAs per call the CUDA kernel aims for: each walks a run of 128-row blocks
-TARGET_CTAS = 1024
+# CTAs per call the CUDA kernel aims for: each walks a run of 128-row blocks.
+# At L=16 the ring's 48 KiB of shared memory a CTA fits 4 CTAs on each of
+# the 132 SMs, so all 512 are resident at once (csrc/spmv_ell.cu).
+TARGET_CTAS = 512
 
 
 def _shapes(vals: torch.Tensor, x: torch.Tensor, br: int):
@@ -60,7 +62,9 @@ spmv_ell_plain.launches = 0
 
 def spmv_ell_cuda(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
                   br: int, mode: str, k_noise: int, static: bool):
-    """Launch ``csrc/spmv_ell.cu`` (static-k build or runtime-k library)."""
+    """Launch ``csrc/spmv_ell.cu`` (static-k build or runtime-k library):
+    one launch, the partials reduced in the kernel's epilogue with the
+    current stream's workspace."""
     R, L, br, nb = _shapes(vals, x, br)
     if br != 128 or L % 8:
         raise ValueError("the CUDA spmv takes 128-row blocks and a row width "
@@ -71,11 +75,16 @@ def spmv_ell_cuda(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
         raise ValueError("vals, cols and x must lie on one CUDA device")
     vals, cols, x = vals.contiguous(), cols.contiguous(), x.contiguous()
     bpc = blocks_per_cta(nb)
-    y = torch.empty(R, dtype=torch.float32, device=vals.device)
-    partials, scratch, nacc = ns.card_buffers(-(-nb // bpc), vals.device)
+    dev = vals.device
+    stream = _build.stream_handle(dev.index)
+    ws = ns.workspace(-(-nb // bpc), dev, stream)
+    y = torch.empty(R, dtype=torch.float32, device=dev)
+    nacc = ns.new_nacc(dev)
     _build.launch("spmv_ell", "spmv",
-                  (vals, cols, x, y, partials, scratch, nacc), (R, L, bpc),
-                  mode_id=ns.MODE_IDS[mode], k=k_noise, static=static)
+                  (vals, cols, x, y, ws.partials, ws.chunk_sums, ws.counters,
+                   nacc), (R, L, bpc),
+                  mode_id=ns.MODE_IDS[mode], k=k_noise, static=static,
+                  stream=stream)
     spmv_ell_cuda.launches += 1
     return y, nacc
 

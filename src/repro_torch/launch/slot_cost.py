@@ -1,13 +1,15 @@
 #!/usr/bin/env python
 """Device cost of one noise pattern in each CUDA kernel of the PyTorch port.
 
-    PYTHONPATH=src python -m repro_torch.launch.slot_cost [--modes mxu] [--ks 0,4,8,16]
+    PYTHONPATH=src python -m repro_torch.launch.slot_cost [--modes mxu] \
+        [--ks 0,4,8,16] [--cases noise_probes,noisy_matmul,flash_attention]
 
 For every kernel wrapper of ``repro_torch`` (the probe at 1056 grid steps,
 the matmul at n=4096, attention at Qwen3-30B-A3B's widths with head_dim 128
-and the same with head_dim 256; f32, causal) and every mode, it times the
-runtime-k wrapper with CUDA events (median of ``--reps``) at each k of
-``--ks`` and fits the time per pattern by least squares. It uses only the
+and the same with head_dim 256; f32, causal), or those ``--cases`` names,
+and every mode, it times the runtime-k wrapper with CUDA events (median of
+``--reps``) at each k of ``--ks`` and fits the time per pattern by least
+squares. It uses only the
 wrappers' public calls, so it measures any checkout of the port: run this
 file with that checkout's ``src`` first on ``PYTHONPATH`` (``python
 src/repro_torch/launch/slot_cost.py``) and compare two checkouts in one
@@ -45,8 +47,9 @@ def _event_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def _cases(dev):
-    """{case: (modes it takes, fn(k, mode))} on seeded inputs."""
+def _cases(dev, kernels):
+    """{case: fn(k, mode)} on seeded inputs, for the cases whose kernel is
+    in ``kernels``."""
     from repro_torch.kernels.flash_attention.kernel import flash_attention_rt
     from repro_torch.kernels.noise_probes.kernel import probe_rt
     from repro_torch.kernels.noisy_matmul.kernel import matmul_rt
@@ -58,20 +61,40 @@ def _cases(dev):
                                 ).to(dev)
 
     noise = randn(128, 128)
-    a, b = randn(4096, 4096), randn(4096, 4096)
-    cases = {
-        "noise_probes s1056": lambda k, m: probe_rt(k, noise, mode=m,
-                                                    n_steps=1056),
-        "noisy_matmul n4096": lambda k, m: matmul_rt(k, a, b, noise, mode=m),
-    }
+    cases = {}
+    if "noise_probes" in kernels:
+        cases["noise_probes s1056"] = lambda k, m: probe_rt(
+            k, noise, mode=m, n_steps=1056)
+    if "noisy_matmul" in kernels:
+        a, b = randn(4096, 4096), randn(4096, 4096)
+        cases["noisy_matmul n4096"] = lambda k, m: matmul_rt(k, a, b, noise,
+                                                             mode=m)
     B, H, KH, S = (ATTENTION[x] for x in ("batch", "heads", "kv_heads",
                                           "seq"))
-    for hd in (128, 256):
+    for hd in (128, 256) if "flash_attention" in kernels else ():
         q, kk, v = randn(B, H, S, hd), randn(B, KH, S, hd), randn(B, KH, S, hd)
         cases[f"flash_attention hd{hd} s{S}"] = (
             lambda k, m, q=q, kk=kk, v=v: flash_attention_rt(
                 k, q, kk, v, noise, mode=m))
     return cases
+
+
+def slot_costs(modes, ks, reps: int = 15,
+               kernels=("noise_probes", "noisy_matmul", "flash_attention")
+               ) -> dict:
+    """{case: {mode: {"t_ms": {k: ms}, "us_per_pattern": us}}} on the
+    current CUDA device; prints one line per (case, mode)."""
+    costs: dict = {}
+    for case, fn in _cases(torch.device("cuda"), kernels).items():
+        for mode in modes:
+            t = {k: _event_ms(lambda: fn(k, mode), reps) for k in ks}
+            slope = float(np.polyfit(ks, [t[k] for k in ks], 1)[0]) * 1e3
+            costs.setdefault(case, {})[mode] = {"t_ms": t,
+                                                "us_per_pattern": slope}
+            print(f"{case} {mode}: " + ", ".join(f"k={k} {t[k]:.4f} ms"
+                                                  for k in ks)
+                  + f" -> {slope:.2f} us a pattern", flush=True)
+    return costs
 
 
 def main(argv=None) -> int:
@@ -80,27 +103,20 @@ def main(argv=None) -> int:
                     help="comma-separated noise modes (fp, mxu, vmem)")
     ap.add_argument("--ks", default="0,4,8,16",
                     help="comma-separated noise quantities to time")
+    ap.add_argument("--cases", default="noise_probes,noisy_matmul,"
+                    "flash_attention", help="comma-separated kernels to time")
     ap.add_argument("--reps", type=int, default=15)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("slot_cost: no CUDA device is available", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    ks = [int(x) for x in args.ks.split(",")]
-    modes = args.modes.split(",")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    costs: dict = {}
-    for case, fn in _cases(torch.device("cuda")).items():
-        for mode in modes:
-            t = {k: _event_ms(lambda: fn(k, mode), args.reps) for k in ks}
-            slope = float(np.polyfit(ks, [t[k] for k in ks], 1)[0]) * 1e3
-            costs.setdefault(case, {})[mode] = {"t_ms": t,
-                                                "us_per_pattern": slope}
-            print(f"{case} {mode}: " + ", ".join(f"k={k} {t[k]:.4f} ms"
-                                                  for k in ks)
-                  + f" -> {slope:.2f} us a pattern", flush=True)
+    costs = slot_costs(args.modes.split(","),
+                       [int(x) for x in args.ks.split(",")], args.reps,
+                       args.cases.split(","))
     print(card)
     print(json.dumps({"card": card, "costs": costs}))
     return 0
