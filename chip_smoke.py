@@ -10,9 +10,13 @@ JAX or of the reference package. Phases, each of which fails the run:
    CUDA versions; TF32 is switched off for the plain versions;
 2. build: the runtime-k library and the static-k builds the check needs,
    one ``nvcc`` per library, all started together; the registers of every
-   kernel (``nvcc -Xptxas -v``, no spills allowed); the SASS FADD count of
-   the static fp probe, matmul and attention at k=8 and k=24 (the fp adds
-   must survive);
+   kernel (``nvcc -Xptxas -v``, no spills allowed), ``loop_regions.cu``
+   included; the SASS FADD count of the static fp probe, matmul and
+   attention at k=8 and k=24 (the fp adds must survive); the loop regions'
+   SASS census between static k=8 and k=24: FADD for fp_add, FFMA for
+   fp_fma, LDG for l1_ld, mem_ld and chase, at least 16 more in each of the
+   six region kernels, and l1_ld's extra loads neither .STRONG nor volatile
+   (they must stay L1 hits);
 3. check: every kernel, mode and k in {0, 1, 24, K_MAX+7} against its plain
    PyTorch version on the card at moderate sizes (attention: B=2, H=8,
    KH=2, S=512, hd 64, 128 and 256, causal / non-causal / window 128, f32
@@ -28,7 +32,15 @@ JAX or of the reference package. Phases, each of which fails the run:
    and the register path), after 200 calls back to back without a
    synchronize and on two streams at once; runtime k equal to static k
    (probe at 1056 steps, spmv at L=128); every workspace counter 0
-   afterwards;
+   afterwards; every loop region (STREAM at chunk 512 and at an odd chunk,
+   lat_mem_rd, HACCmk, SPMXV at L=16, 12 and 5, matmul O0 and O3) x
+   every loop mode at k in {0, 1, 5, 24} against its plain version: outputs
+   and aux bitwise equal (the plain versions add in the kernels' order),
+   outputs bitwise equal across k (the noise leaves the region's result
+   alone), runtime k bitwise equal to static k at k=24; the same at k in
+   {0, 5} on the main path's own inputs (STREAM n=2^25 and SPMXV n=2^21,
+   15.5 and 7.8 iterations a warp, grid-stride; lat_mem_rd on the 2^26
+   table; HACCmk at width 135,168, 1,000 iterations; matmul n=192);
 4. the main path, through the user's entry points, each path driven with
    every launch count set to 0 just before it and read just after:
    a. Qwen3-30B-A3B's attention (32 query heads, 4 KV heads, head_dim 128,
@@ -41,20 +53,33 @@ JAX or of the reference package. Phases, each of which fails the run:
    c. ``repro_torch.launch.probe --pallas attention --pallas-n 1024``;
    d. the first slice's paths through the same spine: spmxv n=2^21 L=16
       q=0 and q=1, matmul n=4096, probe 1056 steps;
+   e. the paper's studies on the loop kernels, each through
+      ``python -m repro_torch.bench`` with a store directory: Fig. 7 (SPMXV
+      n=2^21 and 2^17, q in {0, 0.25, 0.5, 1}, fp_add and l1_ld), Fig. 5
+      (STREAM n=2^25, lat_mem_rd on a 2^26 table, HACCmk 60,000 iterations
+      at width 135,168; fp_add, l1_ld, mem_ld) and Fig. 4 (matmul O0 and
+      O3, n=192); then ``python -m repro_torch.fleet calibrate run``;
    every payload check must pass, and every store must replay with 0
-   measured;
+   measured (the studies and the calibration too);
 5. each kernel's launch counter above 0 and its plain version's at 0 on the
-   main path (fleet workers report their counts in their stats files);
+   main path (fleet workers and the study processes report their counts in
+   stats files);
 6. timings with CUDA events (median of 25) at the main path's shapes, k=0
    (spmv at q=0 and q=1): kernel, plain version, bound, and one PyTorch
    library call where one computes the same function (spmv: CSR ``@ x`` on
    the same matrix; attention: SDPA in f32 as ``library_ms``, and beside it
    SDPA with TF32 allowed and SDPA in bf16); the kernel's and the library
-   call's device time from a ``torch.profiler`` trace, the kernels each
-   call launches (1 for the probe and spmv, or the run fails), each
+   call's device time from a ``torch.profiler`` trace (each kernel averaged
+   over its own records), the kernels each call launches (1 for the probe,
+   spmv and the loop regions, or the run fails), each
    kernel's share of its bound and its ratio to the library call on both
    clocks; the launch floor (an empty kernel through ``_build.launch``);
-   the probe's µs a pattern for fp, vmem and mxu (``launch/slot_cost.py``).
+   the probe's µs a pattern for fp, vmem and mxu (``launch/slot_cost.py``);
+   each loop kernel at its phase-4 shape through the region's runtime-k
+   call at k=0 (STREAM: torch.add with alpha 3 as the library call; SPMXV
+   large at q=0: CSR ``@ x``), lat_mem_rd's ns a dependent hop beside it,
+   and the noise slot's own cost: each mode's run-time kernel at k=0 and
+   k=8 and its static build at k=8, against the clean kernel.
 
 The last lines are the card, one ``{"kernels": [...]}`` JSON object, and
 ``{"ok": true, "device": {...}}``.
@@ -71,6 +96,7 @@ import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
@@ -104,6 +130,22 @@ ATTENTION_CASES = (
     ("hd256 f32 causal", 256, "float32", 512, True, 0, True),
     ("hd256 bf16 causal", 256, "bfloat16", 512, True, 0, True),
 )
+
+
+# the loop regions (csrc/loop_regions.cu) and their noise modes
+LOOP_MODES = ("fp_add", "fp_fma", "l1_ld", "mem_ld", "chase")
+LOOP_CHECK_KS = (0, 1, 5, 24)
+LOOP_MAIN_CHECK_KS = (0, 5)     # at the main path's shapes
+LOOP_SASS = {"fp_add": "FADD", "fp_fma": "FFMA", "l1_ld": "LDG",
+             "mem_ld": "LDG", "chase": "LDG"}
+# the six region kernels of csrc/loop_regions.cu
+LOOP_KERNEL_FNS = ("stream_kernel", "lat_kernel", "haccmk_kernel",
+                   "spmxv_kernel", "mm_o0_kernel", "mm_o3_kernel")
+# the main path's loop shapes (src/repro_torch/bench/studies.py)
+MAIN_STREAM_N = 2 ** 25
+MAIN_LAT = {"table_len": 2 ** 26, "n_iter": 1024, "hops_per_iter": 8}
+MAIN_HACC = {"n_iter": 60_000, "width": 132 * 1024}
+MAIN_MM_N = 192
 
 
 def attention_variant(hd: int, dtype: str) -> tuple:
@@ -150,31 +192,56 @@ def host_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = TIMING_REPS):
+# a spin kernel of ~50 ms (at 1.98 GHz) opens every profiler window: the
+# trace drops the kernels that start within the window's first X ms, X
+# growing with the process's age as its host and device clocks drift apart
+# (late in one run every window lost its first call's kernels, 24 records
+# for 25 one-kernel calls; with a 5 ms spin the windows timed after ~9
+# minutes still did), so the calls timed start after it
+SPIN_CYCLES = 100_000_000
+
+
+def device_ms(fn, reps: int = TIMING_REPS, windows: int = 3):
     """Device time of one call of ``fn`` from a torch.profiler trace (CUPTI):
     (ms per call summed over its kernels, {kernel: ms per call}, kernels
-    launched per call); (None, {}, 0) when the trace holds no device
-    events."""
+    launched per call, complete); (None, {}, 0, False) when the trace holds
+    no device events. A kernel's ms per call is the mean of its own records
+    times its launches a call (its records / reps, rounded), so a record the
+    trace dropped leaves it unbiased. The window opens with a spin kernel
+    (``SPIN_CYCLES``), left out; a window in which a kernel's records are
+    not a whole number a call is traced again, at most ``windows`` times,
+    and ``complete`` says whether the last one was whole."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    per_kernel: dict = {}
-    n_kernels = 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name.split("(")[0].replace("void ", "")
-            per_kernel[name] = (per_kernel.get(name, 0.0)
-                                + e.time_range.elapsed_us() / 1e3 / reps)
-            n_kernels += 1
-    if not per_kernel:
-        return None, {}, 0
-    return sum(per_kernel.values()), per_kernel, n_kernels / reps
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SPIN_CYCLES)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        records: dict = {}     # kernel -> [ms summed, records]
+        for e in prof.events():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and "spin_kernel" not in e.name):
+                name = e.name.split("(")[0].replace("void ", "")
+                rec = records.setdefault(name, [0.0, 0])
+                rec[0] += e.time_range.elapsed_us() / 1e3
+                rec[1] += 1
+        per_call = {name: max(1, round(n / reps))
+                    for name, (_, n) in records.items()}
+        complete = all(n == per_call[name] * reps
+                       for name, (_, n) in records.items())
+        if complete:
+            break
+    if not records:
+        return None, {}, 0, False
+    per_kernel = {name: ms / n * per_call[name]
+                  for name, (ms, n) in records.items()}
+    return (sum(per_kernel.values()), per_kernel, sum(per_call.values()),
+            complete)
 
 
 def time_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
@@ -225,6 +292,15 @@ class Kernels:
                 "source": "src/repro_torch/csrc/flash_attention.cu",
                 "replaces": "src/repro/kernels/flash_attention/kernel.py:157"},
         }
+        from repro_torch.kernels.loop_regions.kernel import REGION_KERNELS
+
+        replaces = {"stream_triad": 31, "lat_mem_rd": 58, "haccmk": 92,
+                    "spmxv": 125, "matmul_O0": 160, "matmul_O3": 160}
+        for name, (cuda, plain) in REGION_KERNELS.items():
+            self.rows[name] = {
+                "cuda": cuda, "plain": plain,
+                "source": "src/repro_torch/csrc/loop_regions.cu",
+                "replaces": f"src/repro/bench/kernels.py:{replaces[name]}"}
         self.workers = {name: [0, 0] for name in self.rows}
 
     def reset(self) -> None:
@@ -282,6 +358,10 @@ def _static_set():
               attention_variant(hd, dtype))
              for _, hd, dtype, _, _, _, static in ATTENTION_CASES if static
              for m in KERNEL_MODES["attention"]]
+    from repro_torch.core.loopnoise import MODE_IDS as LOOP_IDS
+
+    want += [("loop_regions", LOOP_IDS[m], k, ()) for m in LOOP_MODES
+             for k in (8, STATIC_CHECK_K)]
     return want + [("noise_probes", MODE_IDS["fp"], 8, ()),
                    ("noisy_matmul", MODE_IDS["fp"], 8, ()),
                    ("flash_attention", MODE_IDS["fp"], 8,
@@ -348,6 +428,50 @@ def phase_build() -> None:
     _fadd_grows("noise_probes", (), 4)
     _fadd_grows("noisy_matmul", (), 4)
     _fadd_grows("flash_attention", attention_variant(128, "float32"), 4)
+    _loop_census()
+
+
+def _loop_census() -> None:
+    """Static loop_regions builds at k=8 and k=24: each mode's pattern
+    instruction grows by >= 16 in each of the six region kernels; l1_ld's
+    extra loads are plain cached loads (not .STRONG, which bypasses L1)."""
+    from repro_torch.core.loopnoise import MODE_IDS as LOOP_IDS
+    from repro_torch.kernels import _build
+
+    want = STATIC_CHECK_K - 8
+    failed = []
+    for mode in LOOP_MODES:
+        op = LOOP_SASS[mode]
+        census = {}
+        for k in (8, STATIC_CHECK_K):
+            path = _build.static_lib_path("loop_regions", LOOP_IDS[mode], k)
+            census[k] = _build.sass_census(path, op)
+            if census[k] is None:
+                raise RuntimeError("cuobjdump not found: no SASS census")
+        growth, strong = {}, {}
+        for kern in LOOP_KERNEL_FNS:
+            # mangled: _Z13stream_kernelILi1ELi8EE...
+            ops = {k: [c for fn, c in census[k].items()
+                       if f"{len(kern)}{kern}I" in fn] for k in census}
+            if any(len(v) != 1 for v in ops.values()):
+                raise RuntimeError(f"loop_regions {mode}: {kern} is not one "
+                                   f"function of the static builds")
+            ops = {k: v[0] for k, v in ops.items()}
+            growth[kern] = (sum(ops[STATIC_CHECK_K].values())
+                            - sum(ops[8].values()))
+            strong[kern] = [sum(c for o, c in v.items()
+                                if "STRONG" in o or "VOL" in o)
+                            for v in ops.values()]
+            if growth[kern] < want:
+                failed.append(f"{mode} {kern}: {growth[kern]} more {op}")
+            if mode == "l1_ld" and strong[kern][0] != strong[kern][1]:
+                failed.append(f"l1_ld {kern}: strong/volatile loads (they "
+                              f"bypass L1) {strong[kern]}")
+        print(f"SASS {op} in the static {mode} loop_regions, k=8 -> "
+              f"k={STATIC_CHECK_K}, growth a kernel: {growth}")
+    if failed:
+        raise RuntimeError(f"loop_regions SASS census (want >= {want} more "
+                           f"pattern instructions a kernel): {failed}")
 
 
 def _max_err(got, want) -> float:
@@ -667,6 +791,157 @@ def _check_fused(main: dict, failures: list) -> None:
           f"workspaces, counters {left}", flush=True)
 
 
+def _loop_case(kernel, run, plain, *args, **kw):
+    """(kernel, call(mode, k, static), plain(mode, k)) of one loop region
+    on ``args``, with the modes' carries on the args' device."""
+    from repro_torch.core.loopnoise import loop_carry
+
+    dev = args[0].device
+
+    def carry(mode):
+        return None if mode == "none" else loop_carry(mode, dev)
+
+    return (kernel,
+            lambda m, k, static: run(*args, mode=m, k=k, carry=carry(m),
+                                     static=static, **kw),
+            lambda m, k: plain(*args, mode=m, k=k, carry=carry(m), **kw))
+
+
+def _loop_cases(dev) -> dict:
+    """label -> ``_loop_case`` of every loop region at moderate sizes: one
+    iteration a warp at most, odd chunks and row widths."""
+    import numpy as np
+    import torch
+
+    from repro_torch.convert import to_torch
+    from repro_torch.core.loopnoise import chase_table
+    from repro_torch.kernels.loop_regions import kernel as lk
+    from repro_torch.kernels.loop_regions import ref as lref
+    from repro_torch.kernels.spmv_ell.ref import make_band_ell
+
+    rs = np.random.RandomState(7)
+
+    def f32(*shape):
+        return to_torch((rs.standard_normal(shape).astype(np.float32),),
+                        dev)[0]
+
+    table = chase_table(torch.from_numpy(
+        rs.permutation(1 << 16).astype(np.int64))).to(torch.int32).to(dev)
+    idx0 = torch.tensor([5], dtype=torch.int32, device=dev)
+    spmv = {}
+    for n, L in ((1 << 14, 16), (2000, 12), (1000, 5)):
+        vals, cols = make_band_ell(n, L, 0.5, seed=n)
+        x = rs.standard_normal(n).astype(np.float32)
+        spmv[n] = (*to_torch((vals, cols, x), dev),
+                   torch.zeros(n, dtype=torch.float32, device=dev))
+    xs = to_torch((np.linspace(0.1, 0.9, 1000).astype(np.float32),), dev)[0]
+    a32, b32 = f32(32, 32), f32(32, 32)
+    return {
+        "stream n=2^16 chunk 512": _loop_case(
+            "stream_triad", lk.stream_triad, lref.stream_triad_plain,
+            f32(1 << 16), f32(1 << 16), f32(1 << 16), chunk=512),
+        "stream n=3000 chunk 100": _loop_case(
+            "stream_triad", lk.stream_triad, lref.stream_triad_plain,
+            f32(3000), f32(3000), f32(3000), chunk=100),
+        "lat_mem_rd 2^16 table, 64 x 8 hops": _loop_case(
+            "lat_mem_rd", lk.lat_mem_rd, lref.lat_mem_rd_plain, table, idx0,
+            n_iter=64, hops=8),
+        "haccmk width 1000, 200 iterations": _loop_case(
+            "haccmk", lk.haccmk, lref.haccmk_plain, xs, n_iter=200),
+        "spmxv n=2^14 L=16 q=0.5": _loop_case(
+            "spmxv", lk.spmxv, lref.spmxv_plain, *spmv[1 << 14],
+            rows_per_iter=64),
+        "spmxv n=2000 L=12 q=0.5": _loop_case(
+            "spmxv", lk.spmxv, lref.spmxv_plain, *spmv[2000],
+            rows_per_iter=64),
+        "spmxv n=1000 L=5 q=0.5": _loop_case(
+            "spmxv", lk.spmxv, lref.spmxv_plain, *spmv[1000],
+            rows_per_iter=64),
+        "matmul_O0 n=32": _loop_case(
+            "matmul_O0", lk.matmul_o0, lref.matmul_o0_plain, a32, b32,
+            torch.zeros((1, 32), dtype=torch.float32, device=dev),
+            n_iter=128),
+        "matmul_O3 n=32": _loop_case(
+            "matmul_O3", lk.matmul_o3, lref.matmul_o3_plain, a32, b32,
+            n_iter=512),
+    }
+
+
+# HACCmk's iterations in the main-shape check (the main path runs 60,000;
+# every thread runs every iteration, so the width sets the grouping)
+CHECK_HACC_ITERS = 1000
+
+
+def _loop_main_cases() -> dict:
+    """label -> ``_loop_case`` of every loop region on the main path's own
+    inputs (``repro_torch.bench.kernels``, phase 4's shapes): STREAM and
+    SPMXV walk 15.5 and 7.8 iterations a warp, grid-stride, with a last
+    round in which only some warps run; HACCmk at its full width."""
+    from repro_torch.bench.kernels import (haccmk_region, lat_mem_rd_region,
+                                           matmul_region, spmxv_region,
+                                           stream_region)
+    from repro_torch.kernels.loop_regions import kernel as lk
+    from repro_torch.kernels.loop_regions import ref as lref
+
+    def base(region):
+        return region.args_for("", 0)
+
+    n = MAIN_MM_N
+    return {
+        "stream n=2^25 chunk 512": _loop_case(
+            "stream_triad", lk.stream_triad, lref.stream_triad_plain,
+            *base(stream_region(n=MAIN_STREAM_N)), chunk=512),
+        "lat_mem_rd 2^26 table, 1024 x 8 hops": _loop_case(
+            "lat_mem_rd", lk.lat_mem_rd, lref.lat_mem_rd_plain,
+            *base(lat_mem_rd_region(**MAIN_LAT)), n_iter=MAIN_LAT["n_iter"],
+            hops=MAIN_LAT["hops_per_iter"]),
+        f"haccmk width {MAIN_HACC['width']}, {CHECK_HACC_ITERS} iterations":
+            _loop_case("haccmk", lk.haccmk, lref.haccmk_plain,
+                       *base(haccmk_region(width=MAIN_HACC["width"])),
+                       n_iter=CHECK_HACC_ITERS),
+        "spmxv n=2^21 L=16 q=0.5": _loop_case(
+            "spmxv", lk.spmxv, lref.spmxv_plain,
+            *base(spmxv_region(n=MAIN_SPMXV_N, q=0.5)), rows_per_iter=64),
+        f"matmul_O0 n={n}": _loop_case(
+            "matmul_O0", lk.matmul_o0, lref.matmul_o0_plain,
+            *base(matmul_region(n=n)), n_iter=32 * n // lref.UNROLL_O0),
+        f"matmul_O3 n={n}": _loop_case(
+            "matmul_O3", lk.matmul_o3, lref.matmul_o3_plain,
+            *base(matmul_region(n=n, optimized=True)), n_iter=16 * n),
+    }
+
+
+def _check_loops(cases: dict, ks, failures: list, max_err: dict) -> None:
+    """Every loop region x mode x k in ``ks`` against its plain version
+    (outputs and aux bitwise), outputs unchanged across k, runtime k ==
+    static k."""
+    import torch
+
+    for label, (kernel, run, plain) in cases.items():
+        t0 = time.perf_counter()
+        base = run("none", 0, False)[0]
+        worst = _max_err(base, plain("none", 0)[0])
+        _equal(base, plain("none", 0)[0], f"{label} none out", failures)
+        for mode in LOOP_MODES:
+            for k in ks:
+                got, want = run(mode, k, False), plain(mode, k)
+                torch.cuda.synchronize()
+                what = f"{label} {mode} k={k}"
+                worst = max(worst, _max_err(got[0], want[0]),
+                            _max_err(got[1], want[1]))
+                _equal(got, want, what + " (out, aux) vs plain", failures)
+                _equal(got[0], base, what + " out vs k=0", failures)
+            _equal(run(mode, STATIC_CHECK_K, False),
+                   run(mode, STATIC_CHECK_K, True),
+                   f"{label} {mode} runtime k vs static k={STATIC_CHECK_K}",
+                   failures)
+        max_err[kernel] = max(max_err.get(kernel, 0.0), worst)
+        print(f"loop {label}: none + {', '.join(LOOP_MODES)} x k in "
+              f"{list(ks)}: out and aux vs plain, out across k, "
+              f"runtime == static k={STATIC_CHECK_K}; max|kernel - plain| = "
+              f"{worst:.3g} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def phase_check(main: dict) -> dict:
     import numpy as np
     import torch
@@ -717,6 +992,8 @@ def phase_check(main: dict) -> dict:
     _matmul_control(main["a"], main["b"], main["noise"], f"n={MAIN_MATMUL_N}",
                     failures)
     _check_fused(main, failures)
+    _check_loops(_loop_cases(dev), LOOP_CHECK_KS, failures, max_err)
+    _check_loops(_loop_main_cases(), LOOP_MAIN_CHECK_KS, failures, max_err)
     if failures:
         raise RuntimeError("kernel check failed:\n  " + "\n  ".join(failures))
     return max_err
@@ -745,6 +1022,31 @@ def _fleet(*args) -> None:
     if rc:
         raise RuntimeError(f"python -m repro_torch.fleet {' '.join(args)}: "
                            f"exit {rc}")
+
+
+def _bench(tmp: str, study: str, kernels, *extra) -> dict:
+    """``python -m repro_torch.bench STUDY`` as a user runs it, with a store
+    directory (its output streamed; raises on a nonzero exit). Adds the
+    process's launches to ``kernels`` and prints the study's result."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (SRC, env.get("PYTHONPATH")) if p)
+    out = os.path.join(tmp, "bench_out")
+    sys.stdout.flush()
+    rc = subprocess.run([sys.executable, "-m", "repro_torch.bench", study,
+                         "--store-dir", os.path.join(tmp, "bench_stores"),
+                         "--out", out, *extra], env=env,
+                        timeout=900).returncode
+    if rc:
+        raise RuntimeError(f"python -m repro_torch.bench {study}: exit {rc}")
+    name = {"fig7": "fig7_spmxv", "fig5": "fig5_hwchar",
+            "fig4": "fig4_matmul"}[study]
+    if kernels is not None:
+        kernels.add_worker(os.path.join(out, f"{name}.stats.json"))
+    with open(os.path.join(out, f"{name}.json")) as f:
+        result = json.load(f)
+    print(f"{study} result: {json.dumps(result)}", flush=True)
+    return result
 
 
 def _fleet_plan_run(tmp: str, name: str, params: dict, shards: int,
@@ -806,8 +1108,9 @@ def phase_main(tmp: str, kernels: Kernels) -> dict:
         print(f"  ({name}: {seconds[name]:.1f} s; launches (kernel, plain): "
               f"{ {k: c for k, c in path_counts.items() if any(c)} })",
               flush=True)
-        if path_counts[kernel][0] <= 0:
-            raise RuntimeError(f"{name}: the path never launched {kernel}")
+        for kern in (kernel,) if isinstance(kernel, str) else kernel:
+            if path_counts[kern][0] <= 0:
+                raise RuntimeError(f"{name}: the path never launched {kern}")
         return out
 
     print(f"== 4a. Qwen3-30B-A3B attention {MAIN_ATTENTION}, one shard; "
@@ -867,6 +1170,19 @@ def phase_main(tmp: str, kernels: Kernels) -> dict:
                                     {m: r.fit.t0 for m, r in
                                      rep.results.items()})
 
+    study_kernels = {"fig7": ("spmxv",),
+                     "fig5": ("stream_triad", "lat_mem_rd", "haccmk"),
+                     "fig4": ("matmul_O0", "matmul_O3")}
+    for study, kerns in study_kernels.items():
+        print(f"== 4e. python -m repro_torch.bench {study}; card before: "
+              f"{card_state()}", flush=True)
+        timed(f"bench_{study}", kerns,
+              lambda: _bench(tmp, study, kernels))
+    print(f"== 4f. python -m repro_torch.fleet calibrate run; card: "
+          f"{card_state()}", flush=True)
+    calib_store = os.path.join(tmp, "calibrate", "calibrate.jsonl")
+    _fleet("calibrate", "run", "--store", calib_store)
+
     banner("5. launches on the main path")
     for name, (n_cuda, n_plain) in counts.items():
         print(f"{name}: kernel {n_cuda} launches, plain version {n_plain}")
@@ -875,9 +1191,12 @@ def phase_main(tmp: str, kernels: Kernels) -> dict:
         if n_plain:
             raise RuntimeError(f"{name}: the main path took the plain version")
 
-    banner("4e. every store replays with 0 measured")
+    banner("4g. every store replays with 0 measured")
     for name in path_kernel:
         run(name, expect_no_measure=True)
+    for study in study_kernels:
+        _bench(tmp, study, None, "--expect-no-measure")
+    _fleet("calibrate", "run", "--store", calib_store, "--expect-no-measure")
     print("wall time per characterization (s): "
           + json.dumps({k: round(v, 1) for k, v in seconds.items()}))
     print("verdicts (label, Abs^raw per mode, t0 s per mode): "
@@ -1016,14 +1335,27 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
                  f"the kernel's) and in bf16 {bf16_ms!r} ms, {bf16_dev!r} ms "
                  f"on the device"))
 
+    def all_rows():
+        """The rows above, then the loop kernels' (built, and their slot
+        costs timed, only after the rows above are timed)."""
+        yield from rows
+        loop_rows, loop_extra = _loop_rows()
+        extra.update(loop_extra)
+        yield from loop_rows
+
     meta = Kernels().rows
     out = {}
     one_launch = []
-    for (name, label, kern, plain, lib, nbytes, nops, peak, lib_what) in rows:
+    for (name, label, kern, plain, lib, nbytes, nops, peak,
+         lib_what) in all_rows():
         kernel_ms = time_ms(kern)
         kernel_host_ms = host_ms(kern)
-        dev_ms, per_kernel, n_kernels = device_ms(kern)
-        plain_ms = time_ms(plain)
+        dev_ms, per_kernel, n_kernels, dev_whole = device_ms(kern)
+        # the loop regions' plain versions run their loops in Python (one
+        # PyTorch call a step): a few calls are enough
+        slow = name in LOOP_PLAIN_REPS
+        plain_ms = time_ms(plain, reps=LOOP_PLAIN_REPS.get(name, TIMING_REPS),
+                           warmup=1 if slow else 3)
         library_ms = time_ms(lib) if lib is not None else None
         lib_dev_ms = device_ms(lib)[0] if lib is not None else None
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1044,10 +1376,14 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
         print(f"  device time per call (torch.profiler): {dev_ms!r} ms = "
               + ", ".join(f"{k} {v!r}" for k, v in per_kernel.items())
               + f"; library call on the device: {lib_dev_ms!r} ms; kernels "
-              f"launched per call: {n_kernels!r}")
+              f"launched per call: {n_kernels!r}"
+              + ("" if dev_whole else " (INCOMPLETE: the trace dropped "
+                 "records in every window; each kernel is averaged over its "
+                 "own records)"))
         print(f"  share of the bound (bound / time): {share}; kernel / "
               f"library call: {vs_lib}", flush=True)
-        if name in ("noise_probes", "spmv_ell") and n_kernels != 1:
+        if (name in ("noise_probes", "spmv_ell") or name in LOOP_PLAIN_REPS
+                ) and n_kernels != 1:
             one_launch.append(f"{label}: {n_kernels!r} kernels a call")
         row = {"name": name, "route": "cuda",
                "source": meta[name]["source"],
@@ -1056,6 +1392,7 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
                "ms": kernel_ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": library_ms, "device_ms": dev_ms,
+               "device_records_whole": dev_whole,
                "library_device_ms": lib_dev_ms,
                "bound_share": share, "vs_library": vs_lib,
                "kernels_per_call": n_kernels, **extra.get(name, {})}
@@ -1069,9 +1406,132 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
     out["noise_probes"]["launch_floor"] = _launch_floor()
     out["noise_probes"]["us_per_pattern"] = _probe_slot_costs()
     if one_launch:
-        raise RuntimeError("the probe and spmv must launch one kernel a "
-                           "call: " + "; ".join(one_launch))
+        raise RuntimeError("the probe, spmv and loop regions must launch "
+                           "one kernel a call: " + "; ".join(one_launch))
     return list(out.values())
+
+
+# plain-version timing reps of the loop regions (their loops run in Python)
+LOOP_PLAIN_REPS = {"stream_triad": 5, "spmxv": 5, "lat_mem_rd": 3,
+                   "haccmk": 2, "matmul_O0": 3, "matmul_O3": 3}
+
+
+def _loop_rows():
+    """Phase-6 rows of the loop kernels at their phase-4 shapes, each timed
+    as the sweeps call it: the region's runtime-k callable (fp_add) at
+    k=0. Returns (rows, extra keys by kernel)."""
+    import torch
+
+    from repro_torch.bench.kernels import (haccmk_region, lat_mem_rd_region,
+                                           matmul_region, spmxv_region,
+                                           stream_region)
+    from repro_torch.kernels.loop_regions import kernel as lk
+    from repro_torch.kernels.loop_regions import ref as lref
+
+    def main_call(region, name):
+        fn, args = region.build_rt("fp_add"), region.args_for_rt("fp_add")
+        # the slot's own cost: each mode's run-time kernel at k=0 against
+        # the clean one, and its run-time and static builds at k=8
+        slot = {"clean": time_ms(partial(region.build("", 0),
+                                         *region.args_for("", 0)), reps=5,
+                                 warmup=1)}
+        for mode in LOOP_MODES:
+            rt = region.build_rt(mode)
+            slot[mode] = {
+                "rt_k0": time_ms(partial(rt, 0, *region.args_for_rt(mode)),
+                                 reps=5, warmup=1),
+                "rt_k8": time_ms(partial(rt, 8, *region.args_for_rt(mode)),
+                                 reps=3, warmup=1),
+                "static_k8": time_ms(partial(region.build(mode, 8),
+                                             *region.args_for(mode, 8)),
+                                     reps=3, warmup=1)}
+        print(f"{region.name}: event ms of the noise slot (clean kernel; "
+              f"each mode's run-time kernel at k=0 and k=8, static k=8): "
+              f"{slot}", flush=True)
+        extra.setdefault(name, {})["slot_ms"] = slot
+        return partial(fn, 0, *args), args
+
+    # every call binds its tensors now (partial): the names are reused below
+    rows, extra = [], {}
+    # STREAM n=2^25, chunk 512: 12 bytes an element
+    reg = stream_region(n=MAIN_STREAM_N)
+    kern, (a, b, c, carry) = main_call(reg, "stream_triad")
+    c_lib = torch.empty_like(c)
+    rows.append(("stream_triad", "stream_triad n=2^25",
+                 kern, partial(lref.stream_triad_plain, a, b, c, chunk=512,
+                               mode="fp_add", k=0, carry=carry),
+                 partial(torch.add, a, b, alpha=3.0, out=c_lib),
+                 12 * MAIN_STREAM_N, 2 * MAIN_STREAM_N, FP32_FLOPS,
+                 "torch.add(a, b, alpha=3.0, out=c)"))
+
+    # lat_mem_rd: 1024 iterations x 8 dependent hops on a 2^26 table
+    reg = lat_mem_rd_region(**MAIN_LAT)
+    kern, (table, idx0, carry) = main_call(reg, "lat_mem_rd")
+    n_iter, hops = MAIN_LAT["n_iter"], MAIN_LAT["hops_per_iter"]
+    t8, t16 = (time_ms(partial(lk.lat_mem_rd, table, idx0, n_iter=n_iter,
+                               hops=h, static=False)) for h in (8, 16))
+    ns_hop = (t16 - t8) * 1e6 / (n_iter * 8)
+    lat_bound = n_iter * hops * ns_hop * 1e-6
+    print(f"lat_mem_rd: {ns_hop!r} ns a dependent hop on the 2^26 table "
+          f"(8 against 16 hops an iteration: {t8!r} / {t16!r} ms); "
+          f"latency bound {lat_bound!r} ms", flush=True)
+    extra["lat_mem_rd"].update(ns_per_hop=ns_hop, latency_bound_ms=lat_bound)
+    rows.append(("lat_mem_rd", "lat_mem_rd 2^26 table, 1024 x 8 hops",
+                 kern, partial(lref.lat_mem_rd_plain, table, idx0,
+                               n_iter=n_iter, hops=hops, mode="fp_add", k=0,
+                               carry=carry),
+                 None, 4 * n_iter * hops, 0, FP32_FLOPS, None))
+
+    # HACCmk: 6 chains x 8 FP32 operations a lane and iteration
+    reg = haccmk_region(**MAIN_HACC)
+    kern, (x, carry) = main_call(reg, "haccmk")
+    w, it = MAIN_HACC["width"], MAIN_HACC["n_iter"]
+    rows.append(("haccmk", f"haccmk width {w}, {it} iterations",
+                 kern, partial(lref.haccmk_plain, x, n_iter=it, mode="fp_add",
+                               k=0, carry=carry),
+                 None, 4 * w, w * it * lref.HACC_CHAINS * 8, FP32_FLOPS, None))
+
+    # SPMXV large, q=0 (n=2^21, L=16): the bytes of spmv_ell's row
+    warnings.filterwarnings("ignore", message="Sparse")
+    reg = spmxv_region(n=MAIN_SPMXV_N, q=0.0, name="spmxv_large_q0.0")
+    kern, (vals, cols, x, y, carry) = main_call(reg, "spmxv")
+    R, L = vals.shape
+    order = torch.argsort(cols, dim=1)
+    csr = torch.sparse_csr_tensor(
+        torch.arange(0, R * L + 1, L, device=vals.device, dtype=torch.int64),
+        torch.gather(cols, 1, order).flatten().long(),
+        torch.gather(vals, 1, order).flatten(), size=(R, x.shape[0]))
+    lib_err = _max_err(csr @ x, kern()[0])
+    rows.append(("spmxv", "spmxv n=2^21 L=16 q=0",
+                 kern, partial(lref.spmxv_plain, vals, cols, x, y,
+                               rows_per_iter=64, mode="fp_add", k=0,
+                               carry=carry),
+                 partial(torch.matmul, csr, x),
+                 4 * (2 * R * L + x.shape[0] + R), 2 * R * L,
+                 FP32_FLOPS,
+                 f"torch.sparse_csr_tensor @ x (max|d| vs kernel {lib_err:.3g})"))
+
+    # matmul O0 / O3, n=192 (Fig. 4)
+    n = MAIN_MM_N
+    for opt, name in ((False, "matmul_O0"), (True, "matmul_O3")):
+        reg = matmul_region(n=n, optimized=opt)
+        kern, args = main_call(reg, name)
+        it = 16 * n if opt else 32 * n // lref.UNROLL_O0
+        if opt:
+            a, b, carry = args
+            plain = partial(lref.matmul_o3_plain, a, b, n_iter=it,
+                            mode="fp_add", k=0, carry=carry)
+            nbytes = 4 * (lref.ROWS_O3 * n + n * n)
+            nops = 2 * it * lref.ROWS_O3 * n
+        else:
+            a, b, out0, carry = args
+            plain = partial(lref.matmul_o0_plain, a, b, out0, n_iter=it,
+                            mode="fp_add", k=0, carry=carry)
+            nbytes = 4 * (n + n * n)
+            nops = 2 * it * lref.UNROLL_O0 * n
+        rows.append((name, f"{name} n={n}", kern, plain, None, nbytes, nops,
+                     FP32_FLOPS, None))
+    return rows, extra
 
 
 def _launch_floor() -> dict:

@@ -8,6 +8,10 @@ runtime ``int`` argument of the callable ``RegionTarget.build_rt`` returns,
 so a whole k-sweep needs the runtime-k build plus one static-k build for the
 payload check. The trace-per-k path (``compile_once=False``) builds one
 static-k kernel per sweep point, the paper's own cost model.
+
+``loop_region`` adapts a loop-level target (``bench/kernels.py``: the
+paper's validation loops as CUDA kernels with a loop-body noise slot) to a
+``RegionTarget``, as the reference's does for its ``fori_loop`` regions.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from repro_torch.core.absorption import (AbsorptionCurve, AbsorptionFit,
                                          absorption, floor_time, measure,
                                          sweep)
 from repro_torch.core.classifier import HIGH, LOW, BottleneckReport, classify
+from repro_torch.core.loopnoise import loop_carry, make_loop_modes
 from repro_torch.core import payload as payload_mod
 
 log = logging.getLogger("repro_torch.controller")
@@ -221,7 +226,7 @@ class Controller:
         return target.payload_check(mode, k_chk)
 
     def characterize(self, target: RegionTarget,
-                     modes: Sequence[str],
+                     modes: Sequence[str] = ("fp_add", "l1_ld", "mem_ld"),
                      *, low: float = LOW, high: float = HIGH) -> RegionReport:
         """Sweep every mode and classify the region; ``low``/``high`` are
         the effective classification thresholds."""
@@ -237,3 +242,80 @@ def derive_body_size(target: RegionTarget) -> int:
     """|l1.l2| of a region that does not state it. The reference reads it
     from optimized HLO; the port has no such census yet, so it is 0."""
     return 0
+
+
+def _default_target(mode: str) -> str:
+    """The resource one pattern of ``mode`` stresses (payload reports)."""
+    modes = make_loop_modes()
+    if mode in modes:
+        return modes[mode].target
+    return {"fp_add32": "compute", "mxu_fma128": "compute",
+            "vmem_ld": "vmem", "hbm_stream": "memory",
+            "hbm_latency": "latency",
+            # kernel-level vocabulary (kernels/noise_slots.py)
+            "fp": "compute", "mxu": "compute", "vmem": "vmem",
+            }.get(mode, "compute")
+
+
+def loop_region(name: str,
+                make_fn: Callable[..., Callable],
+                args_for: Callable[[], tuple], *, body_size: int = 0,
+                n_iter: int = 0, device="cuda") -> RegionTarget:
+    """Adapter for loop-level targets.
+
+    ``make_fn(noise_or_None, k, static=True, plain=False)`` returns the
+    region's callable: it takes ``args_for()`` and, when ``noise`` is given,
+    the mode's carry as its last argument, and returns ``(out, aux)`` with
+    noise, ``out`` without. ``static``: the static-k kernel (k unrolled);
+    else the run-time-k kernel, which serves a whole sweep. ``plain``: the
+    kernel's plain PyTorch version (the payload check's oracle).
+
+    ``device`` is where the carries live (``loop_carry``: the card's
+    256 MiB buffers for mem_ld and chase on CUDA). ``n_iter``: the loop's
+    trip count (the payload's dynamic count).
+    """
+    modes = make_loop_modes()
+
+    def carry(mode: str) -> dict:
+        return loop_carry(mode, device)
+
+    def build(mode: str, k: int):
+        if not mode or k == 0:
+            return make_fn(None, 0)
+        return make_fn(modes[mode], k)
+
+    def args(mode: str, k: int):
+        base = args_for()
+        if not mode or k == 0:
+            return base
+        return (*base, carry(mode))
+
+    def build_rt(mode: str):
+        noise = modes[mode]
+
+        def fn(k, *args_and_carry):
+            return make_fn(noise, k, static=False)(*args_and_carry)
+
+        return fn
+
+    def args_rt(mode: str):
+        return (*args_for(), carry(mode))
+
+    def payload_check(mode: str, k: int) -> payload_mod.InjectionReport:
+        """Run the static-k build once and hold its aux against the plain
+        version's: an exact match proves that all k patterns ran."""
+        ok = True
+        if k:
+            call_args = args(mode, k)
+            got = build(mode, k)(*call_args)
+            want = make_fn(modes[mode], k, plain=True)(*call_args)
+            ok = bool((got[1].cpu() == want[1].cpu()).all())
+        return payload_mod.InjectionReport(
+            mode=mode, target=_default_target(mode), expected=k,
+            payload=k if ok else 0, overhead=0,
+            payload_dynamic=k * n_iter, body_ops=body_size)
+
+    return RegionTarget(name=name, build=build, args_for=args,
+                        body_size=body_size, build_rt=build_rt,
+                        args_for_rt=args_rt, payload_check=payload_check,
+                        audit_hint={"scoped": True, "in_loop": True})

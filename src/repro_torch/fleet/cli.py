@@ -17,10 +17,16 @@ budgets), and show fleet state.
 
     PYTHONPATH=src python -m repro_torch.fleet status --plan plan.json
 
+    # fit per-hardware classification thresholds (synthetic clock), show
+    # them, copy them into another store
+    PYTHONPATH=src python -m repro_torch.fleet calibrate run
+    PYTHONPATH=src python -m repro_torch.fleet calibrate inspect
+    PYTHONPATH=src python -m repro_torch.fleet calibrate apply --to S.jsonl
+
 ``--backend cuda`` (the default) measures the CUDA kernels on the card and
 fails without one; ``--backend cpu`` runs their plain PyTorch versions. The
-reference's ``audit``, ``doctor``, ``watch`` and ``calibrate`` subcommands
-and its ssh launcher are not ported.
+reference's ``audit``, ``doctor`` and ``watch`` subcommands and its ssh
+launcher are not ported.
 """
 from __future__ import annotations
 
@@ -168,6 +174,81 @@ def _cmd_run(args) -> int:
     print(f"fleet {res.plan.name!r} complete: {len(res.reports)} region(s) "
           f"classified, shard(s) launched this run: "
           f"{res.launched or 'none'}")
+    return 0
+
+
+def _cmd_calibrate(args) -> int:
+    """Run, inspect or apply a threshold-calibration campaign (the
+    known-regime synthetic sweep that fits per-hardware LOW/HIGH —
+    ``core.calibration``)."""
+    from repro_torch.core.absorption import SYNTH_MEASURE_VAR
+    from repro_torch.core.calibration import EXPECTED, run_calibration
+    from repro_torch.core.campaign import CampaignStore
+
+    store = args.store or os.path.join(CAMPAIGN_DIR, "calibrate.jsonl")
+    if args.action == "run":
+        from repro_torch.core.calibration import CALIB_MODES
+        from repro_torch.fleet.executor import finish_stats
+        from repro_torch.fleet.plan import PlanError, SweepPlan, TargetSpec
+
+        # calibration is definitionally synthetic: the known regimes are
+        # forced clock shapes, so make sure the deterministic clock is on
+        os.environ.setdefault(SYNTH_MEASURE_VAR, args.base)
+        plan = SweepPlan(name="calibrate", store=store, shards=1,
+                         reps=args.reps, backend=args.backend,
+                         targets=[TargetSpec("calibrate",
+                                             tuple(CALIB_MODES), {})])
+        try:
+            plan.validate()
+        except PlanError as e:
+            raise SystemExit(f"calibrate: {e}")
+        plan_path = args.out or os.path.splitext(store)[0] + ".plan.json"
+        plan.save(plan_path)
+        res = run_calibration(store, reps=args.reps, device=args.backend)
+        tag = ("fitted" if res.fitted
+               else "regimes did not separate; FALLBACK to paper defaults")
+        print(f"== calibration [{res.hw}]: low={res.low:g} "
+              f"high={res.high:g} ({tag})")
+        print(f"  plan -> {plan_path}  (status --plan shows its grid)")
+        ok = True
+        for name, rep in sorted(res.reports.items()):
+            b = rep.bottleneck
+            good = b.label == EXPECTED[name]
+            ok = ok and good
+            verdict = "ok" if good else f"WRONG (expected {EXPECTED[name]})"
+            print(f"  {name}: {b.label} "
+                  f"(confidence {b.confidence:.3f}) [{verdict}]")
+        finish_stats(res.stats, args.expect_no_measure)
+        return 0 if ok else 1
+
+    try:   # inspect/apply read an existing store; never create one
+        st = CampaignStore(store, readonly=True)
+    except FileNotFoundError as e:
+        print(e)
+        return 2
+    if not st.calib:
+        print(f"{store}: no calib record — run "
+              "`python -m repro_torch.fleet calibrate run` first")
+        return 1
+    if args.action == "inspect":
+        for hw, rec in sorted(st.calib.items()):
+            tag = "fitted" if rec.get("fitted") else "FALLBACK"
+            print(f"calib hw={hw}: low={rec.get('low'):g} "
+                  f"high={rec.get('high'):g} [{tag}] "
+                  f"(reps={rec.get('reps')})")
+            for s in rec.get("samples", []):
+                print(f"  {s['region']}/{s['mode']} [{s['role']}]: "
+                      f"Abs^raw={s['k1']:g}")
+        return 0
+    # apply: copy the calib record(s) into another store, so its future
+    # classifications resolve the fitted thresholds
+    if not args.to:
+        raise SystemExit("calibrate apply needs --to DEST_STORE")
+    dest = CampaignStore(args.to)
+    for _hw, rec in sorted(st.calib.items()):
+        dest.append(rec)
+    dest.close()
+    print(f"applied {len(st.calib)} calib record(s) -> {args.to}")
     return 0
 
 
@@ -320,6 +401,38 @@ def build_parser() -> argparse.ArgumentParser:
     _add_launcher_flags(rp, for_plan=False)
     rp.set_defaults(fn=_cmd_run)
 
+    cal = sub.add_parser("calibrate",
+                         help="threshold calibration: run the known-regime "
+                              "synthetic sweep and fit per-hardware "
+                              "LOW/HIGH, inspect the fitted record, or "
+                              "apply it to another store")
+    cal.add_argument("action", choices=("run", "inspect", "apply"),
+                     help="run: sweep the four known-regime kernels under "
+                          "the deterministic synthetic clock and persist a "
+                          "calib record; inspect: print the store's calib "
+                          "record(s); apply: copy them into --to DEST")
+    cal.add_argument("--store", default=None,
+                     help="calibration campaign store (default: "
+                          f"{CAMPAIGN_DIR}/calibrate.jsonl)")
+    cal.add_argument("--out", default=None, metavar="PLAN.json",
+                     help="where `run` writes the calibrate SweepPlan "
+                          "(default: next to the store)")
+    cal.add_argument("--reps", type=int, default=2,
+                     help="timing repetitions per measured point")
+    cal.add_argument("--base", default="1e-3",
+                     help="synthetic-clock base seconds exported as "
+                          "REPRO_SYNTH_MEASURE when it is not already set")
+    cal.add_argument("--backend", default="cuda", choices=("cuda", "cpu"),
+                     help="where the calibration regions' buffers live: "
+                          "cuda (default) or cpu")
+    cal.add_argument("--to", default=None, metavar="DEST_STORE",
+                     help="apply: the store that receives the calib "
+                          "record(s)")
+    cal.add_argument("--expect-no-measure", action="store_true",
+                     help="run: exit non-zero if the calibration had to "
+                          "measure anything (replay contract)")
+    cal.set_defaults(fn=_cmd_calibrate)
+
     sp = sub.add_parser("status", help="show fleet/shard/store completeness "
                                        "(exit 1 while incomplete)")
     sp.add_argument("--plan", required=True,
@@ -329,7 +442,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    """CLI entry: dispatch to the plan/run/status subcommand."""
+    """CLI entry: dispatch to the plan/run/calibrate/status subcommand."""
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

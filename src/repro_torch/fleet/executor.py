@@ -30,8 +30,8 @@ classification.
 The reference's static noise audit (``repro.analysis``, run before any
 measurement) is not ported: the audit policy takes "off" only, its default;
 "gate" and "warn" raise rather than skip the audit without saying so.
-Classification uses the paper-default thresholds (calibration is not
-ported).
+A ``calib`` record in the store (``core.calibration``) swaps the
+classifier's paper-default thresholds for the fitted ones.
 """
 from __future__ import annotations
 
@@ -190,10 +190,41 @@ def _gate_quality(reports: dict, quality: str) -> None:
     print(f"!! {msg}\n!! --quality warn: reporting anyway")
 
 
+def characterize_region(region, modes: Sequence[str], *, controller,
+                        store: str, stats=None):
+    """Store-backed characterize of ONE region — the spine the studies
+    ride (``bench/studies.py``). ``stats`` (a ``CampaignStats``): add this
+    region's measured and replayed points to it."""
+    from repro_torch.core.campaign import Campaign
+
+    camp = Campaign(store, controller)
+    try:
+        rep = camp.characterize(region, list(modes))
+    finally:
+        camp.store.close()
+    if camp.stats.cached:
+        print(f"  [{region.name}: {camp.stats.cached} points from store, "
+              f"{camp.stats.measured} measured]")
+    if stats is not None:
+        stats.measured += camp.stats.measured
+        stats.cached += camp.stats.cached
+    return rep
+
+
+def _use_thresholds(camp) -> str:
+    """Classify under the store's calibration (``resolve_thresholds``);
+    returns the thresholds' provenance."""
+    from repro_torch.core.calibration import resolve_thresholds
+
+    low, high, prov = resolve_thresholds(camp.store)
+    camp.thresholds = (low, high)
+    return prov
+
+
 def _classify_regions(plan: SweepPlan, camp, quality: str) -> dict:
     """One RegionReport per planned region from ``camp`` (replaying what
-    the store holds), with the store's quality evidence attached unless
-    ``quality`` is "off"."""
+    the store holds) under ``camp``'s thresholds, with the store's quality
+    evidence attached unless ``quality`` is "off"."""
     reports = {}
     for spec, regions in plan.resolve():
         for region in regions:
@@ -312,6 +343,11 @@ def run_worker(plan: SweepPlan, *, index: Optional[int] = None,
             return res, camp.stats
 
         print(f"== {title} (campaign store: {store})")
+        prov = _use_thresholds(camp)
+        if prov != "default":
+            low, high = camp.thresholds
+            print(f"  [classification thresholds: {prov} "
+                  f"low={low:g} high={high:g}]")
         many = sum(len(regions) for _, regions in plan.resolve()) > 1
         reports = _classify_regions(plan, camp, quality)
         for rep in reports.values():
@@ -455,7 +491,9 @@ def _incomplete_shards(plan: SweepPlan, grid, *,
 def _classify(plan: SweepPlan, quality: str = "gate"):
     """Merge-side finalize: replay the canonical store into one RegionReport
     per region (a complete store measures nothing here; quarantined points
-    are NOT healed by finalize — it classifies what the fleet measured)."""
+    are NOT healed by finalize — it classifies what the fleet measured),
+    under the store's calibrated thresholds when it holds a ``calib``
+    record."""
     from repro_torch.core.campaign import Campaign, CampaignStore
     from repro_torch.core.controller import Controller
 
@@ -465,6 +503,7 @@ def _classify(plan: SweepPlan, quality: str = "gate"):
                     quality=qpolicy, remeasure=qbudget,
                     heal_quarantined=False)
     try:
+        _use_thresholds(camp)
         reports = _classify_regions(plan, camp, quality)
     finally:
         camp.store.close()

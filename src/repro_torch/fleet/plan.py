@@ -20,8 +20,8 @@ so every participant (the launcher, each worker subprocess, a human at the
 
 The JSON schema, digest and grid order are the reference's (``repro.fleet.
 plan``), so a plan file names the same regions in both packages. What the
-port accepts is narrower: the "pallas" kind only, ``backend`` "cuda" (the
-default) or "cpu", and the single-file store layout.
+port accepts is narrower: the "pallas" and "calibrate" kinds, ``backend``
+"cuda" (the default) or "cpu", and the single-file store layout.
 
 Plan JSON (one object, schema-versioned):
 
@@ -48,8 +48,6 @@ WAITING_KINDS = {
             "item 10)",
     "serve": "serve targets wait for the serving engine (ROADMAP queue 1 "
              "item 10)",
-    "calibrate": "calibrate targets wait for core/calibration.py (ROADMAP "
-                 "queue 1 item 6)",
 }
 
 
@@ -62,9 +60,11 @@ class TargetSpec:
     """One declarative target family: what to measure and under which modes.
 
     kind "pallas": params {kernel, sizes[, qs, ...spec kwargs]}; resolves via
-    ``pallas_family`` to one RegionTarget per size/q. The reference's
-    "step", "serve" and "calibrate" kinds are refused with the ROADMAP item
-    they wait for.
+    ``pallas_family`` to one RegionTarget per size/q.
+    kind "calibrate": params {[n, chunk]}; resolves to the four known-regime
+    calibration targets (``core.calibration.calibrate_targets``).
+    The reference's "step" and "serve" kinds are refused with the ROADMAP
+    item they wait for.
     """
     kind: str
     modes: tuple[str, ...]
@@ -78,9 +78,12 @@ class TargetSpec:
         if self.kind in WAITING_KINDS:
             raise PlanError(f"target kind {self.kind!r} is not ported: "
                             f"{WAITING_KINDS[self.kind]}")
+        if self.kind == "calibrate":
+            self._validate_calibrate()
+            return
         if self.kind != "pallas":
             raise PlanError(f"unknown target kind {self.kind!r}; one of "
-                            "['pallas']")
+                            "['calibrate', 'pallas']")
         from repro_torch.kernels.region import KERNEL_MODES, check_family_args
         kernel = self.params.get("kernel")
         if kernel not in KERNEL_MODES:
@@ -100,6 +103,21 @@ class TargetSpec:
             raise PlanError(f"kernel {kernel!r} supports modes "
                             f"{KERNEL_MODES[kernel]}, not {bad}")
 
+    def _validate_calibrate(self) -> None:
+        from repro_torch.core.calibration import CALIB_MODES
+        bad = [m for m in self.modes if m not in CALIB_MODES]
+        if bad:
+            raise PlanError(f"calibrate targets sweep the loop modes "
+                            f"{list(CALIB_MODES)}, not {bad}")
+        unknown = sorted(set(self.params) - {"n", "chunk"})
+        if unknown:
+            raise PlanError(f"unknown calibrate param(s) {unknown}")
+        for key in ("n", "chunk"):
+            v = self.params.get(key)
+            if v is not None and (not isinstance(v, int) or v < 1):
+                raise PlanError(f"calibrate target {key}={v!r}: want a "
+                                "positive int")
+
     def _extra_params(self) -> dict:
         return {k: v for k, v in self.params.items()
                 if k not in ("kernel", "sizes", "qs")}
@@ -107,6 +125,11 @@ class TargetSpec:
     def resolve(self, backend: str = "cuda") -> list:
         """Build this spec's RegionTargets (in the calling process) on the
         backend's device."""
+        if self.kind == "calibrate":
+            from repro_torch.core.calibration import calibrate_targets
+            return calibrate_targets(n=int(self.params.get("n", 4096)),
+                                     chunk=int(self.params.get("chunk", 512)),
+                                     device=backend)
         from repro_torch.kernels.region import pallas_family
         return pallas_family(self.params["kernel"], self.params["sizes"],
                              qs=self.params.get("qs"), device=backend,
@@ -115,6 +138,9 @@ class TargetSpec:
     def region_names(self) -> list[str]:
         """The names ``resolve()``'s regions will carry, derived WITHOUT
         building anything (grid queries stay cheap)."""
+        if self.kind == "calibrate":
+            from repro_torch.core.calibration import REGIME_NAMES
+            return list(REGIME_NAMES)
         from repro_torch.kernels.region import family_names
         return family_names(self.params["kernel"], self.params["sizes"],
                             qs=self.params.get("qs"), **self._extra_params())

@@ -50,7 +50,10 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_PKG)), "build",
                          "repro_torch")
-KERNEL_SOURCES = ("noise_probes", "spmv_ell", "noisy_matmul", "flash_attention")
+# the four Pallas kernels' counterparts, then the paper's validation loops
+# (csrc/loop_regions.cu: STREAM, lat_mem_rd, HACCmk, SPMXV, matmul O0/O3)
+KERNEL_SOURCES = ("noise_probes", "spmv_ell", "noisy_matmul", "flash_attention",
+                  "loop_regions")
 
 # no fast-math: the fp noise chain of k adds must not fold into k*c
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -301,10 +304,12 @@ def on_card(t) -> bool:
     raise ValueError(f"tensors on {t.device} are not supported")
 
 
-def sass_count(path: str, opcode: str) -> Optional[int]:
-    """How many SASS instructions of ``opcode`` (e.g. ``FADD``) a built
-    library holds, from ``cuobjdump -sass``; None when the toolkit has no
-    ``cuobjdump``."""
+def sass_census(path: str, opcode: str) -> Optional[dict]:
+    """{function: {opcode with its modifiers: count}} of the SASS
+    instructions of ``opcode`` (e.g. ``LDG`` counts ``LDG.E`` and
+    ``LDG.E.STRONG.SM`` apart) in each function of a built library, from
+    ``cuobjdump -sass``; functions by their mangled names. None when the
+    toolkit has no ``cuobjdump``."""
     tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
     if not os.path.isfile(tool):
         return None
@@ -312,5 +317,24 @@ def sass_count(path: str, opcode: str) -> Optional[int]:
                          text=True, check=True).stdout
     # e.g. "        /*0090*/   @P0 FADD R5, R5, R4 ;   /* 0x000... */"
     pat = re.compile(rf"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?"
-                     rf"{re.escape(opcode)}(?:\.\S+)?\s")
-    return sum(1 for line in out.splitlines() if pat.match(line))
+                     rf"({re.escape(opcode)}(?:\.\S+)?)\s")
+    census: dict = {}
+    ops = census.setdefault("", {})
+    for line in out.splitlines():
+        m = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if m:
+            ops = census.setdefault(m.group(1), {})
+            continue
+        m = pat.match(line)
+        if m:
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    return {fn: c for fn, c in census.items() if fn or c}
+
+
+def sass_count(path: str, opcode: str) -> Optional[int]:
+    """How many SASS instructions of ``opcode`` (e.g. ``FADD``) a built
+    library holds in all; None when the toolkit has no ``cuobjdump``."""
+    census = sass_census(path, opcode)
+    if census is None:
+        return None
+    return sum(sum(ops.values()) for ops in census.values())

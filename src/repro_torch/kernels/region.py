@@ -273,10 +273,12 @@ _SPECS = {
 
 
 def launch_counts() -> dict[str, list[int]]:
-    """This process's calls of each kernel: {kernel source: [CUDA launches,
+    """This process's calls of each kernel: {kernel: [CUDA launches,
     plain-version calls]}, read from the wrappers' counters (a fleet worker
-    reports them in its stats file)."""
+    reports them in its stats file). The loop regions' kernels (all in
+    ``csrc/loop_regions.cu``) count one by one, under their region names."""
     from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.loop_regions.kernel import REGION_KERNELS
     from repro_torch.kernels.noise_probes import kernel as probe_k
     from repro_torch.kernels.noisy_matmul import kernel as matmul_k
     from repro_torch.kernels.spmv_ell import kernel as spmv_k
@@ -290,6 +292,8 @@ def launch_counts() -> dict[str, list[int]]:
                          matmul_k.matmul_plain.launches],
         "flash_attention": [fa_k.flash_attention_cuda.launches,
                             fa_k.flash_attention_plain.launches],
+        **{name: [cuda.launches, plain.launches]
+           for name, (cuda, plain) in REGION_KERNELS.items()},
     }
 
 

@@ -197,7 +197,7 @@ def test_plan_round_trips_and_grids_like_the_reference(tmp_path):
     ({"targets": [TargetSpec("serve", ("fp_add32",), {"arch": "gemma_2b"})]},
      "queue 1 item 10"),
     ({"targets": [TargetSpec("calibrate", ("fp_add32",), {})]},
-     "queue 1 item 6"),
+     "calibrate targets sweep the loop modes"),
     ({"targets": [TargetSpec("pallas", ("mxu",),
                              {"kernel": "spmxv", "sizes": [256]})]},
      "supports modes"),
