@@ -16,7 +16,13 @@ JAX or of the reference package. Phases, each of which fails the run:
    SASS census between static k=8 and k=24: FADD for fp_add, FFMA for
    fp_fma, LDG for l1_ld, mem_ld and chase, at least 16 more in each of the
    six region kernels, and l1_ld's extra loads neither .STRONG nor volatile
-   (they must stay L1 hits);
+   (they must stay L1 hits); the same census in each of the four DECAN loop
+   kernels (``decan_loops.cu``: Table 3's token, stream and scatter_dep
+   loops, Livermore), and each DECAN removal variant keeping only its class
+   (the FP variant without the loop's LDG, the LS variant without the
+   chains' FMUL or FADD); each graph-level noise mode's kernel
+   (``graph_noise.cu``) growing by >= 16 of its pattern instruction (FADD,
+   HMMA, LDS, LDG, LDG);
 3. check: every kernel, mode and k in {0, 1, 24, K_MAX+7} against its plain
    PyTorch version on the card at moderate sizes (attention: B=2, H=8,
    KH=2, S=512, hd 64, 128 and 256, causal / non-causal / window 128, f32
@@ -40,7 +46,15 @@ JAX or of the reference package. Phases, each of which fails the run:
    alone), runtime k bitwise equal to static k at k=24; the same at k in
    {0, 5} on the main path's own inputs (STREAM n=2^25 and SPMXV n=2^21,
    15.5 and 7.8 iterations a warp, grid-stride; lat_mem_rd on the 2^26
-   table; HACCmk at width 135,168, 1,000 iterations; matmul n=192);
+   table; HACCmk at width 135,168, 1,000 iterations; matmul n=192); every
+   DECAN variant (3 x 4 Table 3 scenarios, 3 Livermore) at phase 4's shapes
+   on seeded random inputs (N=2^25; token and scatter_dep at 200
+   iterations, Livermore at 5,000, past its offset's wrap; the stream
+   scenarios' whole triad buffer too) and the reference variant under
+   every loop mode at k in {0, 5}, bitwise against its plain version
+   (``plain=True``); every graph-level mode at the card's scale, static
+   and run-time k in {0, 5}: aux and new state bitwise against the plain
+   version, static equal to run-time k, the input state unchanged;
 4. the main path, through the user's entry points, each path driven with
    every launch count set to 0 just before it and read just after:
    a. Qwen3-30B-A3B's attention (32 query heads, 4 KV heads, head_dim 128,
@@ -58,7 +72,13 @@ JAX or of the reference package. Phases, each of which fails the run:
       n=2^21 and 2^17, q in {0, 0.25, 0.5, 1}, fp_add and l1_ld), Fig. 5
       (STREAM n=2^25, lat_mem_rd on a 2^26 table, HACCmk 60,000 iterations
       at width 135,168; fp_add, l1_ld, mem_ld) and Fig. 4 (matmul O0 and
-      O3, n=192); then ``python -m repro_torch.fleet calibrate run``;
+      O3, n=192; with ``--pallas`` the tiled matmul kernel at n=128 and the
+      compile-once vs trace-per-k sweep cost), Table 3 (the four scenarios,
+      N=2^25, DECAN variants and fp_add / l1_ld sweeps), Fig. 6 (Livermore,
+      width 135,168, 60,000 iterations), Table 1 (fig5's sweeps replayed,
+      the analytic rows, every graph mode's cost a pattern on the card) and
+      Table 4 (analytic); then ``python -m repro_torch.fleet calibrate
+      run``;
    every payload check must pass, and every store must replay with 0
    measured (the studies and the calibration too);
 5. each kernel's launch counter above 0 and its plain version's at 0 on the
@@ -79,7 +99,14 @@ JAX or of the reference package. Phases, each of which fails the run:
    call at k=0 (STREAM: torch.add with alpha 3 as the library call; SPMXV
    large at q=0: CSR ``@ x``), lat_mem_rd's ns a dependent hop beside it,
    and the noise slot's own cost: each mode's run-time kernel at k=0 and
-   k=8 and its static build at k=8, against the clean kernel.
+   k=8 and its static build at k=8, against the clean kernel; the DECAN
+   loops at their phase-4 shapes (Table 3's data-bound scenario with
+   torch.add alpha 3 as the library call, Livermore); each graph-level
+   mode's kernel at k=64 and its µs a pattern, the slope of event and
+   device time over k in {0, 128, 256, 512}, beside
+   ``pattern_cost(H100_SXM)``'s: hbm_stream and hbm_latency on lines the
+   call before did not leave in the L2 (``studies.fresh_calls``), and
+   beside that on the same lines every call.
 
 The last lines are the card, one ``{"kernels": [...]}`` JSON object, and
 ``{"ok": true, "device": {...}}``.
@@ -146,6 +173,30 @@ MAIN_STREAM_N = 2 ** 25
 MAIN_LAT = {"table_len": 2 ** 26, "n_iter": 1024, "hops_per_iter": 8}
 MAIN_HACC = {"n_iter": 60_000, "width": 132 * 1024}
 MAIN_MM_N = 192
+# the DECAN loops (csrc/decan_loops.cu) at phase 4's shapes
+# (src/repro_torch/bench/studies.py T3_SIZES, FIG6_SIZES); the loops whose
+# every lane group runs every iteration are checked at CHECK_DECAN_ITERS
+# (Livermore at CHECK_LIV_ITERS: its stepped offset (i*64) % (n-64) wraps
+# after 4,095 iterations at n = 2^18), on seeded random inputs
+MAIN_T3 = {"n": 2 ** 25, "width": 132 * 512}
+MAIN_LIV = {"n": 2 ** 18, "n_iter": 60_000, "width": 132 * 1024}
+CHECK_DECAN_ITERS = 200
+CHECK_LIV_ITERS = 5000
+CHECK_DECAN_SEED = 0
+DECAN_CHECK_KS = (0, 5)
+# the graph-level noise modes (csrc/graph_noise.cu): their kernels, the SASS
+# opcode of one pattern, the quantities of phase 3 and the timed k
+GRAPH_MODES = ("fp_add32", "mxu_fma128", "vmem_ld", "hbm_stream",
+               "hbm_latency")
+GRAPH_SASS = {"fp_add32": ("gfp_kernel", "FADD"),
+              "mxu_fma128": ("gmxu_kernel", "HMMA"),
+              "vmem_ld": ("gvmem_kernel", "LDS"),
+              "hbm_stream": ("gstream_kernel", "LDG"),
+              "hbm_latency": ("gchase_kernel", "LDG")}
+GRAPH_CHECK_KS = (0, 5)
+GRAPH_ROW_K = 64
+GRAPH_SLOPE_KS = (0, 128, 256, 512)
+BF16_FLOPS = 989e12
 
 
 def attention_variant(hd: int, dtype: str) -> tuple:
@@ -197,8 +248,13 @@ def host_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
 # growing with the process's age as its host and device clocks drift apart
 # (late in one run every window lost its first call's kernels, 24 records
 # for 25 one-kernel calls; with a 5 ms spin the windows timed after ~9
-# minutes still did), so the calls timed start after it
+# minutes still did), so the calls timed start after it. Later in a run the
+# windows lose records behind the 50 ms spin too, and more behind a longer
+# one (retries at 4x and 16x the spin lost every record of a row), so a
+# window traced again spins SPIN_SHRINK times shorter than the one before,
+# and the most complete window is kept
 SPIN_CYCLES = 100_000_000
+SPIN_SHRINK = 8
 
 
 def device_ms(fn, reps: int = TIMING_REPS, windows: int = 3):
@@ -209,16 +265,19 @@ def device_ms(fn, reps: int = TIMING_REPS, windows: int = 3):
     times its launches a call (its records / reps, rounded), so a record the
     trace dropped leaves it unbiased. The window opens with a spin kernel
     (``SPIN_CYCLES``), left out; a window in which a kernel's records are
-    not a whole number a call is traced again, at most ``windows`` times,
-    and ``complete`` says whether the last one was whole."""
+    not a whole number a call is traced again behind a spin
+    ``SPIN_SHRINK`` times shorter, at most ``windows`` times; the first
+    whole window, else the one with the most records, is kept, and
+    ``complete`` says whether it was whole."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(windows):
+    best = None     # (complete, records kept, {kernel: [ms, records]})
+    for attempt in range(windows):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda._sleep(SPIN_CYCLES // SPIN_SHRINK ** attempt)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -232,12 +291,18 @@ def device_ms(fn, reps: int = TIMING_REPS, windows: int = 3):
                 rec[1] += 1
         per_call = {name: max(1, round(n / reps))
                     for name, (_, n) in records.items()}
-        complete = all(n == per_call[name] * reps
-                       for name, (_, n) in records.items())
+        complete = bool(records) and all(
+            n == per_call[name] * reps for name, (_, n) in records.items())
+        window = (complete, sum(n for _, n in records.values()), records)
+        if best is None or window[:2] > best[:2]:
+            best = window
         if complete:
             break
+    complete, _, records = best
     if not records:
         return None, {}, 0, False
+    per_call = {name: max(1, round(n / reps))
+                for name, (_, n) in records.items()}
     per_kernel = {name: ms / n * per_call[name]
                   for name, (ms, n) in records.items()}
     return (sum(per_kernel.values()), per_kernel, sum(per_call.values()),
@@ -301,6 +366,23 @@ class Kernels:
                 "cuda": cuda, "plain": plain,
                 "source": "src/repro_torch/csrc/loop_regions.cu",
                 "replaces": f"src/repro/bench/kernels.py:{replaces[name]}"}
+        from repro_torch.kernels.decan_loops.kernel import DECAN_KERNELS
+        from repro_torch.kernels.graph_noise.kernel import GRAPH_KERNELS
+
+        replaces = {"decan_table3": "benchmarks/table3_decan.py:46",
+                    "decan_livermore": "benchmarks/fig6_overlap.py:27",
+                    "graph_fp_add32": "src/repro/core/noise.py:101",
+                    "graph_mxu_fma128": "src/repro/core/noise.py:132",
+                    "graph_vmem_ld": "src/repro/core/noise.py:161",
+                    "graph_hbm_stream": "src/repro/core/noise.py:200",
+                    "graph_hbm_latency": "src/repro/core/noise.py:241"}
+        for source, kernels in (("decan_loops", DECAN_KERNELS),
+                                ("graph_noise", GRAPH_KERNELS)):
+            for name, (cuda, plain) in kernels.items():
+                self.rows[name] = {
+                    "cuda": cuda, "plain": plain,
+                    "source": f"src/repro_torch/csrc/{source}.cu",
+                    "replaces": replaces[name]}
         self.workers = {name: [0, 0] for name in self.rows}
 
     def reset(self) -> None:
@@ -360,8 +442,13 @@ def _static_set():
              for m in KERNEL_MODES["attention"]]
     from repro_torch.core.loopnoise import MODE_IDS as LOOP_IDS
 
-    want += [("loop_regions", LOOP_IDS[m], k, ()) for m in LOOP_MODES
-             for k in (8, STATIC_CHECK_K)]
+    want += [(src, LOOP_IDS[m], k, ()) for src in ("loop_regions",
+                                                   "decan_loops")
+             for m in LOOP_MODES for k in (8, STATIC_CHECK_K)]
+    from repro_torch.kernels.graph_noise.kernel import MODE_IDS as GRAPH_IDS
+
+    want += [("graph_noise", GRAPH_IDS[m], k, ()) for m in GRAPH_MODES
+             for k in sorted({*GRAPH_CHECK_KS, 8, STATIC_CHECK_K})]
     return want + [("noise_probes", MODE_IDS["fp"], 8, ()),
                    ("noisy_matmul", MODE_IDS["fp"], 8, ()),
                    ("flash_attention", MODE_IDS["fp"], 8,
@@ -429,6 +516,8 @@ def phase_build() -> None:
     _fadd_grows("noisy_matmul", (), 4)
     _fadd_grows("flash_attention", attention_variant(128, "float32"), 4)
     _loop_census()
+    _decan_census()
+    _graph_census()
 
 
 def _loop_census() -> None:
@@ -472,6 +561,109 @@ def _loop_census() -> None:
     if failed:
         raise RuntimeError(f"loop_regions SASS census (want >= {want} more "
                            f"pattern instructions a kernel): {failed}")
+
+
+def _growth(source: str, mode_id: int, op: str, fn_prefixes) -> dict:
+    """{function: pattern instructions of ``op`` in the static k=24 build
+    minus the k=8 build} for every function of ``source`` whose mangled
+    name starts with one of ``fn_prefixes``."""
+    from repro_torch.kernels import _build
+
+    census = {}
+    for k in (8, STATIC_CHECK_K):
+        c = _build.sass_census(_build.static_lib_path(source, mode_id, k), op)
+        if c is None:
+            raise RuntimeError("cuobjdump not found: no SASS census")
+        census[k] = c
+    out = {}
+    for fn in census[STATIC_CHECK_K]:
+        if fn.startswith(tuple(fn_prefixes)):
+            grown = sum(census[STATIC_CHECK_K][fn].values())
+            out[fn] = grown - sum(census[8].get(fn, {}).values())
+    return out
+
+
+# the DECAN kernels by mangled name prefix: t3_kernel<KIND, ...>, liv_kernel
+DECAN_FNS = {"t3 token": "_Z9t3_kernelILi0E", "t3 stream": "_Z9t3_kernelILi1E",
+             "t3 scatter_dep": "_Z9t3_kernelILi2E", "livermore": "_Z10liv_kernelI"}
+
+
+def _decan_census() -> None:
+    """decan_loops.cu: (1) each loop mode's static k=24 build holds >= 16
+    more pattern instructions than k=8 in each of the four loop kernels;
+    (2) in the run-time library each removal variant keeps only its class:
+    the FP variant lost the loop's loads (LDG), the LS variant the chains'
+    FMUL (Livermore: FADD), against the reference variant."""
+    from repro_torch.core.loopnoise import MODE_IDS as LOOP_IDS
+    from repro_torch.kernels import _build
+
+    want = STATIC_CHECK_K - 8
+    failed = []
+    for mode in LOOP_MODES:
+        growth = _growth("decan_loops", LOOP_IDS[mode], LOOP_SASS[mode],
+                         DECAN_FNS.values())
+        per = {label: [g for fn, g in growth.items() if fn.startswith(pre)]
+               for label, pre in DECAN_FNS.items()}
+        for label, gs in per.items():
+            if len(gs) != 1 or gs[0] < want:
+                failed.append(f"{mode} {label}: growth {gs}")
+        print(f"SASS {LOOP_SASS[mode]} in the static {mode} decan_loops, "
+              f"k=8 -> k={STATIC_CHECK_K}, growth a kernel: {per}")
+    lib = _build.runtime_lib_path()
+    ldg = _build.sass_census(lib, "LDG")
+    ops = {"FMUL": _build.sass_census(lib, "FMUL"),
+           "FADD": _build.sass_census(lib, "FADD")}
+
+    def count(census, prefix):
+        hits = [sum(c.values()) for fn, c in census.items()
+                if fn.startswith(prefix)]
+        if len(hits) != 1:
+            raise RuntimeError(f"decan census: {prefix} is {len(hits)} "
+                               "functions of the run-time library")
+        return hits[0]
+
+    # (prefix, chain op, least loads an iteration, least chain ops a step)
+    kernels = {f"t3 {kind}": (f"_Z9t3_kernelILi{i}E", "FMUL", loads, 8)
+               for i, (kind, loads) in enumerate((("token", 2), ("stream", 2),
+                                                  ("scatter_dep", 4)))}
+    kernels["livermore"] = ("_Z10liv_kernelI", "FADD", 1, 12)
+    variants = {"ref": "Lb1ELb1ELi0ELin1E", "fp": "Lb1ELb0ELi0ELin1E",
+                "ls": "Lb0ELb1ELi0ELin1E"}
+    for label, (prefix, op, loads, chain) in kernels.items():
+        n = {v: (count(ldg, prefix + tail), count(ops[op], prefix + tail))
+             for v, tail in variants.items()}
+        ok = (n["ref"][0] - n["fp"][0] >= loads and n["ls"][0] >= loads
+              and n["ref"][1] - n["ls"][1] >= chain and n["fp"][1] >= chain)
+        print(f"decan variants, {label}: (LDG, {op}) ref {n['ref']}, fp "
+              f"{n['fp']}, ls {n['ls']}: each keeps only its class: {ok}")
+        if not ok:
+            failed.append(f"variants of {label}: {n}")
+    if failed:
+        raise RuntimeError(f"decan_loops SASS census (want >= {want} more "
+                           f"pattern instructions a kernel): {failed}")
+
+
+def _graph_census() -> None:
+    """graph_noise.cu: each mode's static k=24 build holds >= 16 more
+    pattern instructions than k=8 in its kernel (fp FADD, mxu HMMA, vmem
+    LDS, hbm_stream and hbm_latency LDG)."""
+    from repro_torch.kernels.graph_noise.kernel import MODE_IDS as GRAPH_IDS
+
+    want = STATIC_CHECK_K - 8
+    failed = []
+    growth = {}
+    for mode in GRAPH_MODES:
+        fn, op = GRAPH_SASS[mode]
+        g = _growth("graph_noise", GRAPH_IDS[mode], op,
+                    (f"_Z{len(fn)}{fn}I",))
+        growth[mode] = (op, list(g.values()))
+        if len(g) != 1 or min(g.values()) < want:
+            failed.append(f"{mode}: {op} growth {g}")
+    print(f"SASS in the static graph_noise builds, k=8 -> k={STATIC_CHECK_K}: "
+          f"{growth}")
+    if failed:
+        raise RuntimeError(f"graph_noise SASS census (want >= {want} more "
+                           f"pattern instructions): {failed}")
 
 
 def _max_err(got, want) -> float:
@@ -942,6 +1134,155 @@ def _check_loops(cases: dict, ks, failures: list, max_err: dict) -> None:
               f"{worst:.3g} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+def _decan_targets(n_iter_replicated: int, n_iter_liv: int,
+                   seed=None) -> dict:
+    """label -> DecanTarget of every DECAN loop at phase 4's shapes; token
+    and scatter_dep at ``n_iter_replicated`` iterations, Livermore at
+    ``n_iter_liv`` (the stream scenarios at their own); the reference's
+    inputs or, with ``seed``, seeded random ones."""
+    from repro_torch.bench.kernels import livermore_target, table3_target
+    from repro_torch.bench.studies import T3_SCENARIOS
+    from repro_torch.kernels.decan_loops.ref import CHUNK
+
+    out = {}
+    for name, (kind, depth) in T3_SCENARIOS.items():
+        stream = kind == "stream"
+        out[f"t3 {name}"] = table3_target(
+            f"t3_{name}", kind, depth,
+            MAIN_T3["n"] // CHUNK if stream else n_iter_replicated,
+            n=MAIN_T3["n"], width=None if stream else MAIN_T3["width"],
+            seed=seed)
+    out["livermore"] = livermore_target(n_iter_liv, n=MAIN_LIV["n"],
+                                        width=MAIN_LIV["width"], seed=seed)
+    return out
+
+
+def _check_decan(failures: list, max_err: dict) -> None:
+    """Every DECAN variant (3 x 4 scenarios + Livermore x 3) against its
+    plain version at phase 4's shapes (token and scatter_dep at
+    CHECK_DECAN_ITERS iterations, Livermore at CHECK_LIV_ITERS), on seeded
+    random inputs, bitwise: the output and, for the stream scenarios, the
+    whole triad buffer; the reference variant under every loop mode at k in
+    DECAN_CHECK_KS (run-time k) against its plain version, out and aux
+    bitwise, out unchanged by the noise; run-time k == static k at
+    k=24."""
+    import torch
+
+    from repro_torch.bench.studies import T3_SCENARIOS
+    from repro_torch.core.decan import VARIANTS
+    from repro_torch.core.loopnoise import loop_carry, make_loop_modes
+    from repro_torch.kernels.decan_loops import kernel as dk
+    from repro_torch.kernels.decan_loops import ref as dref
+
+    modes = make_loop_modes()
+    targets = _decan_targets(CHECK_DECAN_ITERS, CHECK_LIV_ITERS,
+                             seed=CHECK_DECAN_SEED)
+    for label, target in targets.items():
+        t0 = time.perf_counter()
+        args = target.args_for()
+        kernel = "decan_livermore" if label == "livermore" else "decan_table3"
+        stream = label in ("t3 data-bound", "t3 full-overlap")
+        worst = 0.0
+        for vname, (fp, ls) in VARIANTS.items():
+            got = target.build(fp, ls)(*args)
+            want = target.build_plain(fp, ls)(*args)
+            worst = max(worst, _max_err(got, want))
+            _equal(got, want, f"decan {label} variant {vname} vs plain",
+                   failures)
+            if stream:     # the triad buffer, whole (from c: the reference's)
+                kw = {"kind": "stream", "depth": T3_SCENARIOS[label[3:]][1],
+                      "n_iter": target.n_iter, "fp": fp, "ls": ls}
+                cout, cplain = args[2].clone(), args[2].clone()
+                dk.table3(*args, cout=cout, **kw)
+                dref.table3_plain(*args, cout=cplain, **kw)
+                torch.cuda.synchronize()
+                worst = max(worst, _max_err(cout, cplain))
+                _equal(cout, cplain, f"decan {label} variant {vname} triad "
+                       "buffer vs plain", failures)
+                if ls and torch.equal(cout, args[2]):
+                    failures.append(f"decan {label} {vname}: the triad "
+                                    "wrote nothing")
+        clean = target.build(True, True)(*args)
+        for mode in LOOP_MODES:
+            carry = loop_carry(mode, target.device)
+            for k in DECAN_CHECK_KS:
+                got = target.build_noisy(modes[mode], k, static=False)(
+                    *args, carry)
+                want = target.build_noisy(modes[mode], k, plain=True)(
+                    *args, carry)
+                torch.cuda.synchronize()
+                worst = max(worst, _max_err(got[0], want[0]),
+                            _max_err(got[1], want[1]))
+                what = f"decan {label} {mode} k={k}"
+                _equal(got, want, what + " (out, aux) vs plain", failures)
+                _equal(got[0], clean, what + " out vs no noise", failures)
+            if label == "t3 compute-bound":
+                _equal(target.build_noisy(modes[mode], STATIC_CHECK_K,
+                                          static=False)(*args, carry),
+                       target.build_noisy(modes[mode], STATIC_CHECK_K)(
+                           *args, carry),
+                       f"decan {label} {mode} runtime k vs static "
+                       f"k={STATIC_CHECK_K}", failures)
+        max_err[kernel] = max(max_err.get(kernel, 0.0), worst)
+        print(f"decan {label}: variants ref/fp/ls and ref x "
+              f"{', '.join(LOOP_MODES)} x k in {list(DECAN_CHECK_KS)} vs "
+              f"plain; max|kernel - plain| = {worst:.3g} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def _graph_states() -> dict:
+    """mode -> (NoiseMode, state) of every graph-level mode on the card at
+    the card's scale (``core.noise.CARD_SCALE``), states from seed 0."""
+    import torch
+
+    from repro_torch.core.noise import make_modes
+
+    return {name: (mode, mode.make_state(torch.Generator().manual_seed(0)))
+            for name, mode in make_modes(device="cuda").items()}
+
+
+def _check_graph(failures: list, max_err: dict) -> None:
+    """Every graph-level mode's kernel at k in GRAPH_CHECK_KS, static
+    (``apply``) and run-time (``apply_rt``), on the card's states: the aux
+    and the new state bitwise equal to the plain version's; static k equal
+    to run-time k for k >= 1; the input state unchanged."""
+    import torch
+
+    t0 = time.perf_counter()
+    # the ici modes' no-mesh branch: fp_add32's kernel, or torch.sum (no
+    # kernel: held against itself, as a check that it runs)
+    kernel_of = {"ici_allreduce": "graph_fp_add32", "ici_allgather": None,
+                 "ici_a2a": None}
+    states = _graph_states()
+    for name, (mode, state) in states.items():
+        kernel = kernel_of.get(name, f"graph_{name}")
+        before = {key: (tuple(t.clone() for t in v) if isinstance(v, tuple)
+                        else v.clone()) for key, v in state.items()}
+        worst = 0.0
+        for k in GRAPH_CHECK_KS:
+            for static, apply in ((True, mode.apply), (False, mode.apply_rt)):
+                got = apply(state, k)
+                want = apply(state, k, plain=True)
+                torch.cuda.synchronize()
+                worst = max(worst, _max_err(got[0], want[0]))
+                what = f"graph {name} {'static' if static else 'runtime'} k={k}"
+                _equal(got[0], want[0], what + " aux vs plain", failures)
+                for key in state:
+                    _equal(got[1][key], want[1][key],
+                           f"{what} state[{key!r}] vs plain", failures)
+            if k:
+                _equal(mode.apply(state, k)[0], mode.apply_rt(state, k)[0],
+                       f"graph {name} static vs runtime k={k}", failures)
+        for key, v in before.items():
+            _equal(state[key], v, f"graph {name} input state[{key!r}] kept",
+                   failures)
+        if kernel is not None:
+            max_err[kernel] = max(max_err.get(kernel, 0.0), worst)
+    print(f"graph modes: {', '.join(states)} x k in "
+          f"{list(GRAPH_CHECK_KS)}, static and runtime, aux and state vs "
+          f"plain ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def phase_check(main: dict) -> dict:
     import numpy as np
     import torch
@@ -994,6 +1335,8 @@ def phase_check(main: dict) -> dict:
     _check_fused(main, failures)
     _check_loops(_loop_cases(dev), LOOP_CHECK_KS, failures, max_err)
     _check_loops(_loop_main_cases(), LOOP_MAIN_CHECK_KS, failures, max_err)
+    _check_decan(failures, max_err)
+    _check_graph(failures, max_err)
     if failures:
         raise RuntimeError("kernel check failed:\n  " + "\n  ".join(failures))
     return max_err
@@ -1039,8 +1382,9 @@ def _bench(tmp: str, study: str, kernels, *extra) -> dict:
                         timeout=900).returncode
     if rc:
         raise RuntimeError(f"python -m repro_torch.bench {study}: exit {rc}")
-    name = {"fig7": "fig7_spmxv", "fig5": "fig5_hwchar",
-            "fig4": "fig4_matmul"}[study]
+    from repro_torch.bench.studies import STUDIES
+
+    name = STUDIES[study][0]
     if kernels is not None:
         kernels.add_worker(os.path.join(out, f"{name}.stats.json"))
     with open(os.path.join(out, f"{name}.json")) as f:
@@ -1170,14 +1514,24 @@ def phase_main(tmp: str, kernels: Kernels) -> dict:
                                     {m: r.fit.t0 for m, r in
                                      rep.results.items()})
 
-    study_kernels = {"fig7": ("spmxv",),
-                     "fig5": ("stream_triad", "lat_mem_rd", "haccmk"),
-                     "fig4": ("matmul_O0", "matmul_O3")}
-    for study, kerns in study_kernels.items():
-        print(f"== 4e. python -m repro_torch.bench {study}; card before: "
-              f"{card_state()}", flush=True)
+    # (study, its extra arguments, the kernels it must launch): table1
+    # replays fig5's sweeps from the shared store and launches the graph
+    # noise kernels (its cost a pattern); table4 is analytic
+    graph = tuple(k for k in kernels.rows if k.startswith("graph_"))
+    study_kernels = (
+        ("fig7", (), ("spmxv",)),
+        ("fig5", (), ("stream_triad", "lat_mem_rd", "haccmk")),
+        ("fig4", ("--pallas",), ("matmul_O0", "matmul_O3", "noisy_matmul")),
+        ("table3", (), ("decan_table3",)),
+        ("fig6", (), ("decan_livermore",)),
+        ("table1", (), graph),
+        ("table4", (), ()),
+    )
+    for study, extra, kerns in study_kernels:
+        print(f"== 4e. python -m repro_torch.bench {study} {' '.join(extra)}"
+              f"; card before: {card_state()}", flush=True)
         timed(f"bench_{study}", kerns,
-              lambda: _bench(tmp, study, kernels))
+              lambda: _bench(tmp, study, kernels, *extra))
     print(f"== 4f. python -m repro_torch.fleet calibrate run; card: "
           f"{card_state()}", flush=True)
     calib_store = os.path.join(tmp, "calibrate", "calibrate.jsonl")
@@ -1194,8 +1548,8 @@ def phase_main(tmp: str, kernels: Kernels) -> dict:
     banner("4g. every store replays with 0 measured")
     for name in path_kernel:
         run(name, expect_no_measure=True)
-    for study in study_kernels:
-        _bench(tmp, study, None, "--expect-no-measure")
+    for study, extra, _ in study_kernels:
+        _bench(tmp, study, None, *extra, "--expect-no-measure")
     _fleet("calibrate", "run", "--store", calib_store, "--expect-no-measure")
     print("wall time per characterization (s): "
           + json.dumps({k: round(v, 1) for k, v in seconds.items()}))
@@ -1342,6 +1696,9 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
         loop_rows, loop_extra = _loop_rows()
         extra.update(loop_extra)
         yield from loop_rows
+        new_rows, new_extra = _decan_graph_rows()
+        extra.update(new_extra)
+        yield from new_rows
 
     meta = Kernels().rows
     out = {}
@@ -1411,9 +1768,15 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
     return list(out.values())
 
 
-# plain-version timing reps of the loop regions (their loops run in Python)
+# plain-version timing reps of the loop regions, the DECAN loops and the
+# graph modes (their loops run in Python); every one launches one kernel a
+# call
 LOOP_PLAIN_REPS = {"stream_triad": 5, "spmxv": 5, "lat_mem_rd": 3,
-                   "haccmk": 2, "matmul_O0": 3, "matmul_O3": 3}
+                   "haccmk": 2, "matmul_O0": 3, "matmul_O3": 3,
+                   "decan_table3": 5, "decan_livermore": 2,
+                   "graph_fp_add32": 5, "graph_mxu_fma128": 5,
+                   "graph_vmem_ld": 5, "graph_hbm_stream": 5,
+                   "graph_hbm_latency": 3}
 
 
 def _loop_rows():
@@ -1531,6 +1894,111 @@ def _loop_rows():
             nops = 2 * it * lref.UNROLL_O0 * n
         rows.append((name, f"{name} n={n}", kern, plain, None, nbytes, nops,
                      FP32_FLOPS, None))
+    return rows, extra
+
+
+def _graph_work(name: str, state: dict, k: int) -> tuple:
+    """(bytes, operations, peak) of one graph-mode call at k: its state read
+    once and its new state written once, plus the bytes its patterns read
+    from device memory (hbm_stream: k distinct tiles; the chase: k 4-byte
+    hops); its FP32 adds (mxu: 2*128^3 bf16 tensor-core operations a
+    pattern)."""
+    f32 = 4
+    if name == "fp_add32":
+        e = state["c"].numel()
+        return 9 * e * f32, k * e, FP32_FLOPS
+    if name == "vmem_ld":
+        return (state["buf"].numel() + 8 * 1024) * f32, k * 1024, FP32_FLOPS
+    if name == "mxu_fma128":
+        d = state["m"].shape[0]
+        return 3 * d * d * 2, 2 * d ** 3 * k, BF16_FLOPS
+    if name == "hbm_stream":
+        e = state["acc"].numel()
+        return (k + 2) * e * f32, k * e, FP32_FLOPS
+    return 4 * k + 12, k, FP32_FLOPS      # hbm_latency
+
+
+def _decan_graph_rows():
+    """Phase-6 rows of the DECAN loops at their phase-4 shapes, each timed
+    as the sweeps call it (the region's runtime-k fp_add callable at k=0):
+    Table 3's data-bound scenario (STREAM's triad and 4-step chains;
+    torch.add with alpha 3 as the library call) and Livermore; then each
+    graph-level mode's kernel at k = GRAPH_ROW_K through ``apply_rt``,
+    called as ``studies.fresh_calls`` calls it (hbm_stream from a base tile
+    that moves every call, the chase going on where it stopped: no call
+    reads the L2's lines of the call before), with its µs a pattern (the
+    slope of event time over GRAPH_SLOPE_KS) beside
+    ``pattern_cost(H100_SXM)``'s. Returns (rows, extra keys by kernel)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.bench.studies import fresh_calls
+    from repro_torch.configs.base import H100_SXM
+
+    rows, extra = [], {}
+    targets = _decan_targets(MAIN_LIV["n_iter"], MAIN_LIV["n_iter"])
+    # Table 3 data-bound: a, b read and the triad written, 12 bytes an
+    # element; the chains' FP32 work of one 8-lane copy a warp
+    tgt = targets["t3 data-bound"]
+    reg = tgt.region()
+    fn, args = reg.build_rt("fp_add"), reg.args_for_rt("fp_add")
+    a, b, c, x0, carry = args
+    n = MAIN_T3["n"]
+    c_lib = torch.empty_like(c)
+    n_iter = tgt.n_iter
+    rows.append(("decan_table3", "decan_table3 data-bound N=2^25",
+                 partial(fn, 0, *args),
+                 partial(tgt.build_plain(True, True), a, b, c, x0),
+                 partial(torch.add, a, b, alpha=3.0, out=c_lib),
+                 12 * n, 2 * n + n_iter * 8 * 4 * 4 * 3, FP32_FLOPS,
+                 "torch.add(a, b, alpha=3.0, out=c), the triad alone"))
+    tgt = targets["livermore"]
+    reg = tgt.region()
+    fn, args = reg.build_rt("fp_add"), reg.args_for_rt("fp_add")
+    w, it = MAIN_LIV["width"], MAIN_LIV["n_iter"]
+    rows.append(("decan_livermore", f"decan_livermore width {w}, {it} "
+                 "iterations", partial(fn, 0, *args),
+                 partial(tgt.build_plain(True, True), args[0]),
+                 None, 4 * MAIN_LIV["n"], w * it * 13, FP32_FLOPS, None))
+    for name, (mode, state) in _graph_states().items():
+        kernel = f"graph_{name}"
+        if name.startswith("ici_"):      # fp_add32's kernel, or torch.sum
+            continue
+        # hbm_stream and the chase called so that no call reads the L2's
+        # lines of the call before (studies.fresh_calls)
+        call = fresh_calls(name, mode, state)
+        ts = [time_ms(partial(call, k)) for k in GRAPH_SLOPE_KS]
+        dev = [device_ms(partial(call, k))[0] for k in GRAPH_SLOPE_KS]
+        slope_us = float(np.polyfit(GRAPH_SLOPE_KS, ts, 1)[0]) * 1e3
+        dev_slope_us = (float(np.polyfit(GRAPH_SLOPE_KS, dev, 1)[0]) * 1e3
+                        if all(d is not None for d in dev) else None)
+        model = mode.pattern_cost(H100_SXM).time_on(H100_SXM)
+        extra[kernel] = {"mode": name, "slope_ks": list(GRAPH_SLOPE_KS),
+                         "slope_event_ms": ts, "slope_device_ms": dev,
+                         "us_per_pattern": slope_us,
+                         "device_us_per_pattern": dev_slope_us,
+                         "model_us_per_pattern": max(model.values()) * 1e6,
+                         "model_per_resource_s": model, "k": GRAPH_ROW_K}
+        if name in ("hbm_stream", "hbm_latency"):
+            # beside it, every call on the unchanged state (as a step calls
+            # the mode): the same lines each call, L2 hits while they fit
+            warm = [time_ms(partial(mode.apply_rt, state, k))
+                    for k in GRAPH_SLOPE_KS]
+            extra[kernel]["same_lines_event_ms"] = warm
+            extra[kernel]["same_lines_us_per_pattern"] = float(
+                np.polyfit(GRAPH_SLOPE_KS, warm, 1)[0]) * 1e3
+        print(f"graph {name}: {slope_us!r} us a pattern by events, "
+              f"{dev_slope_us!r} on the device (k in {list(GRAPH_SLOPE_KS)}: "
+              f"{ts} ms, {dev} ms); the same lines every call: "
+              f"{extra[kernel].get('same_lines_us_per_pattern')!r} us "
+              f"({extra[kernel].get('same_lines_event_ms')} ms); "
+              f"pattern_cost(H100_SXM): {max(model.values()) * 1e6!r} us "
+              f"{model}", flush=True)
+        nbytes, nops, peak = _graph_work(name, state, GRAPH_ROW_K)
+        rows.append((kernel, f"{kernel} ({name}) k={GRAPH_ROW_K}",
+                     partial(call, GRAPH_ROW_K),
+                     partial(mode.apply_rt, state, GRAPH_ROW_K, plain=True),
+                     None, nbytes, nops, peak, None))
     return rows, extra
 
 

@@ -11,18 +11,28 @@ defaults and ``body_size``s (``repro.bench.kernels``):
   matmul_region     Fig. 4 rank-1 loops, naive ("-O0": the output row
                     through memory every step) or register-blocked ("-O3")
 
+and the paper's DECAN loops (``kernels/decan_loops``) as ``DecanTarget``s:
+
+  table3_target     a Table 3 scenario (token / stream / scatter_dep)
+  livermore_target  Fig. 6's Livermore loop
+
 Every region returns a ``RegionTarget`` ready for
-``Controller.characterize()``. ``device``: "cuda" (the default; raises
+``Controller.characterize()``; a DECAN target's ``region()`` is one. ``device``: "cuda" (the default; raises
 without a card) or "cpu" (the plain PyTorch versions).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.convert import to_torch
 from repro_torch.core.controller import RegionTarget, loop_region
+from repro_torch.core.decan import DecanTarget
 from repro_torch.core.loopnoise import chase_table
+from repro_torch.kernels.decan_loops import kernel as dk
+from repro_torch.kernels.decan_loops import ref as dref
 from repro_torch.kernels.loop_regions import kernel as lk
 from repro_torch.kernels.loop_regions import ref as lref
 from repro_torch.kernels.region import resolve_device
@@ -154,3 +164,72 @@ def matmul_region(n: int = 192, optimized: bool = False, *,
                               n_iter=n_iter),
                        lambda: (a, b, out), body_size=5 * lref.UNROLL_O0,
                        n_iter=n_iter, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# The paper's DECAN loops (its Table 3 and Fig. 6): decremental targets whose
+# reference variant is also a loop region with a noise slot
+# ---------------------------------------------------------------------------
+
+def _variants(run, kw):
+    """``DecanTarget.build``: the variant keeping FP and/or LS, without
+    noise, as a callable returning the loop's output (``run`` the wrapper,
+    on the run-time library, or the plain version)."""
+    def build(fp: bool, ls: bool):
+        def fn(*args):
+            return run(*args, fp=fp, ls=ls, **kw)[0]
+        return fn
+    return build
+
+
+def _seeded(seed: int, n: int, dev) -> tuple:
+    """a, b, c standard normal and x0 uniform in [0.1, 0.9) from
+    ``default_rng(seed)``: inputs under which a load from a wrong address
+    changes the output."""
+    rng = np.random.default_rng(seed)
+    arrays = tuple(rng.standard_normal(n, dtype=np.float32) for _ in range(3))
+    x0 = rng.uniform(0.1, 0.9, 8).astype(np.float32)
+    return to_torch((*arrays, x0), dev)
+
+
+def table3_target(name: str, kind: str, depth: int, n_iter: int, *,
+                  n: int = 1 << 22, width: Optional[int] = None,
+                  seed: Optional[int] = None, device="cuda") -> DecanTarget:
+    """One Table 3 scenario (``benchmarks/table3_decan.py:_kernel``): a = 1,
+    b = 2, c = 0, x0 = linspace(0.1, 0.9, 8), the reference's inputs, or
+    with ``seed`` seeded random ones (``_seeded``; the checks').
+    ``width``: lanes (8 a copy of the reference's loop; stream: default
+    one copy a grid-stride warp)."""
+    dev = resolve_device(device)
+    if seed is None:
+        a = torch.ones(n, dtype=torch.float32, device=dev)
+        b = torch.full((n,), 2.0, dtype=torch.float32, device=dev)
+        c = torch.zeros(n, dtype=torch.float32, device=dev)
+        x0 = to_torch((np.linspace(0.1, 0.9, 8).astype(np.float32),), dev)[0]
+    else:
+        a, b, c, x0 = _seeded(seed, n, dev)
+    kw = {"kind": kind, "depth": depth, "n_iter": n_iter, "width": width}
+    return DecanTarget(name, _variants(dk.table3, kw), lambda: (a, b, c, x0),
+                       build_noisy=_maker(dk.table3, dref.table3_plain, **kw),
+                       n_iter=n_iter, device=dev,
+                       build_plain=_variants(dref.table3_plain, kw))
+
+
+def livermore_target(n_iter: int, *, n: int = 1 << 18, width: int = 8,
+                     seed: Optional[int] = None,
+                     device="cuda") -> DecanTarget:
+    """Fig. 6's Livermore loop (``benchmarks/fig6_overlap.py:_livermore``)
+    on a buffer of ones, the reference's, or with ``seed`` a standard
+    normal one from ``default_rng(seed)``; named as the reference's."""
+    dev = resolve_device(device)
+    if seed is None:
+        buf = torch.ones(n, dtype=torch.float32, device=dev)
+    else:
+        buf = _seeded(seed, n, dev)[0]
+    kw = {"n_iter": n_iter, "width": width}
+    return DecanTarget("livermore_1351", _variants(dk.livermore, kw),
+                       lambda: (buf,),
+                       build_noisy=_maker(dk.livermore, dref.livermore_plain,
+                                          **kw),
+                       n_iter=n_iter, device=dev,
+                       build_plain=_variants(dref.livermore_plain, kw))

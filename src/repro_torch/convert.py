@@ -5,7 +5,9 @@ are its whole state. ``to_torch`` turns the reference's region arguments —
 numpy arrays, as ``np.asarray`` gives them from a JAX region's ``args``
 tuple — into the port's tensors, so both packages compute on identical
 inputs; ``carry_to_torch`` does the same for a loop-noise carry (a dict of
-arrays and tuples of arrays, ``core.loopnoise``).
+arrays and tuples of arrays, ``core.loopnoise``), and
+``noise_state_to_torch`` for a graph-level noise mode's state
+(``core.noise``: arrays, tuples of them, bf16 matrices and int32 scalars).
 """
 from __future__ import annotations
 
@@ -32,3 +34,34 @@ def carry_to_torch(carry: dict, device="cpu") -> dict:
         else:
             out[key] = to_torch((value,), device)[0]
     return out
+
+
+# the state keys of each graph-level mode (core/noise.py make_state)
+NOISE_STATE_KEYS = {
+    "fp_add32": ("c", "accs"), "mxu_fma128": ("m", "c"),
+    "vmem_ld": ("buf", "accs"), "hbm_stream": ("buf", "acc"),
+    "hbm_latency": ("table", "idx", "acc"), "ici_allreduce": ("v",),
+    "ici_allgather": ("v",), "ici_a2a": ("v",),
+}
+
+
+def _array_to_torch(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":     # ml_dtypes' bf16: carry the bits
+        bits = torch.from_numpy(np.array(a.view(np.int16), copy=True))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True, order="C")).to(device)
+
+
+def noise_state_to_torch(name: str, state: dict, device="cpu") -> dict:
+    """A reference graph-noise state of mode ``name`` (numpy arrays — bf16
+    ones included — tuples of them, int32 scalars) -> the port's state on
+    ``device``, so both packages apply the same noise to the same buffers
+    (the chase table is carried over, not redrawn)."""
+    keys = NOISE_STATE_KEYS[name]
+    if tuple(state) != keys:
+        raise ValueError(f"{name} state has keys {tuple(state)}; want {keys}")
+    return {key: (tuple(_array_to_torch(v, device) for v in value)
+                  if isinstance(value, (tuple, list))
+                  else _array_to_torch(value, device))
+            for key, value in state.items()}

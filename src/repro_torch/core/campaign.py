@@ -18,9 +18,14 @@ writes loads (and replays) in the other. Schema (one JSON object per line):
   {"kind": "region", "region": r, "body_size": n}
   {"kind": "quality", "region": r, "mode": m, "k": k, "verdict": "valid"
    |"quarantine", "reason": ..., "spread": f|null, "reps": n, "detail": s}
-Records of the kinds the port does not write yet (pred, decan, audit,
-calib) are ingested under the reference's supersede rules, so reading a
-reference store keeps them.
+  {"kind": "decan",  "region": r, "variant": v, "t": seconds, "reps": n,
+   "inner": n}                                  # Campaign.run_decan
+  {"kind": "pred",   "region": r, "mode": m, "ks": [...], "ts": [...],
+   "fit": {...}, "hw": {...}, "terms": {...}, "alpha": a, "tol": t,
+   "k_max": n}                                  # AnalyticCampaign
+Records of the kinds the port does not write yet (audit, calib from the
+reference's tools) are ingested under the reference's supersede rules, so
+reading a reference store keeps them.
 
 Supersede rules: later records supersede earlier ones for the same key; a
 "meta" record whose settings differ from the pair's current meta discards
@@ -44,7 +49,7 @@ and ``compact_store`` rewrites a store without its superseded records.
 ``python -m repro_torch.core.campaign merge|inspect`` is the CLI.
 
 Not ported yet: the segmented layout (refused wherever a store is opened
-or merged), analytic (``pred``) campaigns and DECAN variants.
+or merged).
 """
 from __future__ import annotations
 
@@ -56,12 +61,16 @@ import logging
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional, Sequence
+from typing import Callable, Mapping, Optional, Sequence
 
-from repro_torch.core.absorption import (STOP_CONSECUTIVE, MeasureTimeout,
+from repro_torch.core import decan as decan_mod
+from repro_torch.core.absorption import (DEFAULT_KS, STOP_CONSECUTIVE,
+                                         AbsorptionFit, MeasureTimeout,
                                          absorption, assemble_curve,
                                          floor_time, measure, measure_sample)
-from repro_torch.core.classifier import HIGH, LOW, classify
+from repro_torch.core.analytic import (StepTerms, predict_absorption,
+                                       predict_curve)
+from repro_torch.core.classifier import HIGH, LOW, BottleneckReport, classify
 from repro_torch.core.controller import (Controller, ModeResult, RegionReport,
                                          RegionTarget, derive_body_size)
 from repro_torch.core.payload import InjectionReport
@@ -821,6 +830,15 @@ class Campaign:
                                    rec.get("drift"),
                                    bool(rec.get("stopped_early")), inj)
 
+    # -- DECAN variants, store-backed ---------------------------------------
+    def run_decan(self, target, *, inner: int = 1):
+        """Measure (or replay) DECAN variant timings through this campaign's
+        store: ``decan`` records keyed (region, variant), superseded when
+        reps/inner change."""
+        return decan_mod.run_decan(target, reps=self.ctl.reps, inner=inner,
+                                   store=self.store,
+                                   lock=self._measure_lock, stats=self.stats)
+
     # -- region / campaign level --------------------------------------------
     def _body_size(self, target: RegionTarget) -> int:
         if target.body_size:
@@ -900,6 +918,86 @@ class Campaign:
         target-major, mode-minor order."""
         return self.measure_pairs([(t, m) for t in targets for m in modes],
                                   index=index, count=count)
+
+
+# ---------------------------------------------------------------------------
+# Analytic campaign: predictions through the same store artifact
+# ---------------------------------------------------------------------------
+
+
+class AnalyticCampaign:
+    """Resumable *prediction* campaign: ``core.analytic`` absorption curves
+    through the same store machinery as measured sweeps.
+
+    Each (region, mode) prediction persists as ONE self-contained ``pred``
+    record (curve + fit + every setting that determined it: HardwareConfig,
+    roofline terms, alpha, tol, ks, k_max). Re-running with identical
+    settings replays the record byte-identically and computes nothing; any
+    settings change recomputes and supersedes. Because the record kinds are
+    disjoint, a pred campaign can share its store with a measured campaign —
+    measured and predicted curves for a region live in one artifact.
+    """
+
+    def __init__(self, store: CampaignStore | str, *, hw, tol: float = 0.05,
+                 alpha: float = 1.0, ks: Optional[Sequence[int]] = None,
+                 k_max: int = 1 << 20,
+                 thresholds: Optional[tuple[float, float]] = None):
+        self.store = store if isinstance(store, CampaignStore) \
+            else CampaignStore(store)
+        self.hw = hw
+        self.tol = tol
+        self.alpha = alpha
+        self.ks = [int(k) for k in (ks if ks is not None else DEFAULT_KS)]
+        self.k_max = k_max
+        # effective classification thresholds, like Campaign.thresholds
+        self.thresholds = thresholds
+        self.stats = CampaignStats()
+
+    def _settings(self, terms: StepTerms) -> dict:
+        return {"hw": dataclasses.asdict(self.hw), "terms": terms.as_dict(),
+                "alpha": self.alpha, "tol": self.tol, "ks": self.ks,
+                "k_max": self.k_max}
+
+    def predict_mode(self, region: str, terms: StepTerms, mode) -> ModeResult:
+        """Predict (or replay) the absorption curve of one noise mode."""
+        cur = self._settings(terms)
+        rec = self.store.preds.get((region, mode.name))
+        if rec is not None and all(rec.get(f) == cur[f] for f in cur):
+            self.stats.cached += len(rec["ks"])
+            curve = assemble_curve(mode.name, [int(k) for k in rec["ks"]],
+                                   [float(t) for t in rec["ts"]])
+            return ModeResult(mode=mode.name, curve=curve,
+                              fit=AbsorptionFit(**rec["fit"]))
+        fit = predict_absorption(terms, mode, self.hw, tol=self.tol,
+                                 alpha=self.alpha, k_max=self.k_max)
+        ts = [float(t) for t in
+              predict_curve(terms, mode, self.hw, self.ks, alpha=self.alpha)]
+        self.store.append({"kind": "pred", "region": region,
+                           "mode": mode.name, "ks": self.ks, "ts": ts,
+                           "fit": dataclasses.asdict(fit), **cur})
+        self.stats.measured += len(self.ks)
+        curve = assemble_curve(mode.name, self.ks, ts)
+        return ModeResult(mode=mode.name, curve=curve, fit=fit)
+
+    def characterize(self, region: str, terms: StepTerms,
+                     modes: Mapping[str, "object"], *,
+                     classify_fn: Optional[Callable[
+                         [dict[str, ModeResult]], BottleneckReport]] = None
+                     ) -> RegionReport:
+        """Predict every mode and classify — the analytic mirror of
+        ``Campaign.characterize``. ``classify_fn`` overrides the default
+        raw-absorption classification."""
+        results = {name: self.predict_mode(region, terms, mode)
+                   for name, mode in modes.items()}
+        if classify_fn is not None:
+            report = classify_fn(results)
+        else:
+            low, high = self.thresholds if self.thresholds is not None \
+                else (LOW, HIGH)
+            report = classify({m: r.fit.k1 for m, r in results.items()},
+                              low=low, high=high)
+        return RegionReport(region=region, results=results, bottleneck=report,
+                            body_size=0)
 
 
 # ---------------------------------------------------------------------------

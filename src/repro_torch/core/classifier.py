@@ -178,3 +178,25 @@ def apply_quality_evidence(report: BottleneckReport,
                         + " (re-measure under a quieter clock, e.g. "
                         "fleet run --resume)")
     return dataclasses.replace(report, confidence=conf, quality=evidence)
+
+
+def cross_check_with_decan(report: BottleneckReport,
+                           sat_fp: float, sat_ls: float,
+                           *, close: float = 0.85) -> BottleneckReport:
+    """Fig. 6 logic: noise saying "overlap" (all absorptions ~0) is ambiguous
+    between case 3 (genuine full overlap: BOTH DECAN variants run near the
+    reference) and a shared upstream/frontend bottleneck. If DECAN shows any
+    variant running substantially faster than the reference, case 3 is ruled
+    out — the combined verdict is "frontend" (the paper's lloops.c_1351
+    resolution, where Sat_FP=0.81 / Sat_LS=0.12 already excluded overlap).
+    """
+    if report.label != "overlap":
+        return report
+    if sat_fp >= close and sat_ls >= close:
+        hint = (f"both variants near reference (Sat_FP={sat_fp:.2f}, "
+                f"Sat_LS={sat_ls:.2f}) -> genuine full overlap of FP and LS")
+        return dataclasses.replace(report, decan_hint=hint)
+    hint = (f"DECAN rules out full overlap (Sat_FP={sat_fp:.2f}, "
+            f"Sat_LS={sat_ls:.2f}) -> shared upstream (frontend-analogue) "
+            "bottleneck")
+    return dataclasses.replace(report, label="frontend", decan_hint=hint)

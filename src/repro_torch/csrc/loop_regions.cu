@@ -53,51 +53,10 @@
 // One launch a call. Its scratch is the stream's noise_slots workspace
 // (kernels/noise_slots.py `Workspace`): parts, 2 floats a block ([output,
 // aux]), and one ticket counter, 0 on entry and on exit; res: 2 floats.
-#include "loop_noise.cuh"
-#include "noise_slots.cuh"   // last_to_arrive: reduce_fused's ticket
+#include "loop_noise.cuh"   // LoopNoise, reduce_blocks
 
 #define LOOP_THREADS 256
 #define LOOP_WARPS_PER_BLOCK (LOOP_THREADS / 32)
-
-// 4 bytes another block wrote in this launch: through L2, as ld_coherent
-__device__ __forceinline__ float ld_coherent_f32(const float* p) {
-  float v;
-  asm volatile("ld.global.cg.f32 %0, [%1];" : "=f"(v) : "l"(p) : "memory");
-  return v;
-}
-
-struct Reduce {
-  float* parts;       // 2 x gridDim.x floats
-  unsigned* counter;  // the ticket, 0 on entry and on exit
-  float* res;         // [output, aux]
-};
-
-// Every thread of every block calls it with its output and aux values: the
-// block writes their block sums to rd.parts and takes a ticket on rd.counter;
-// the last block to arrive sums the gridDim.x block sums (thread t adds
-// blocks t, t+NT, ... in order, then the block tree) into rd.res and resets
-// the counter.
-template <int NT>
-__device__ __forceinline__ void reduce_blocks(float out, float aux, const Reduce& rd, float* sh) {
-  out = block_tree_sum<NT>(out, sh);
-  aux = block_tree_sum<NT>(aux, sh);
-  if (threadIdx.x == 0) {
-    rd.parts[2 * blockIdx.x] = out;
-    rd.parts[2 * blockIdx.x + 1] = aux;
-  }
-  if (!last_to_arrive(rd.counter, gridDim.x, threadIdx.x)) return;
-  float so = 0.f, sa = 0.f;
-  for (unsigned p = threadIdx.x; p < gridDim.x; p += NT) {
-    so = __fadd_rn(so, ld_coherent_f32(rd.parts + 2 * p));
-    sa = __fadd_rn(sa, ld_coherent_f32(rd.parts + 2 * p + 1));
-  }
-  so = block_tree_sum<NT>(so, sh);
-  sa = block_tree_sum<NT>(sa, sh);
-  if (threadIdx.x == 0) {
-    rd.res[0] = so;
-    rd.res[1] = sa;
-  }
-}
 
 static inline NoiseArgs noise_args(const float* nf, const float* nacc0, const int* ntab,
                                    const int* nidx0, int rows_mask) {

@@ -50,10 +50,12 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_PKG)), "build",
                          "repro_torch")
-# the four Pallas kernels' counterparts, then the paper's validation loops
-# (csrc/loop_regions.cu: STREAM, lat_mem_rd, HACCmk, SPMXV, matmul O0/O3)
+# the four Pallas kernels' counterparts, the paper's validation loops
+# (csrc/loop_regions.cu: STREAM, lat_mem_rd, HACCmk, SPMXV, matmul O0/O3),
+# its DECAN loops (csrc/decan_loops.cu: Table 3, Fig. 6) and the graph-level
+# noise modes (csrc/graph_noise.cu)
 KERNEL_SOURCES = ("noise_probes", "spmv_ell", "noisy_matmul", "flash_attention",
-                  "loop_regions")
+                  "loop_regions", "decan_loops", "graph_noise")
 
 # no fast-math: the fp noise chain of k adds must not fold into k*c
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

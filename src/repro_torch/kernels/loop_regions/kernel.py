@@ -99,10 +99,11 @@ _WS_FLOATS = ns.NOISE_SHAPE[0] * ns.NOISE_SHAPE[1]   # a workspace partial
 
 
 def _launch(entry, dev, tensors, ints, mode, carry, k, static, n_blocks,
-            scratch: int = 0):
-    """Launch ``repro_<entry>_{static,rt}``; returns res (2,): [out, aux].
-    The block sums (2 floats a block), ``scratch`` floats more (passed after
-    ``tensors``) and the ticket counter are the stream's workspace."""
+            scratch: int = 0, source: str = "loop_regions"):
+    """Launch ``repro_<entry>_{static,rt}`` of ``csrc/<source>.cu``; returns
+    res (2,): [out, aux]. The block sums (2 floats a block), ``scratch``
+    floats more (passed after ``tensors``) and the ticket counter are the
+    stream's workspace."""
     nf, nacc0, ntab, nidx0, rows_mask = noise_operands(mode, carry, dev)
     stream = _build.stream_handle(dev.index)
     used = 2 * n_blocks + scratch
@@ -111,7 +112,7 @@ def _launch(entry, dev, tensors, ints, mode, carry, k, static, n_blocks,
     if scratch:
         tensors = (*tensors, flat[2 * n_blocks:used])
     res = torch.empty(2, dtype=torch.float32, device=dev)
-    _build.launch("loop_regions", entry,
+    _build.launch(source, entry,
                   (*tensors, nf, nacc0, ntab, nidx0, flat, ws.counters, res),
                   (*ints, rows_mask), mode_id=MODE_IDS[mode], k=int(k),
                   static=static, stream=stream)

@@ -146,11 +146,12 @@ def _serial_schedule(n_iter: int, device):
         yield torch.tensor([i], dtype=torch.int64, device=device), None
 
 
-def _warp_aux(mode, carry, k, n_iter, device) -> torch.Tensor:
-    """aux of a region whose warps walk the iterations grid-stride."""
+def _warp_aux(mode, carry, k, n_iter, device, warps=None) -> torch.Tensor:
+    """aux of a region whose warps (default ``n_warps(n_iter)``) walk the
+    iterations grid-stride."""
     if mode == "none":
         return torch.zeros((), dtype=torch.float32, device=device)
-    w = n_warps(n_iter)
+    w = n_warps(n_iter) if warps is None else warps
     lanes = run_noise(mode, carry, k, w, _strided_schedule(n_iter, w, device))
     per_thread = lanes[:, torch.arange(32, device=device) % VEC].reshape(-1)
     return reduce_threads(per_thread)

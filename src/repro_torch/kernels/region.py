@@ -276,8 +276,11 @@ def launch_counts() -> dict[str, list[int]]:
     """This process's calls of each kernel: {kernel: [CUDA launches,
     plain-version calls]}, read from the wrappers' counters (a fleet worker
     reports them in its stats file). The loop regions' kernels (all in
-    ``csrc/loop_regions.cu``) count one by one, under their region names."""
+    ``csrc/loop_regions.cu``) count one by one, under their region names;
+    the DECAN loops and the graph-noise modes under their kernel names."""
+    from repro_torch.kernels.decan_loops.kernel import DECAN_KERNELS
     from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.graph_noise.kernel import GRAPH_KERNELS
     from repro_torch.kernels.loop_regions.kernel import REGION_KERNELS
     from repro_torch.kernels.noise_probes import kernel as probe_k
     from repro_torch.kernels.noisy_matmul import kernel as matmul_k
@@ -293,7 +296,9 @@ def launch_counts() -> dict[str, list[int]]:
         "flash_attention": [fa_k.flash_attention_cuda.launches,
                             fa_k.flash_attention_plain.launches],
         **{name: [cuda.launches, plain.launches]
-           for name, (cuda, plain) in REGION_KERNELS.items()},
+           for name, (cuda, plain) in (*REGION_KERNELS.items(),
+                                       *DECAN_KERNELS.items(),
+                                       *GRAPH_KERNELS.items())},
     }
 
 
