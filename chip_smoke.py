@@ -108,6 +108,25 @@ JAX or of the reference package. Phases, each of which fails the run:
    call before did not leave in the L2 (``studies.fresh_calls``), and
    beside that on the same lines every call.
 
+7. serving, driven as phase 4's paths are (counts at 0 just before each,
+   read just after; the graph-noise kernels' launches here join their
+   rows'): gemma-2b at full width and depth in bf16 (random weights drawn
+   on the card) through ``launch/serve.py``'s path at its defaults (8
+   requests on 4 slots, prompts of 2-11 tokens, max_new 16, max_seq 256,
+   page 16), paged, dense and paged again: greedy tokens equal, tok/s of
+   the warm paged run; the engine's prefill and decode tick (4 slots of
+   128 tokens, two ticks in) as step regions: the clean step a CUDA
+   graph, the noisy output bitwise equal to the clean one and payload =
+   k for fp_add32, mxu_fma128, vmem_ld and hbm_stream at k in {1, 64},
+   static and run-time; a profiler trace of a noisy tick (mxu_fma128, k =
+   512) with the noise kernel under ``NOISE_SCOPE`` on a stream of its
+   own, overlapping the tick's kernels; t(0) of both regions from the
+   graph and eagerly; both characterized over the four modes into a store
+   and replayed with 0 measured; then ``python -m
+   repro_torch.launch.probe --serve --arch gemma-2b`` and ``--arch
+   gemma-2b --kind decode`` at the smoke config, each again with
+   ``--expect-no-measure``.
+
 The last lines are the card, one ``{"kernels": [...]}`` JSON object, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -449,6 +468,10 @@ def _static_set():
 
     want += [("graph_noise", GRAPH_IDS[m], k, ()) for m in GRAPH_MODES
              for k in sorted({*GRAPH_CHECK_KS, 8, STATIC_CHECK_K})]
+    # phase 7: the serve regions' payload checks, and the largest k of a
+    # robust sweep (controller._ks_for)
+    want += [("graph_noise", GRAPH_IDS[m], k, ()) for m in GRAPH_MODES[:4]
+             for k in (*SERVE_KS, 320)]
     return want + [("noise_probes", MODE_IDS["fp"], 8, ()),
                    ("noisy_matmul", MODE_IDS["fp"], 8, ()),
                    ("flash_attention", MODE_IDS["fp"], 8,
@@ -1429,6 +1452,28 @@ def _fleet_plan_run(tmp: str, name: str, params: dict, shards: int,
     return report
 
 
+def drive(kernels: Kernels, counts: dict, seconds: dict, name: str, kernel,
+          fn):
+    """Drive one path with every count set to 0 just before it; read the
+    counts just after (adding them to ``counts``), and fail unless it
+    launched ``kernel`` (a name or a tuple of names)."""
+    kernels.reset()
+    t0 = time.perf_counter()
+    out = fn()
+    seconds[name] = time.perf_counter() - t0
+    path_counts = kernels.counts()
+    for k, (n_cuda, n_plain) in path_counts.items():
+        counts[k][0] += n_cuda
+        counts[k][1] += n_plain
+    print(f"  ({name}: {seconds[name]:.1f} s; launches (kernel, plain): "
+          f"{ {k: c for k, c in path_counts.items() if any(c)} })",
+          flush=True)
+    for kern in (kernel,) if isinstance(kernel, str) else kernel:
+        if path_counts[kern][0] <= 0:
+            raise RuntimeError(f"{name}: the path never launched {kern}")
+    return out
+
+
 def phase_main(tmp: str, kernels: Kernels) -> dict:
     from repro_torch.fleet.executor import run_worker
     from repro_torch.fleet.plan import SweepPlan, TargetSpec
@@ -1439,23 +1484,7 @@ def phase_main(tmp: str, kernels: Kernels) -> dict:
     counts = {name: [0, 0] for name in kernels.rows}
 
     def timed(name, kernel, fn):
-        """Drive one path with every count set to 0 just before it; read
-        the counts just after, and fail unless it launched ``kernel``."""
-        kernels.reset()
-        t0 = time.perf_counter()
-        out = fn()
-        seconds[name] = time.perf_counter() - t0
-        path_counts = kernels.counts()
-        for k, (n_cuda, n_plain) in path_counts.items():
-            counts[k][0] += n_cuda
-            counts[k][1] += n_plain
-        print(f"  ({name}: {seconds[name]:.1f} s; launches (kernel, plain): "
-              f"{ {k: c for k, c in path_counts.items() if any(c)} })",
-              flush=True)
-        for kern in (kernel,) if isinstance(kernel, str) else kernel:
-            if path_counts[kern][0] <= 0:
-                raise RuntimeError(f"{name}: the path never launched {kern}")
-        return out
+        return drive(kernels, counts, seconds, name, kernel, fn)
 
     print(f"== 4a. Qwen3-30B-A3B attention {MAIN_ATTENTION}, one shard; "
           f"card before (SM clock, power, temperature): {card_state()}",
@@ -2039,6 +2068,297 @@ def _probe_slot_costs() -> dict:
     return per
 
 
+# ---------------------------------------------------------------------------
+# phase 7: step-level injection and the paged serving engine, gemma-2b
+# ---------------------------------------------------------------------------
+
+# gemma-2b at full width and depth in bf16 (src/repro_torch/configs/
+# gemma_2b.py: 18 layers, d_model 2048, MQA, head_dim 256, GeGLU d_ff
+# 16384, vocab 256,000, tied), served with launch/serve.py's defaults, the
+# reference CLI's: 8 requests on 4 slots, prompts of 2-11 tokens from
+# RandomState(0)
+SERVE_ARCH = "gemma_2b"
+SERVE_ARGS = {"requests": 8, "slots": 4, "max_new": 16, "max_seq": 256,
+              "page_size": 16}
+# the serve regions: a paged engine two ticks into a full-slot campaign
+# (serve/load.py:engine_for_probe) at the probe CLI's defaults (prompt 128,
+# 4 slots, max_new 8, page 16)
+SERVE_PROBE = {"slots": 4, "prompt": 128, "max_new": 8, "page_size": 16}
+SERVE_KS = (1, 64)
+# the traced noisy tick: mxu_fma128 at the run-time cap (~2.4 us a pattern,
+# PERF.md, PR 16), long enough to overlap the step's kernels
+TRACE_MODE, TRACE_K = "mxu_fma128", 512
+# reps of every sweep point (min of reps, the host clock): a 5% tolerance
+# of a 5-9 ms step is 0.25-0.45 ms, about the step's own spread from run to
+# run, so each region is read twice to show how far its values hold
+SERVE_REPS = 10
+# reading -> its store: two fresh readings, then the second one replayed
+SERVE_READINGS = {"reading 1": "serve_1.jsonl", "reading 2": "serve_2.jsonl",
+                  "replay": "serve_2.jsonl"}
+L2_NOTE = "(k tiles L2-resident below k~380)"
+
+
+def _leaves(obj) -> list:
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, dict):
+        return [t for v in obj.values() for t in _leaves(v)]
+    if isinstance(obj, (tuple, list)):
+        return [t for v in obj for t in _leaves(v)]
+    return []
+
+
+def _noise_overlap(trace_path: str, noise_name: str) -> dict:
+    """Read a chrome trace of noisy calls: the kernels launched inside the
+    ``NOISE_SCOPE`` ranges (by the correlation of their launch calls), their
+    streams, the other kernels' (the step's) streams, and how much of each
+    noise kernel's interval overlaps a step kernel. Fails unless a noise
+    kernel named ``noise_name`` ran on a stream of its own, overlapping the
+    step."""
+    from repro_torch.core.noise import NOISE_SCOPE
+
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    scopes = [e for e in events if e.get("cat") == "user_annotation"
+              and e.get("name") == NOISE_SCOPE]
+    corr = set()
+    for e in events:
+        if e.get("cat") != "cuda_runtime":
+            continue
+        for sc in scopes:
+            if (e.get("tid") == sc.get("tid")
+                    and sc["ts"] <= e["ts"] <= sc["ts"] + sc.get("dur", 0)):
+                corr.add(e.get("args", {}).get("correlation"))
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "spin_kernel" not in e.get("name", "")]
+    noise = [e for e in kernels if e.get("args", {}).get("correlation")
+             in corr]
+    step = [e for e in kernels if e not in noise]
+    noise_streams = sorted({e["args"].get("stream") for e in noise})
+    step_streams = sorted({e["args"].get("stream") for e in step})
+    overlap = []
+    for n in noise:
+        n0, n1 = n["ts"], n["ts"] + n["dur"]
+        cover = sum(max(0.0, min(n1, s["ts"] + s["dur"]) - max(n0, s["ts"]))
+                    for s in step)
+        overlap.append(cover / max(n["dur"], 1e-9))
+    out = {"scopes": len(scopes), "noise_kernels": sorted(
+               {e["name"].split("(")[0] for e in noise}),
+           "noise_streams": noise_streams, "step_streams": step_streams,
+           "step_kernels": len(step),
+           "noise_us": [e["dur"] for e in noise],
+           "overlap_share": overlap}
+    print(f"  trace of the noisy tick: {json.dumps(out)}", flush=True)
+    if not any(noise_name in name for name in out["noise_kernels"]):
+        raise RuntimeError(f"trace: no {noise_name} kernel under "
+                           f"{NOISE_SCOPE} ({out})")
+    if not step:
+        raise RuntimeError("trace: no kernel of the step (the graph "
+                           "replay's kernels are not in the trace)")
+    if set(noise_streams) & set(step_streams):
+        raise RuntimeError(f"trace: the noise ran on the step's stream "
+                           f"({out})")
+    if not any(o > 0 for o in overlap):
+        raise RuntimeError(f"trace: the noise kernel overlaps no kernel of "
+                           f"the step ({out})")
+    return out
+
+
+def phase_serve(tmp: str, kernels: Kernels) -> dict:
+    """Gemma-2b at full width and depth, served (paged and dense, equal
+    greedy tokens), its prefill and decode tick as step regions (noisy =
+    clean bitwise, payload = k, the noise overlapping the step in a trace,
+    classified into a store and replayed with 0 measured, t(0) from the
+    graph and eagerly), then the probe CLI's serve and decode-step paths at
+    the smoke config. Returns the graph-noise kernels' launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.absorption import measure
+    from repro_torch.core.campaign import Campaign, CampaignStore
+    from repro_torch.core.controller import Controller
+    from repro_torch.core.injector import GraphStep, step_modes
+    from repro_torch.launch.probe import DEFAULT_GRAPH_MODES
+    from repro_torch.launch.probe import main as probe_main
+    from repro_torch.launch.serve import report, serve
+    from repro_torch.models.model import build
+    from repro_torch.serve.load import (engine_for_probe, serve_names,
+                                         serve_regions)
+
+    banner("7. serving: gemma-2b at full width and depth (bf16) and its "
+           "step regions")
+    seconds: dict = {}
+    counts = {name: [0, 0] for name in kernels.rows}
+    graph = tuple(f"graph_{m}" for m in DEFAULT_GRAPH_MODES)
+    cfg = get_config(SERVE_ARCH)
+    api = build(cfg)
+    t0 = time.perf_counter()
+    params = api.init(0, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"{cfg.name}: {n_params} parameters in bf16 drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s; {card_line()}", flush=True)
+
+    def serve_both():
+        out = {}
+        for dense in (False, True, False):
+            eng, reqs, dt = serve(api, params, dense=dense, **SERVE_ARGS)
+            print(report(eng, reqs, dt), flush=True)
+            out.setdefault(dense, []).append(([r.out for r in reqs], eng,
+                                              dt))
+        if out[False][0][0] != out[True][0][0]:
+            raise RuntimeError("paged and dense greedy tokens differ")
+        if out[False][0][0] != out[False][1][0]:
+            raise RuntimeError("two paged runs gave different tokens")
+        toks, eng, dt = out[False][1]
+        rep = eng.report()
+        n_tok = sum(len(t) for t in toks)
+        res = {"tok_s": n_tok / dt, "decode_tok_s": rep["decode_tok_s"],
+               "total_tok_s": rep["total_tok_s"], "ticks": rep["ticks"],
+               "wall_s": dt, "dense_wall_s": out[True][0][2]}
+        print(f"gemma-2b serve (paged, warm): {json.dumps(res)}; paged and "
+              f"dense greedy tokens equal; {card_line()}", flush=True)
+        return res
+
+    served = drive(kernels, counts, seconds, "serve_gemma2b", (),
+                   serve_both)
+
+    def regions_path():
+        registry = step_modes("cuda")
+        eng = engine_for_probe(api, params, **SERVE_PROBE)
+        names = serve_names(cfg.name, **SERVE_PROBE)
+        regions = serve_regions(eng, names, {m: registry[m]
+                                             for m in DEFAULT_GRAPH_MODES})
+        pf_fn, pf_args, tk_fn, tk_args = eng.probe_cells()
+        eager = {names[0]: (pf_fn, pf_args), names[1]: (tk_fn, tk_args)}
+        res = {}
+        for region in regions:
+            clean = region.build("", 0)
+            if not isinstance(clean, GraphStep):
+                raise RuntimeError(f"{region.name}: the clean step is not a "
+                                   "CUDA graph")
+            want = [t.clone() for t in _leaves(clean(*region.args_for("", 0)))]
+            torch.cuda.synchronize()
+            for mode in DEFAULT_GRAPH_MODES:
+                for k in SERVE_KS:
+                    for how, call in (
+                            ("static", lambda: region.build(mode, k)(
+                                *region.args_for(mode, k))),
+                            ("runtime", lambda: region.build_rt(mode)(
+                                k, *region.args_for_rt(mode)))):
+                        got = _leaves(call()[0])
+                        torch.cuda.synchronize()
+                        if len(got) != len(want) or not all(
+                                torch.equal(a, b) for a, b in zip(got, want)):
+                            raise RuntimeError(f"{region.name}: noisy out != "
+                                               f"clean out ({mode} {how} "
+                                               f"k={k})")
+                    rep = region.payload_check(mode, k)
+                    if rep.payload != k:
+                        raise RuntimeError(f"{region.name}: payload check "
+                                           f"{mode} k={k}: {rep}")
+            print(f"{region.name}: noisy out bitwise equal to clean out, "
+                  f"static and run-time k in {list(SERVE_KS)}, and payload "
+                  f"= k for {', '.join(DEFAULT_GRAPH_MODES)}", flush=True)
+            fn, args = eager[region.name]
+            t_graph = measure(clean, region.args_for("", 0), reps=10)
+            t_eager = measure(fn, args, reps=10)
+            ev_graph = time_ms(partial(clean, *region.args_for("", 0)))
+            ev_eager = time_ms(partial(fn, *args))
+            res[region.name] = {"t0_graph_ms": t_graph * 1e3,
+                                "t0_eager_ms": t_eager * 1e3,
+                                "event_graph_ms": ev_graph,
+                                "event_eager_ms": ev_eager}
+            print(f"{region.name}: t(0) host clock with synchronize, min of "
+                  f"10: graph {t_graph * 1e3!r} ms, eager {t_eager * 1e3!r} "
+                  f"ms; CUDA events, median of {TIMING_REPS}: graph "
+                  f"{ev_graph!r} ms, eager {ev_eager!r} ms; {card_line()}",
+                  flush=True)
+        tick = regions[1]
+        fn, args = tick.build_rt(TRACE_MODE), tick.args_for_rt(TRACE_MODE)
+        fn(TRACE_K, *args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SPIN_CYCLES)
+            for _ in range(3):
+                fn(TRACE_K, *args)
+            torch.cuda.synchronize()
+        path = os.path.join(tmp, "noisy_tick_trace.json")
+        prof.export_chrome_trace(path)
+        res["trace"] = _noise_overlap(path, "gmxu")
+
+        # two fresh readings, each into a store of its own, then the second
+        # store replayed; beside the fit's Abs^raw (the hinge's knee, k1)
+        # each mode prints the threshold reading (the last k within 5% of
+        # t(0)) and the largest t(k)/t(0) of its sweep
+        verdicts = {}
+        for reading, store in SERVE_READINGS.items():
+            camp = Campaign(CampaignStore(os.path.join(tmp, store)),
+                            Controller(reps=SERVE_REPS))
+            t_read = time.perf_counter()
+            try:
+                reps_ = {r.name: camp.characterize(r, DEFAULT_GRAPH_MODES)
+                         for r in regions}
+            finally:
+                camp.store.close()
+            print(f"characterize ({reading}, reps {SERVE_REPS}): "
+                  f"{camp.stats} in {time.perf_counter() - t_read:.1f} s",
+                  flush=True)
+            if reading == "replay" and camp.stats.measured:
+                raise RuntimeError(f"the serve store replayed with "
+                                   f"{camp.stats.measured} measured")
+            for name, rep in reps_.items():
+                _payloads_ok(rep)
+                modes = {m: {"abs_raw": r.fit.k1,
+                             "k1_threshold": r.fit.k1_threshold,
+                             "max_ratio": float(max(r.curve.ratios())),
+                             "ks": list(r.curve.ks),
+                             "ratios": [float(x) for x in r.curve.ratios()],
+                             "t0_ms": r.fit.t0 * 1e3}
+                         for m, r in rep.results.items()}
+                verdicts.setdefault(name, {})[reading] = {
+                    "label": rep.bottleneck.label, "modes": modes}
+                print(f"{name} ({reading}): " + ", ".join(
+                    f"{m} Abs^raw={v['abs_raw']!r} threshold="
+                    f"{v['k1_threshold']!r} max t(k)/t(0)="
+                    f"{v['max_ratio']!r}" + (f" {L2_NOTE}"
+                                             if m == "hbm_stream" else "")
+                    for m, v in modes.items())
+                    + f" => {rep.bottleneck.label}; {card_line()}",
+                    flush=True)
+        res["verdicts"] = verdicts
+        return res
+
+    regions_res = drive(kernels, counts, seconds, "serve_regions_gemma2b",
+                        graph, regions_path)
+
+    cli = {"probe_serve_smoke": ["--serve", "--arch", "gemma-2b"],
+           "probe_decode_smoke": ["--arch", "gemma-2b", "--kind", "decode"]}
+    for name, argv in cli.items():
+        store = os.path.join(tmp, f"{name}.jsonl")
+        print(f"== python -m repro_torch.launch.probe {' '.join(argv)}",
+              flush=True)
+        drive(kernels, counts, seconds, name, graph,
+              lambda: probe_main(argv + ["--store", store]))
+        _, stats = probe_main(argv + ["--store", store,
+                                      "--expect-no-measure"])
+        if stats.measured:
+            raise RuntimeError(f"{name}: replay measured {stats.measured}")
+    print("phase 7 wall time per path (s): "
+          + json.dumps({k: round(v, 1) for k, v in seconds.items()}))
+    print("serve results: " + json.dumps({"served": served,
+                                          **regions_res}), flush=True)
+    for name, (n_cuda, n_plain) in counts.items():
+        if n_cuda or n_plain:
+            print(f"{name}: kernel {n_cuda} launches on the serving paths, "
+                  f"plain version {n_plain} (the payload checks' oracle)")
+    return {name: n_cuda for name, (n_cuda, _) in counts.items()}
+
+
 def main() -> int:
     try:
         import torch
@@ -2063,6 +2383,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches = phase_main(tmp, kernels)
     rows = phase_timing(main_args, max_err, launches)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        serve_launches = phase_serve(tmp, kernels)
+    for row in rows:        # the serving paths are main paths too
+        row["launches"] += serve_launches[row["name"]]
     print(f"\nchip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(card)

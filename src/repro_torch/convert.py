@@ -1,13 +1,14 @@
 """Carry state across from the reference package.
 
-This system holds no weights: a region's input tensors and its noise operand
-are its whole state. ``to_torch`` turns the reference's region arguments —
-numpy arrays, as ``np.asarray`` gives them from a JAX region's ``args``
-tuple — into the port's tensors, so both packages compute on identical
-inputs; ``carry_to_torch`` does the same for a loop-noise carry (a dict of
+A region's input tensors and its noise operand are its whole state.
+``to_torch`` turns the reference's region arguments — numpy arrays, as
+``np.asarray`` gives them from a JAX region's ``args`` tuple — into the
+port's tensors, so both packages compute on identical inputs; ``carry_to_torch`` does the same for a loop-noise carry (a dict of
 arrays and tuples of arrays, ``core.loopnoise``), and
 ``noise_state_to_torch`` for a graph-level noise mode's state
-(``core.noise``: arrays, tuples of them, bf16 matrices and int32 scalars).
+(``core.noise``: arrays, tuples of them, bf16 matrices and int32 scalars),
+and ``lm_params_to_torch`` for a model's initialised param tree (the models
+hold random weights from a seed; nothing is downloaded).
 """
 from __future__ import annotations
 
@@ -65,3 +66,32 @@ def noise_state_to_torch(name: str, state: dict, device="cpu") -> dict:
                   if isinstance(value, (tuple, list))
                   else _array_to_torch(value, device))
             for key, value in state.items()}
+
+
+def lm_params_to_torch(cfg, params, device="cpu"):
+    """The reference's dense LM param tree (numpy arrays as ``np.asarray``
+    gives them, bf16 carried bit for bit) -> the port's ``transformer.LM``
+    on ``device``. The reference stacks layer params on a leading (L, ...)
+    axis; each slice becomes one layer module."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as tf
+
+    def t(a):
+        return _array_to_torch(a, device)
+
+    emb = params["embed"]
+    embed = L.Embedding(t(emb["table"]),
+                        t(emb["head"]) if "head" in emb else None)
+    lay = params["layers"]
+    layers = []
+    for i in range(cfg.n_layers):
+        a, m = lay["attn"], lay["mlp"]
+        layers.append(tf.Layer(
+            L.RMSNorm(t(np.asarray(lay["ln1"]["scale"])[i])),
+            attn.Attention(*(t(np.asarray(a[w])[i])
+                             for w in ("wq", "wk", "wv", "wo"))),
+            L.RMSNorm(t(np.asarray(lay["ln2"]["scale"])[i])),
+            L.MLP(*(t(np.asarray(m[w])[i])
+                    for w in ("w_gate", "w_up", "w_down")))))
+    return tf.LM(embed, layers, L.RMSNorm(t(params["final_norm"]["scale"])))

@@ -304,16 +304,14 @@ def loop_region(name: str,
     def payload_check(mode: str, k: int) -> payload_mod.InjectionReport:
         """Run the static-k build once and hold its aux against the plain
         version's: an exact match proves that all k patterns ran."""
-        ok = True
+        got = want = None
         if k:
             call_args = args(mode, k)
-            got = build(mode, k)(*call_args)
-            want = make_fn(modes[mode], k, plain=True)(*call_args)
-            ok = bool((got[1].cpu() == want[1].cpu()).all())
-        return payload_mod.InjectionReport(
-            mode=mode, target=_default_target(mode), expected=k,
-            payload=k if ok else 0, overhead=0,
-            payload_dynamic=k * n_iter, body_ops=body_size)
+            got = build(mode, k)(*call_args)[1]
+            want = make_fn(modes[mode], k, plain=True)(*call_args)[1]
+        return payload_mod.analyze_aux(
+            got, want, mode=mode, target=_default_target(mode), expected=k,
+            body_ops=body_size, trips=n_iter)
 
     return RegionTarget(name=name, build=build, args_for=args,
                         body_size=body_size, build_rt=build_rt,

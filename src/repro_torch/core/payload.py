@@ -1,15 +1,20 @@
 """Payload/overhead verification records (paper §2.3).
 
 The paper splits injected instructions into *payload* (the useful noise) and
-*overhead* (spills / setup). The Pallas-kernel regions verify payload at the
-arithmetic level — the static-k build's noise accumulator against its exact
-oracle — and report the result in this record, whose fields and layout match
-the reference package's ``InjectionReport`` so campaign stores stay
-byte-compatible between the two packages.
+*overhead* (spills / setup). The reference counts the noise ops that survive
+in the optimized HLO. The port verifies payload at the arithmetic level
+instead — the static-k build's noise output against its exact oracle: the
+Pallas-kernel regions' noise accumulator, and the loop and step regions'
+aux against the mode's plain version (``analyze_aux``) — and reports the
+result in this record, whose fields and layout match the reference
+package's ``InjectionReport`` so campaign stores stay byte-compatible
+between the two packages.
 """
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 
 @dataclasses.dataclass
@@ -38,3 +43,18 @@ class InjectionReport:
         """True when enough of the payload survived with little overhead."""
         return (self.survival_fraction >= min_survival
                 and self.overhead_fraction <= max_overhead)
+
+
+def analyze_aux(got: torch.Tensor, want: torch.Tensor, *, mode: str,
+                target: str, expected: int, body_ops: int = 0,
+                trips: int = 1) -> InjectionReport:
+    """The aux oracle of a static-k noisy build: its aux ``got`` bitwise
+    equal to the mode's plain version ``want`` proves that all ``expected``
+    patterns ran (payload = k), else payload is 0. ``trips``: how often the
+    injected body runs a call (the payload's dynamic count)."""
+    ok = bool(torch.equal(got.cpu(), want.cpu())) if expected else True
+    payload = expected if ok else 0
+    return InjectionReport(mode=mode, target=target, expected=expected,
+                           payload=payload, overhead=0,
+                           payload_dynamic=payload * trips,
+                           body_ops=body_ops)

@@ -6,6 +6,10 @@ budgets), and show fleet state.
         --pallas attention --sizes 256,512 --modes fp,mxu,vmem \\
         --shards 2 --reps 2 [--backend cuda|cpu]
 
+    # a model step, or the paged serving engine's two regions (smoke config)
+    PYTHONPATH=src python -m repro_torch.fleet plan --out serve.json \\
+        --arch gemma-2b --serve [--seq 128 --batch 4 --max-new 8]
+
     # plan -> spawn -> merge -> classify (resumable; stores are ground truth)
     PYTHONPATH=src python -m repro_torch.fleet run --plan plan.json
     PYTHONPATH=src python -m repro_torch.fleet run --plan plan.json --resume \\
@@ -86,25 +90,48 @@ def _retry_spec(args, base: Optional[dict] = None) -> Optional[dict]:
 
 def _build_plan(args):
     from repro_torch.fleet.plan import PlanError, SweepPlan, TargetSpec
-    from repro_torch.kernels.region import KERNEL_MODES, SIZE_DEFAULT
 
-    if args.pallas not in KERNEL_MODES:
-        raise SystemExit(f"unknown pallas kernel {args.pallas!r}; one of "
-                         f"{', '.join(sorted(KERNEL_MODES))}")
-    modes = (_csv(args.modes, str) if args.modes
-             else list(KERNEL_MODES[args.pallas]))
-    params = {"kernel": args.pallas,
-              "sizes": (_csv(args.sizes, int) if args.sizes
-                        else [SIZE_DEFAULT[args.pallas]])}
-    if args.qs:
-        params["qs"] = _csv(args.qs, float)
-    if args.nnz_per_row is not None:
-        params["nnz_per_row"] = args.nnz_per_row
-    name = args.name or f"fleet_{args.pallas}"
+    if bool(args.pallas) == bool(args.arch):
+        raise SystemExit("plan: give exactly one of --pallas KERNEL or "
+                         "--arch ARCH")
+    if args.serve and not args.arch:
+        raise SystemExit("plan: --serve needs --arch ARCH")
+    if args.pallas:
+        from repro_torch.kernels.region import KERNEL_MODES, SIZE_DEFAULT
+        if args.pallas not in KERNEL_MODES:
+            raise SystemExit(f"unknown pallas kernel {args.pallas!r}; one "
+                             f"of {', '.join(sorted(KERNEL_MODES))}")
+        modes = (_csv(args.modes, str) if args.modes
+                 else list(KERNEL_MODES[args.pallas]))
+        params = {"kernel": args.pallas,
+                  "sizes": (_csv(args.sizes, int) if args.sizes
+                            else [SIZE_DEFAULT[args.pallas]])}
+        if args.qs:
+            params["qs"] = _csv(args.qs, float)
+        if args.nnz_per_row is not None:
+            params["nnz_per_row"] = args.nnz_per_row
+        spec = TargetSpec("pallas", tuple(modes), params)
+        default_name = f"fleet_{args.pallas}"
+    else:
+        from repro_torch.launch.probe import DEFAULT_GRAPH_MODES
+        modes = (_csv(args.modes, str) if args.modes
+                 else list(DEFAULT_GRAPH_MODES))
+        if args.serve:
+            spec = TargetSpec("serve", tuple(modes),
+                              {"arch": args.arch, "slots": args.batch,
+                               "prompt": args.seq,
+                               "max_new": args.max_new})
+            default_name = f"fleet_{args.arch}_serve"
+        else:
+            spec = TargetSpec("step", tuple(modes),
+                              {"arch": args.arch, "kind": args.kind,
+                               "seq": args.seq, "batch": args.batch})
+            default_name = f"fleet_{args.arch}_{args.kind}"
+    name = args.name or default_name
     plan = SweepPlan(name=name,
                      store=args.store or os.path.join(CAMPAIGN_DIR,
                                                       f"{name}.jsonl"),
-                     targets=[TargetSpec("pallas", tuple(modes), params)],
+                     targets=[spec],
                      reps=args.reps, shards=args.shards,
                      workers=args.workers,
                      compile_once=not args.no_compile_once,
@@ -340,9 +367,24 @@ def build_parser() -> argparse.ArgumentParser:
                     help="plan name (default: derived from the target)")
     pp.add_argument("--store", default=None,
                     help=f"campaign store (default: under {CAMPAIGN_DIR}/)")
-    pp.add_argument("--pallas", required=True, metavar="KERNEL",
+    pp.add_argument("--pallas", default=None, metavar="KERNEL",
                     help="kernel family target (matmul|spmxv|attention|"
                          "probe)")
+    pp.add_argument("--arch", default=None,
+                    help="model-step target (smoke config; exclusive with "
+                         "--pallas)")
+    pp.add_argument("--serve", action="store_true",
+                    help="with --arch: a serve target (the paged serving "
+                         "engine's prefill + decode regions; --seq is the "
+                         "prompt length, --batch the slot count)")
+    pp.add_argument("--max-new", type=int, default=8,
+                    help="decode budget per request (--serve)")
+    pp.add_argument("--kind", default="train", choices=("train", "decode"),
+                    help="which model step (--arch without --serve)")
+    pp.add_argument("--seq", type=int, default=128,
+                    help="sequence (prompt) length of the model target")
+    pp.add_argument("--batch", type=int, default=4,
+                    help="batch size (slot count) of the model target")
     pp.add_argument("--sizes", default=None,
                     help="comma list for the kernel's size knob "
                          "(rows / seq / grid steps)")
@@ -351,7 +393,8 @@ def build_parser() -> argparse.ArgumentParser:
     pp.add_argument("--nnz-per-row", type=int, default=None,
                     help="spmxv nonzeros per row")
     pp.add_argument("--modes", default=None,
-                    help="comma list (default: the kernel's full mode set)")
+                    help="comma list (default: the kernel's full mode set, "
+                         "or the graph-level default set for --arch)")
     pp.add_argument("--reps", type=int, default=2,
                     help="timing repetitions per measured point")
     pp.add_argument("--shards", type=int, default=2,

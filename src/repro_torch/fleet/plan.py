@@ -20,8 +20,9 @@ so every participant (the launcher, each worker subprocess, a human at the
 
 The JSON schema, digest and grid order are the reference's (``repro.fleet.
 plan``), so a plan file names the same regions in both packages. What the
-port accepts is narrower: the "pallas" and "calibrate" kinds, ``backend``
-"cuda" (the default) or "cpu", and the single-file store layout.
+port accepts is narrower: ``backend`` "cuda" (the default) or "cpu", the
+single-file store layout, and "step" / "serve" targets of the dense family
+only.
 
 Plan JSON (one object, schema-versioned):
 
@@ -42,13 +43,6 @@ from typing import Optional
 PLAN_SCHEMA = 1
 
 BACKENDS = ("cuda", "cpu")
-# target kinds of the reference that wait for their ROADMAP item
-WAITING_KINDS = {
-    "step": "model-step targets wait for the models (ROADMAP queue 1 "
-            "item 10)",
-    "serve": "serve targets wait for the serving engine (ROADMAP queue 1 "
-             "item 10)",
-}
 
 
 class PlanError(ValueError):
@@ -59,12 +53,18 @@ class PlanError(ValueError):
 class TargetSpec:
     """One declarative target family: what to measure and under which modes.
 
-    kind "pallas": params {kernel, sizes[, qs, ...spec kwargs]}; resolves via
-    ``pallas_family`` to one RegionTarget per size/q.
-    kind "calibrate": params {[n, chunk]}; resolves to the four known-regime
-    calibration targets (``core.calibration.calibrate_targets``).
-    The reference's "step" and "serve" kinds are refused with the ROADMAP
-    item they wait for.
+    kinds:
+      * "pallas" — params {kernel, sizes[, qs, ...spec kwargs]}; resolves
+        via ``pallas_family`` to one RegionTarget per size/q;
+      * "step" — params {arch[, kind, seq, batch]}; resolves via
+        ``launch.probe.build_step_region`` to one model-step region;
+      * "serve" — params {arch[, slots, prompt, max_new, page_size]};
+        resolves via ``serve.load.build_serve_regions`` to TWO regions of
+        one paged serving workload: the engine's batched prefill and its
+        decode tick;
+      * "calibrate" — params {[n, chunk]}; resolves to the four
+        known-regime calibration targets
+        (``core.calibration.calibrate_targets``).
     """
     kind: str
     modes: tuple[str, ...]
@@ -75,15 +75,15 @@ class TargetSpec:
         family must not fail later in every worker subprocess)."""
         if not self.modes:
             raise PlanError(f"target {self.kind!r} has no modes")
-        if self.kind in WAITING_KINDS:
-            raise PlanError(f"target kind {self.kind!r} is not ported: "
-                            f"{WAITING_KINDS[self.kind]}")
         if self.kind == "calibrate":
             self._validate_calibrate()
             return
+        if self.kind in ("step", "serve"):
+            self._validate_model()
+            return
         if self.kind != "pallas":
             raise PlanError(f"unknown target kind {self.kind!r}; one of "
-                            "['calibrate', 'pallas']")
+                            "['calibrate', 'pallas', 'step', 'serve']")
         from repro_torch.kernels.region import KERNEL_MODES, check_family_args
         kernel = self.params.get("kernel")
         if kernel not in KERNEL_MODES:
@@ -102,6 +102,34 @@ class TargetSpec:
         if bad:
             raise PlanError(f"kernel {kernel!r} supports modes "
                             f"{KERNEL_MODES[kernel]}, not {bad}")
+
+    def _validate_model(self) -> None:
+        """A "step" or "serve" target: a known dense architecture, the
+        graph-level modes, and positive serve parameters."""
+        from repro_torch.configs import canonical, get_config
+        from repro_torch.core.noise import make_modes
+
+        arch = self.params.get("arch")
+        if not arch:
+            raise PlanError(f"{self.kind} target needs an 'arch'")
+        try:
+            family = get_config(canonical(arch)).family
+        except KeyError as e:
+            raise PlanError(str(e)) from None
+        if family != "dense":
+            raise PlanError(f"{self.kind} target {arch!r}: the {family} "
+                            "family is not ported (ROADMAP queue 1, the "
+                            "rest of item 10); the dense family is")
+        known = make_modes(device="cpu")
+        bad = [m for m in self.modes if m not in known]
+        if bad:
+            raise PlanError(f"unknown graph-level mode(s) {bad}")
+        if self.kind == "serve":
+            for key in ("slots", "prompt", "max_new", "page_size"):
+                v = self.params.get(key)
+                if v is not None and (not isinstance(v, int) or v < 1):
+                    raise PlanError(f"serve target {key}={v!r}: want a "
+                                    "positive int")
 
     def _validate_calibrate(self) -> None:
         from repro_torch.core.calibration import CALIB_MODES
@@ -125,11 +153,26 @@ class TargetSpec:
     def resolve(self, backend: str = "cuda") -> list:
         """Build this spec's RegionTargets (in the calling process) on the
         backend's device."""
+        p = self.params
         if self.kind == "calibrate":
             from repro_torch.core.calibration import calibrate_targets
-            return calibrate_targets(n=int(self.params.get("n", 4096)),
-                                     chunk=int(self.params.get("chunk", 512)),
+            return calibrate_targets(n=int(p.get("n", 4096)),
+                                     chunk=int(p.get("chunk", 512)),
                                      device=backend)
+        if self.kind == "serve":
+            from repro_torch.serve.load import build_serve_regions
+            return build_serve_regions(
+                p["arch"], list(self.modes), slots=int(p.get("slots", 4)),
+                prompt=int(p.get("prompt", 32)),
+                max_new=int(p.get("max_new", 8)),
+                page_size=int(p.get("page_size", 16)), device=backend)
+        if self.kind == "step":
+            from repro_torch.launch.probe import build_step_region
+            return [build_step_region(p["arch"], p.get("kind", "train"),
+                                      list(self.modes),
+                                      seq=int(p.get("seq", 128)),
+                                      batch=int(p.get("batch", 4)),
+                                      device=backend)]
         from repro_torch.kernels.region import pallas_family
         return pallas_family(self.params["kernel"], self.params["sizes"],
                              qs=self.params.get("qs"), device=backend,
@@ -138,9 +181,24 @@ class TargetSpec:
     def region_names(self) -> list[str]:
         """The names ``resolve()``'s regions will carry, derived WITHOUT
         building anything (grid queries stay cheap)."""
+        p = self.params
         if self.kind == "calibrate":
             from repro_torch.core.calibration import REGIME_NAMES
             return list(REGIME_NAMES)
+        if self.kind == "serve":
+            from repro_torch.serve.load import serve_region_names
+            return serve_region_names(p["arch"],
+                                      slots=int(p.get("slots", 4)),
+                                      prompt=int(p.get("prompt", 32)),
+                                      max_new=int(p.get("max_new", 8)),
+                                      page_size=int(p.get("page_size", 16)))
+        if self.kind == "step":
+            from repro_torch.configs import get_smoke_config  # no model
+            from repro_torch.launch.probe import step_region_name
+            return [step_region_name(get_smoke_config(p["arch"]).name,
+                                     p.get("kind", "train"),
+                                     int(p.get("seq", 128)),
+                                     int(p.get("batch", 4)))]
         from repro_torch.kernels.region import family_names
         return family_names(self.params["kernel"], self.params["sizes"],
                             qs=self.params.get("qs"), **self._extra_params())

@@ -22,10 +22,26 @@ Fleet worker mode executes a slice of a saved ``SweepPlan`` — what
     PYTHONPATH=src python -m repro_torch.launch.probe --plan plan.json \\
         --shard 0/2
 
+Model-step mode probes one step of a model at its smoke config — the
+forward loss (``--kind train``; no gradient, as the reference's) or one
+decode step — with the graph-level noise modes forked beside it
+(``core/injector.py``; a CUDA graph on the card):
+
+    PYTHONPATH=src python -m repro_torch.launch.probe --arch gemma-2b \\
+        --kind decode [--seq 128] [--batch 4] [--modes fp_add32,hbm_stream]
+
+Serve mode probes the paged serving engine as TWO regions — the batched
+prefill and the decode tick — under one campaign:
+
+    PYTHONPATH=src python -m repro_torch.launch.probe --serve \\
+        --arch gemma-2b [--seq 128] [--batch 4] [--max-new 8]
+
+Region names are the reference's, letter for letter, so stores carry over.
+
 ``--device cpu`` (the plan's ``backend``) runs the plain PyTorch versions
 (tests, a card-less box); the default ``cuda`` refuses to run without a
-card. The reference's model-step, serving and analytic probes are not
-ported.
+card. The reference's analytic probe (it reads dry-run artifacts, ROADMAP
+queue 1 item 11) is not ported.
 """
 from __future__ import annotations
 
@@ -34,6 +50,62 @@ import os
 from typing import Optional, Sequence
 
 CAMPAIGN_DIR = "experiments/campaigns"
+
+# default graph-level mode set for the model-step and serve probes
+DEFAULT_GRAPH_MODES = ("fp_add32", "mxu_fma128", "vmem_ld", "hbm_stream")
+
+
+def step_region_name(cfg_name: str, kind: str, seq: int, batch: int) -> str:
+    """The model-step region's name, the reference's letter for letter."""
+    return f"{cfg_name}_{kind}_s{seq}_b{batch}"
+
+
+def build_step_region(arch: str, kind: str, modes: Sequence[str], *,
+                      seq: int, batch: int, device="cuda"):
+    """The graph-level model-step RegionTarget the measured probe and
+    "step" fleet TargetSpecs share: the smoke config, params drawn from
+    seed 0 on ``device``, noise forked beside the whole step (the forward
+    loss for ``kind="train"``, one decode step at position seq // 2
+    otherwise)."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.injector import step_modes, step_region
+    from repro_torch.kernels.region import resolve_device
+    from repro_torch.models.model import build
+
+    dev = resolve_device(device)
+    registry = step_modes(dev)
+    unknown = [m for m in modes if m not in registry]
+    if unknown:
+        raise SystemExit(f"unknown mode(s) {unknown}; available: "
+                         f"{', '.join(sorted(registry))}")
+
+    cfg = get_smoke_config(arch)
+    api = build(cfg)
+    params = api.init(0, dev)
+    shape = ShapeConfig("probe", kind, seq, batch)
+
+    if kind == "train":
+        batch_data = api.dummy_batch(shape, device=dev)
+
+        def step(p, b):
+            return api.loss(p, b)[0]
+        args = (params, batch_data)
+    else:
+        cache = api.decode_init(params, {"tokens": torch.zeros((batch, 1)),
+                                         "max_seq": seq})
+        toks = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+        pos = torch.tensor(seq // 2, dtype=torch.int32, device=dev)
+
+        def step(p, c, t):
+            return api.decode_step(p, c, t, pos)[0]
+        args = (params, cache, toks)
+
+    return step_region(step_region_name(cfg.name, kind, seq, batch), step,
+                       args,
+                       {m: registry[m] for m in modes})
 
 
 def _run_adhoc(spec, *, reps: int, store: Optional[str], fresh: bool,
@@ -66,6 +138,51 @@ def _run_adhoc(spec, *, reps: int, store: Optional[str], fresh: bool,
                           audit=audit, quality=quality)
     except (FleetError, PlanError) as e:
         raise SystemExit(str(e))
+
+
+def measured_probe(arch: str, kind: str, modes: list[str], *, seq: int,
+                   batch: int, reps: int, store: Optional[str] = None,
+                   fresh: bool = False, workers: int = 1,
+                   compile_once: bool = True,
+                   shard: Optional[tuple[int, int]] = None,
+                   expect_no_measure: bool = False, device: str = "cuda",
+                   quality: str = "gate", audit: str = "off"):
+    """Measured graph-level probe of one model step (smoke config): a
+    one-target SweepPlan run through the fleet worker."""
+    from repro_torch.fleet.plan import TargetSpec
+
+    spec = TargetSpec("step", tuple(modes),
+                      {"arch": arch, "kind": kind, "seq": seq,
+                       "batch": batch})
+    return _run_adhoc(spec, reps=reps, store=store, fresh=fresh,
+                      workers=workers, compile_once=compile_once,
+                      shard=shard, expect_no_measure=expect_no_measure,
+                      header=f"measured probe: {arch} {kind} seq={seq} "
+                             f"batch={batch} on {device}",
+                      device=device, quality=quality, audit=audit)
+
+
+def serve_probe(arch: str, modes: list[str], *, slots: int, prompt: int,
+                max_new: int, reps: int, store: Optional[str] = None,
+                fresh: bool = False, workers: int = 1,
+                compile_once: bool = True,
+                shard: Optional[tuple[int, int]] = None,
+                expect_no_measure: bool = False, device: str = "cuda",
+                quality: str = "gate", audit: str = "off"):
+    """Measured probe of the paged serving engine (smoke config): one plan,
+    TWO regions — the batched prefill and the decode tick
+    (``serve.load.build_serve_regions``) — classified separately."""
+    from repro_torch.fleet.plan import TargetSpec
+
+    spec = TargetSpec("serve", tuple(modes),
+                      {"arch": arch, "slots": slots, "prompt": prompt,
+                       "max_new": max_new})
+    return _run_adhoc(spec, reps=reps, store=store, fresh=fresh,
+                      workers=workers, compile_once=compile_once,
+                      shard=shard, expect_no_measure=expect_no_measure,
+                      header=f"serve probe: {arch} slots={slots} "
+                             f"prompt={prompt} on {device}",
+                      device=device, quality=quality, audit=audit)
 
 
 def pallas_probe(kernel: str, modes: Optional[list[str]], *, reps: int,
@@ -138,13 +255,33 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.probe",
         description="noise-injection bottleneck probe of one kernel region "
-                    "(CUDA kernels on the card, or their plain PyTorch "
-                    "versions with --device cpu), and the fleet worker "
-                    "entry (--plan)")
+                    "or model step (CUDA kernels on the card, or their "
+                    "plain PyTorch versions with --device cpu), and the "
+                    "fleet worker entry (--plan)")
+    ap.add_argument("--arch", default=None,
+                    help="model architecture (required unless --pallas or "
+                         "--plan)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced smoke config (model-step and serve "
+                         "probes always use it; flag kept for "
+                         "explicitness)")
+    ap.add_argument("--kind", default="train", choices=("train", "decode"),
+                    help="which model step to probe")
+    ap.add_argument("--serve", action="store_true",
+                    help="probe the paged serving engine instead of a bare "
+                         "model step: two regions (batched prefill + decode "
+                         "tick) under one campaign; --seq is the prompt "
+                         "length, --batch the slot count")
+    ap.add_argument("--max-new", type=int, default=8,
+                    help="decode budget per request of the probed serve "
+                         "workload (--serve)")
+    ap.add_argument("--seq", type=int, default=128,
+                    help="sequence length of the probed step")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="batch size of the probed step")
     ap.add_argument("--pallas", default=None,
                     metavar="{matmul,spmxv,attention,probe}",
-                    help="the kernel region to probe (required unless "
-                         "--plan)")
+                    help="probe a kernel region instead of a model step")
     ap.add_argument("--pallas-n", type=int, default=None,
                     help="kernel size knob (rows for matmul/spmxv, seq for "
                          "attention, grid steps for probe)")
@@ -158,7 +295,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "per-worker store (N must match the plan's shards "
                          "under --plan)")
     ap.add_argument("--modes", default=None,
-                    help="noise modes (default: the kernel's fp/mxu/vmem set)")
+                    help="noise modes (default: "
+                         f"{','.join(DEFAULT_GRAPH_MODES)}, or the kernel's "
+                         "fp/mxu/vmem set under --pallas)")
     ap.add_argument("--reps", type=int, default=3,
                     help="timing repetitions per measured point")
     ap.add_argument("--store", default=None,
@@ -202,6 +341,9 @@ def main(argv: Optional[Sequence[str]] = None):
         # the plan carries all of these; silently ignoring one would let a
         # user believe they changed the measurement settings
         overridden = [flag for flag, given in (
+            ("--arch", args.arch), ("--serve", args.serve),
+            ("--kind", args.kind != "train"), ("--seq", args.seq != 128),
+            ("--batch", args.batch != 4), ("--max-new", args.max_new != 8),
             ("--pallas", args.pallas), ("--pallas-n", args.pallas_n),
             ("--modes", modes), ("--store", args.store),
             ("--reps", args.reps != 3), ("--workers", args.workers != 1),
@@ -214,15 +356,25 @@ def main(argv: Optional[Sequence[str]] = None):
         return plan_probe(args.plan, shard=shard, fresh=args.fresh,
                           expect_no_measure=args.expect_no_measure,
                           quality=args.quality, audit=args.audit)
-    if args.pallas is None:
-        raise SystemExit("--pallas is required unless --plan is given")
-    return pallas_probe(args.pallas, modes, reps=args.reps, n=args.pallas_n,
-                        store=args.store, fresh=args.fresh,
-                        workers=args.workers,
-                        compile_once=not args.no_compile_once, shard=shard,
-                        expect_no_measure=args.expect_no_measure,
-                        device=args.device, quality=args.quality,
-                        audit=args.audit)
+    common = dict(reps=args.reps, store=args.store, fresh=args.fresh,
+                  workers=args.workers,
+                  compile_once=not args.no_compile_once, shard=shard,
+                  expect_no_measure=args.expect_no_measure,
+                  device=args.device, quality=args.quality, audit=args.audit)
+    if args.pallas is not None:
+        if args.serve:
+            raise SystemExit("--pallas excludes --serve")
+        return pallas_probe(args.pallas, modes, n=args.pallas_n, **common)
+    if args.arch is None:
+        raise SystemExit("--arch is required unless --pallas or --plan "
+                         "is given")
+    if args.serve:
+        return serve_probe(args.arch, modes or list(DEFAULT_GRAPH_MODES),
+                           slots=args.batch, prompt=args.seq,
+                           max_new=args.max_new, **common)
+    return measured_probe(args.arch, args.kind,
+                          modes or list(DEFAULT_GRAPH_MODES), seq=args.seq,
+                          batch=args.batch, **common)
 
 
 if __name__ == "__main__":

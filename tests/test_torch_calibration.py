@@ -270,7 +270,8 @@ def test_calibrate_target_kind_plans_and_resolves(tmp_path):
         with pytest.raises(PlanError):
             spec.validate()
     with pytest.raises(PlanError, match="not ported"):
-        TargetSpec("serve", ("fp_add",), {"arch": "x"}).validate()
+        TargetSpec("serve", ("fp_add32",),
+                   {"arch": "qwen3_moe_30b_a3b"}).validate()
 
 
 def test_calibrate_cli_runs_replays_inspects_and_applies(tmp_path, capsys,

@@ -192,17 +192,16 @@ def test_plan_round_trips_and_grids_like_the_reference(tmp_path):
     ({"backend": "ref"}, r"\['cuda', 'cpu'\]"),
     ({"store_format": "segments"}, "segmented layout is not ported"),
     ({"launcher": {"kind": "ssh", "hosts": []}}, "launcher kind 'ssh'"),
-    ({"targets": [TargetSpec("step", ("fp_add32",), {"arch": "gemma_2b"})]},
-     "queue 1 item 10"),
-    ({"targets": [TargetSpec("serve", ("fp_add32",), {"arch": "gemma_2b"})]},
-     "queue 1 item 10"),
+    ({"targets": [TargetSpec("serve", ("fp_add32",),
+                             {"arch": "gemma_2b", "slots": 0})]}, "slots"),
+    ({"targets": [TargetSpec("serve", ("fp_add32",), {})]}, "arch"),
     ({"targets": [TargetSpec("calibrate", ("fp_add32",), {})]},
      "calibrate targets sweep the loop modes"),
     ({"targets": [TargetSpec("pallas", ("mxu",),
                              {"kernel": "spmxv", "sizes": [256]})]},
      "supports modes"),
-], ids=["auto", "interpret", "pallas", "ref", "segments", "ssh", "step",
-        "serve", "calibrate", "mode"])
+], ids=["auto", "interpret", "pallas", "ref", "segments", "ssh",
+        "serve-slots", "serve-arch", "calibrate", "mode"])
 def test_plan_refusals(tmp_path, change, match):
     plan, _ = _plan(tmp_path)
     for key, value in change.items():

@@ -48,6 +48,10 @@ def test_scan_sees_the_whole_package():
     assert "src/repro_torch/kernels/spmv_ell/kernel.py" in names
     assert "src/repro_torch/fleet/executor.py" in names
     assert "src/repro_torch/kernels/flash_attention/kernel.py" in names
+    assert "src/repro_torch/core/injector.py" in names
+    assert "src/repro_torch/models/attention.py" in names
+    assert "src/repro_torch/serve/engine.py" in names
+    assert "src/repro_torch/launch/serve.py" in names
     assert len(PORT_FILES) >= 15
 
 
