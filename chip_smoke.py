@@ -125,6 +125,19 @@ JAX or of the reference package. Phases, each of which fails the run:
    and replayed with 0 measured; then ``python -m
    repro_torch.launch.probe --serve --arch gemma-2b`` and ``--arch
    gemma-2b --kind decode`` at the smoke config, each again with
+   ``--expect-no-measure``;
+8. the MoE family, as phase 7 (phase 7's model freed first):
+   qwen3-moe-30b-a3b at full width and all 48 layers in bf16 (~30.5 B
+   parameters, 61 GB, drawn on the card; its bytes and the card's free
+   memory printed) served paged, dense and paged (greedy tokens equal,
+   tok/s, the (token, choice) pairs its dispatch drops a prefill); its
+   prefill and decode tick as CUDA-graph step regions with the same
+   checks, each step's kernels a call and top device operations from a
+   trace of its graph, beside the time to read every weight once; both
+   read once into a store and replayed with 0 measured; then ``python -m
+   repro_torch.launch.probe --arch mixtral-8x22b --kind decode`` (the ring
+   cache), ``--arch llava-next-34b`` (the image embeds) and ``--serve
+   --arch qwen3-moe-30b-a3b`` at the smoke configs, each again with
    ``--expect-no-measure``.
 
 The last lines are the card, one ``{"kernels": [...]}`` JSON object, and
@@ -132,6 +145,7 @@ The last lines are the card, one ``{"kernels": [...]}`` JSON object, and
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -2095,7 +2109,26 @@ SERVE_REPS = 10
 # reading -> its store: two fresh readings, then the second one replayed
 SERVE_READINGS = {"reading 1": "serve_1.jsonl", "reading 2": "serve_2.jsonl",
                   "replay": "serve_2.jsonl"}
+# graph replays in the trace that counts a step's kernels (device_ms)
+STEP_TRACE_REPS = 5
 L2_NOTE = "(k tiles L2-resident below k~380)"
+
+
+# phase 8: qwen3-moe-30b-a3b at full width and depth in bf16 (src/
+# repro_torch/configs/qwen3_moe_30b_a3b.py: 48 layers, d_model 2048, 32 / 4
+# heads of 128, 128 experts top-8 of d_ff 768, vocab 151,936; ~30.5 B
+# parameters, 61 GB), served and probed as phase 7's model is, its regions
+# read once and replayed; then the smoke configs of the other MoE and VLM
+# paths through the probe CLI: mixtral's ring cache (a decode step at
+# position 64 of a 16-slot ring), llava's image embeds (the forward loss
+# with 8 image tokens in front) and qwen3's serving
+MOE_ARCH = "qwen3_moe_30b_a3b"
+MOE_READINGS = {"reading": "moe.jsonl", "replay": "moe.jsonl"}
+MOE_CLI = {
+    "probe_mixtral_decode_smoke": ["--arch", "mixtral-8x22b", "--kind",
+                                   "decode"],
+    "probe_llava_train_smoke": ["--arch", "llava-next-34b"],
+    "probe_qwen3_serve_smoke": ["--serve", "--arch", "qwen3-moe-30b-a3b"]}
 
 
 def _leaves(obj) -> list:
@@ -2166,13 +2199,53 @@ def _noise_overlap(trace_path: str, noise_name: str) -> dict:
     return out
 
 
-def phase_serve(tmp: str, kernels: Kernels) -> dict:
-    """Gemma-2b at full width and depth, served (paged and dense, equal
+@contextlib.contextmanager
+def _count_drops(record: dict):
+    """Count the (token, choice) pairs the MoE dispatch drops (past an
+    expert's capacity) while the block runs, per token count T of the call:
+    ``record[T] = [calls, pairs, dropped (a device tensor), capacity]``. Host
+    reads happen after the block, so the counting adds one reduction a layer
+    and no sync."""
+    from repro_torch.models import moe as moe_mod
+
+    combine = moe_mod._group_combine
+
+    def counting(out_buf, eg, slots, gates, capacity):
+        rec = record.setdefault(slots.shape[0] * slots.shape[1],
+                                [0, 0, 0, capacity])
+        rec[0] += 1
+        rec[1] += slots.numel()
+        rec[2] = rec[2] + (slots >= capacity).sum()
+        return combine(out_buf, eg, slots, gates, capacity)
+
+    moe_mod._group_combine = counting
+    try:
+        yield record
+    finally:
+        moe_mod._group_combine = combine
+
+
+def _drops(record: dict, n_layers: int) -> dict:
+    """``_count_drops``' record per call of the model (its layers summed)."""
+    out = {}
+    for T, (calls, pairs, dropped, cap) in sorted(record.items()):
+        n = calls / n_layers
+        out[f"T={T}"] = {"calls": n, "capacity": cap,
+                         "pairs_per_call": pairs / n,
+                         "dropped_pairs_per_call": int(dropped) / n}
+    return out
+
+
+def _serve_phase(tmp: str, kernels: Kernels, *, title: str, arch: str,
+                 tag: str, readings: dict, cli: dict) -> dict:
+    """A model at full width and depth, served (paged and dense, equal
     greedy tokens), its prefill and decode tick as step regions (noisy =
     clean bitwise, payload = k, the noise overlapping the step in a trace,
-    classified into a store and replayed with 0 measured, t(0) from the
-    graph and eagerly), then the probe CLI's serve and decode-step paths at
-    the smoke config. Returns the graph-noise kernels' launches."""
+    the tick's kernels and top device operations, classified into a store
+    and replayed with 0 measured, t(0) from the graph and eagerly), then
+    the probe CLI's paths ``cli`` at the smoke configs. A MoE also prints
+    the pairs its dispatch drops. Returns the graph-noise kernels'
+    launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2188,24 +2261,33 @@ def phase_serve(tmp: str, kernels: Kernels) -> dict:
     from repro_torch.serve.load import (engine_for_probe, serve_names,
                                          serve_regions)
 
-    banner("7. serving: gemma-2b at full width and depth (bf16) and its "
-           "step regions")
+    banner(title)
     seconds: dict = {}
     counts = {name: [0, 0] for name in kernels.rows}
     graph = tuple(f"graph_{m}" for m in DEFAULT_GRAPH_MODES)
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
+    moe = bool(cfg.n_experts)
     api = build(cfg)
     t0 = time.perf_counter()
     params = api.init(0, "cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    print(f"{cfg.name}: {n_params} parameters in bf16 drawn on the card in "
-          f"{time.perf_counter() - t0:.1f} s; {card_line()}", flush=True)
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    free, total = torch.cuda.mem_get_info()
+    weights_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"{cfg.name}: {n_params} parameters ({n_bytes} bytes) drawn on "
+          f"the card from seed 0 in {time.perf_counter() - t0:.1f} s, "
+          f"{cfg.n_layers} layers; free memory after the draw {free} of "
+          f"{total} bytes; reading every weight once takes {weights_ms!r} "
+          f"ms at {HBM_BYTES_PER_S:.3g} B/s; {card_line()}", flush=True)
 
     def serve_both():
         out = {}
-        for dense in (False, True, False):
-            eng, reqs, dt = serve(api, params, dense=dense, **SERVE_ARGS)
+        drops: dict = {}
+        for i, dense in enumerate((False, True, False)):
+            with (_count_drops(drops) if moe and i == 0
+                  else contextlib.nullcontext()):
+                eng, reqs, dt = serve(api, params, dense=dense, **SERVE_ARGS)
             print(report(eng, reqs, dt), flush=True)
             out.setdefault(dense, []).append(([r.out for r in reqs], eng,
                                               dt))
@@ -2218,13 +2300,15 @@ def phase_serve(tmp: str, kernels: Kernels) -> dict:
         n_tok = sum(len(t) for t in toks)
         res = {"tok_s": n_tok / dt, "decode_tok_s": rep["decode_tok_s"],
                "total_tok_s": rep["total_tok_s"], "ticks": rep["ticks"],
-               "wall_s": dt, "dense_wall_s": out[True][0][2]}
-        print(f"gemma-2b serve (paged, warm): {json.dumps(res)}; paged and "
-              f"dense greedy tokens equal; {card_line()}", flush=True)
+               "prefill_calls": rep["prefill_calls"], "wall_s": dt,
+               "dense_wall_s": out[True][0][2]}
+        if moe:
+            res["dropped"] = _drops(drops, cfg.n_layers)
+        print(f"{cfg.name} serve (paged, warm): {json.dumps(res)}; paged "
+              f"and dense greedy tokens equal; {card_line()}", flush=True)
         return res
 
-    served = drive(kernels, counts, seconds, "serve_gemma2b", (),
-                   serve_both)
+    served = drive(kernels, counts, seconds, f"serve_{tag}", (), serve_both)
 
     def regions_path():
         registry = step_modes("cuda")
@@ -2235,6 +2319,12 @@ def phase_serve(tmp: str, kernels: Kernels) -> dict:
         pf_fn, pf_args, tk_fn, tk_args = eng.probe_cells()
         eager = {names[0]: (pf_fn, pf_args), names[1]: (tk_fn, tk_args)}
         res = {}
+        if moe:
+            with _count_drops({}) as drops:
+                pf_fn(*pf_args)
+            res["prefill_dropped"] = _drops(drops, cfg.n_layers)
+            print(f"{names[0]}: dispatch drops "
+                  f"{json.dumps(res['prefill_dropped'])}", flush=True)
         for region in regions:
             clean = region.build("", 0)
             if not isinstance(clean, GraphStep):
@@ -2268,15 +2358,27 @@ def phase_serve(tmp: str, kernels: Kernels) -> dict:
             t_eager = measure(fn, args, reps=10)
             ev_graph = time_ms(partial(clean, *region.args_for("", 0)))
             ev_eager = time_ms(partial(fn, *args))
+            dev_ms, per_kernel, n_kernels, whole = device_ms(
+                partial(clean, *region.args_for("", 0)), reps=STEP_TRACE_REPS)
+            top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
             res[region.name] = {"t0_graph_ms": t_graph * 1e3,
                                 "t0_eager_ms": t_eager * 1e3,
                                 "event_graph_ms": ev_graph,
-                                "event_eager_ms": ev_eager}
+                                "event_eager_ms": ev_eager,
+                                "device_ms": dev_ms,
+                                "kernels_a_call": n_kernels,
+                                "device_records_whole": whole,
+                                "weights_read_ms": weights_ms}
             print(f"{region.name}: t(0) host clock with synchronize, min of "
                   f"10: graph {t_graph * 1e3!r} ms, eager {t_eager * 1e3!r} "
                   f"ms; CUDA events, median of {TIMING_REPS}: graph "
-                  f"{ev_graph!r} ms, eager {ev_eager!r} ms; {card_line()}",
+                  f"{ev_graph!r} ms, eager {ev_eager!r} ms; device "
+                  f"{dev_ms!r} ms in {n_kernels} kernels a call (trace of "
+                  f"{STEP_TRACE_REPS} graph replays, whole: {whole}); every "
+                  f"weight read once: {weights_ms!r} ms; {card_line()}",
                   flush=True)
+            print(f"  top device operations (ms a call): "
+                  f"{json.dumps(dict(top))}", flush=True)
         tick = regions[1]
         fn, args = tick.build_rt(TRACE_MODE), tick.args_for_rt(TRACE_MODE)
         fn(TRACE_K, *args)
@@ -2287,16 +2389,16 @@ def phase_serve(tmp: str, kernels: Kernels) -> dict:
             for _ in range(3):
                 fn(TRACE_K, *args)
             torch.cuda.synchronize()
-        path = os.path.join(tmp, "noisy_tick_trace.json")
+        path = os.path.join(tmp, f"noisy_tick_trace_{tag}.json")
         prof.export_chrome_trace(path)
         res["trace"] = _noise_overlap(path, "gmxu")
 
-        # two fresh readings, each into a store of its own, then the second
-        # store replayed; beside the fit's Abs^raw (the hinge's knee, k1)
-        # each mode prints the threshold reading (the last k within 5% of
-        # t(0)) and the largest t(k)/t(0) of its sweep
+        # fresh readings, each into its store, then a store replayed;
+        # beside the fit's Abs^raw (the hinge's knee, k1) each mode prints
+        # the threshold reading (the last k within 5% of t(0)) and the
+        # largest t(k)/t(0) of its sweep
         verdicts = {}
-        for reading, store in SERVE_READINGS.items():
+        for reading, store in readings.items():
             camp = Campaign(CampaignStore(os.path.join(tmp, store)),
                             Controller(reps=SERVE_REPS))
             t_read = time.perf_counter()
@@ -2333,11 +2435,9 @@ def phase_serve(tmp: str, kernels: Kernels) -> dict:
         res["verdicts"] = verdicts
         return res
 
-    regions_res = drive(kernels, counts, seconds, "serve_regions_gemma2b",
+    regions_res = drive(kernels, counts, seconds, f"serve_regions_{tag}",
                         graph, regions_path)
 
-    cli = {"probe_serve_smoke": ["--serve", "--arch", "gemma-2b"],
-           "probe_decode_smoke": ["--arch", "gemma-2b", "--kind", "decode"]}
     for name, argv in cli.items():
         store = os.path.join(tmp, f"{name}.jsonl")
         print(f"== python -m repro_torch.launch.probe {' '.join(argv)}",
@@ -2348,15 +2448,47 @@ def phase_serve(tmp: str, kernels: Kernels) -> dict:
                                       "--expect-no-measure"])
         if stats.measured:
             raise RuntimeError(f"{name}: replay measured {stats.measured}")
-    print("phase 7 wall time per path (s): "
+    print(f"phase {title.split('.')[0]} wall time per path (s): "
           + json.dumps({k: round(v, 1) for k, v in seconds.items()}))
-    print("serve results: " + json.dumps({"served": served,
-                                          **regions_res}), flush=True)
+    print(f"serve results ({cfg.name}): " + json.dumps(
+        {"served": served, **regions_res}), flush=True)
     for name, (n_cuda, n_plain) in counts.items():
         if n_cuda or n_plain:
             print(f"{name}: kernel {n_cuda} launches on the serving paths, "
                   f"plain version {n_plain} (the payload checks' oracle)")
     return {name: n_cuda for name, (n_cuda, _) in counts.items()}
+
+
+def phase_serve(tmp: str, kernels: Kernels) -> dict:
+    """Phase 7: gemma-2b (the dense family)."""
+    return _serve_phase(
+        tmp, kernels, arch=SERVE_ARCH, tag="gemma2b",
+        title="7. serving: gemma-2b at full width and depth (bf16) and its "
+              "step regions",
+        readings=SERVE_READINGS,
+        cli={"probe_serve_smoke": ["--serve", "--arch", "gemma-2b"],
+             "probe_decode_smoke": ["--arch", "gemma-2b", "--kind",
+                                    "decode"]})
+
+
+def phase_moe(tmp: str, kernels: Kernels) -> dict:
+    """Phase 8: qwen3-moe-30b-a3b (the MoE family), then the smoke probes of
+    mixtral's ring cache, llava's image embeds and qwen3's serving. Phase
+    7's model is freed before the draw."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"\nfree memory before phase 8: {free} of {total} bytes",
+          flush=True)
+    return _serve_phase(
+        tmp, kernels, arch=MOE_ARCH, tag="qwen3moe",
+        title="8. the MoE family: qwen3-moe-30b-a3b at full width and depth "
+              "(bf16) and its step regions",
+        readings=MOE_READINGS, cli=MOE_CLI)
 
 
 def main() -> int:
@@ -2384,9 +2516,11 @@ def main() -> int:
         launches = phase_main(tmp, kernels)
     rows = phase_timing(main_args, max_err, launches)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
-        serve_launches = phase_serve(tmp, kernels)
+        serve_launches = [phase_serve(tmp, kernels)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp:
+        serve_launches.append(phase_moe(tmp, kernels))
     for row in rows:        # the serving paths are main paths too
-        row["launches"] += serve_launches[row["name"]]
+        row["launches"] += sum(n[row["name"]] for n in serve_launches)
     print(f"\nchip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(card)

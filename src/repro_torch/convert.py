@@ -69,12 +69,14 @@ def noise_state_to_torch(name: str, state: dict, device="cpu") -> dict:
 
 
 def lm_params_to_torch(cfg, params, device="cpu"):
-    """The reference's dense LM param tree (numpy arrays as ``np.asarray``
-    gives them, bf16 carried bit for bit) -> the port's ``transformer.LM``
-    on ``device``. The reference stacks layer params on a leading (L, ...)
-    axis; each slice becomes one layer module."""
+    """The reference's LM param tree (dense, moe or vlm; numpy arrays as
+    ``np.asarray`` gives them, bf16 carried bit for bit) -> the port's
+    ``transformer.LM`` on ``device``. The reference stacks layer params on a
+    leading (L, ...) axis — the experts as (L, E, d, f) — and each slice
+    becomes one layer module, taken layer by layer."""
     from repro_torch.models import attention as attn
     from repro_torch.models import layers as L
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as tf
 
     def t(a):
@@ -86,12 +88,17 @@ def lm_params_to_torch(cfg, params, device="cpu"):
     lay = params["layers"]
     layers = []
     for i in range(cfg.n_layers):
-        a, m = lay["attn"], lay["mlp"]
+        a = lay["attn"]
+        if "moe" in lay:
+            ffn = moe_mod.MoE(*(t(np.asarray(lay["moe"][w])[i])
+                                for w in ("router", "w_gate", "w_up",
+                                          "w_down")))
+        else:
+            ffn = L.MLP(*(t(np.asarray(lay["mlp"][w])[i])
+                          for w in ("w_gate", "w_up", "w_down")))
         layers.append(tf.Layer(
             L.RMSNorm(t(np.asarray(lay["ln1"]["scale"])[i])),
             attn.Attention(*(t(np.asarray(a[w])[i])
                              for w in ("wq", "wk", "wv", "wo"))),
-            L.RMSNorm(t(np.asarray(lay["ln2"]["scale"])[i])),
-            L.MLP(*(t(np.asarray(m[w])[i])
-                    for w in ("w_gate", "w_up", "w_down")))))
+            L.RMSNorm(t(np.asarray(lay["ln2"]["scale"])[i])), ffn))
     return tf.LM(embed, layers, L.RMSNorm(t(params["final_norm"]["scale"])))

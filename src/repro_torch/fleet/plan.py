@@ -21,8 +21,8 @@ so every participant (the launcher, each worker subprocess, a human at the
 The JSON schema, digest and grid order are the reference's (``repro.fleet.
 plan``), so a plan file names the same regions in both packages. What the
 port accepts is narrower: ``backend`` "cuda" (the default) or "cpu", the
-single-file store layout, and "step" / "serve" targets of the dense family
-only.
+single-file store layout, and "step" / "serve" targets of the dense, moe
+and vlm families (no sliding window on a serve target).
 
 Plan JSON (one object, schema-versioned):
 
@@ -104,22 +104,31 @@ class TargetSpec:
                             f"{KERNEL_MODES[kernel]}, not {bad}")
 
     def _validate_model(self) -> None:
-        """A "step" or "serve" target: a known dense architecture, the
+        """A "step" or "serve" target: a known architecture of the dense,
+        moe or vlm family (a serve target without a sliding window), the
         graph-level modes, and positive serve parameters."""
         from repro_torch.configs import canonical, get_config
         from repro_torch.core.noise import make_modes
+        from repro_torch.models.model import LM_FAMILIES
 
         arch = self.params.get("arch")
         if not arch:
             raise PlanError(f"{self.kind} target needs an 'arch'")
         try:
-            family = get_config(canonical(arch)).family
+            cfg = get_config(canonical(arch))
         except KeyError as e:
             raise PlanError(str(e)) from None
-        if family != "dense":
-            raise PlanError(f"{self.kind} target {arch!r}: the {family} "
+        if cfg.family not in LM_FAMILIES:
+            raise PlanError(f"{self.kind} target {arch!r}: the {cfg.family} "
                             "family is not ported (ROADMAP queue 1, the "
-                            "rest of item 10); the dense family is")
+                            "rest of item 10: ssm.py, hybrid.py, encdec.py); "
+                            f"the families {list(LM_FAMILIES)} are")
+        if self.kind == "serve" and cfg.window:
+            raise PlanError(f"serve target {arch!r}: a sliding-window "
+                            f"config (window={cfg.window}) is not served; "
+                            "the reference's dense layout cannot serve it "
+                            "and the paged layout has no ring (ROADMAP "
+                            "queue 3)")
         known = make_modes(device="cpu")
         bad = [m for m in self.modes if m not in known]
         if bad:

@@ -1,1 +1,2 @@
-"""Models of the port (the dense family): layers, attention, transformer, API."""
+"""Models of the port (the dense, MoE and VLM families): layers, attention,
+MoE, transformer, API."""

@@ -1,5 +1,5 @@
-"""Attention: MHA/GQA/MQA with RoPE, full-attention KV caches (dense and
-paged), and q-block-chunked scores.
+"""Attention: MHA/GQA/MQA with RoPE, sliding windows, KV caches (full,
+ring and paged), and q-block-chunked scores.
 
 PyTorch port of the dense paths of the reference's
 ``repro.models.attention``. Scores and softmax stay in f32 with
@@ -7,7 +7,9 @@ PyTorch port of the dense paths of the reference's
 ``torch.matmul``, as the reference leaves them to XLA outside any Pallas
 kernel.
 
-Cache layout: k, v are (B, Kh, S, hd). Paged layout (serving): one pool of
+Cache layout: k, v are (B, Kh, S, hd). Ring caches (sliding window) add
+``kpos`` (S,) holding the absolute position stored in each slot (-1 =
+empty). Paged layout (serving): one pool of
 fixed-size KV pages shared by every slot — ``kp``/``vp`` are (P, Kh, page,
 hd) — plus a per-slot int32 page table (B, max_pages) mapping logical page
 j of slot b to a pool page id. Logical position t of slot b lives at
@@ -23,9 +25,8 @@ of each slot and reads positions <= ``pos``, a prefill writes its pages and
 reads none, so calling either twice on the same arguments gives the same
 outputs and leaves the cache as after the first call.
 
-Not ported (ROADMAP queue 1): the ring cache of sliding-window configs
-(``kpos``) and the flash score path (``attn_impl="flash"``), which raise,
-and whisper's cross-attention.
+Not ported (ROADMAP queue 1): the flash score path (``attn_impl="flash"``),
+which raises, and whisper's cross-attention.
 """
 from __future__ import annotations
 
@@ -39,8 +40,6 @@ from repro_torch.models.layers import (_normal, apply_rope, cdtype_of,
 
 NEG_INF = -1e30
 
-_RING = ("sliding-window ring caches (kpos) are not ported; they wait for "
-         "mixtral (ROADMAP queue 1, the rest of item 10)")
 _FLASH = ("attn_impl='flash' is not ported; it waits for training (ROADMAP "
           "queue 1, the rest of item 10)")
 
@@ -164,12 +163,17 @@ def attn_train(p: Attention, cfg, x, positions, *, causal=True, window=0,
 
 
 def init_cache(cfg, batch: int, max_seq: int, device) -> dict:
-    """Allocate a full-attention decode cache {"k","v"} (B, Kh, S, hd)."""
+    """Allocate a decode cache {"k","v"} (B, Kh, S, hd). For a sliding
+    window the cache is a ring of S = min(max_seq, window) slots, with
+    ``kpos`` (S,) of -1."""
+    S = min(max_seq, cfg.window) if cfg.window else max_seq
+    shape = (batch, cfg.n_kv_heads, S, cfg.head_dim)
+    cache = {"k": torch.zeros(shape, dtype=cdtype_of(cfg), device=device),
+             "v": torch.zeros(shape, dtype=cdtype_of(cfg), device=device)}
     if cfg.window:
-        raise NotImplementedError(_RING)
-    shape = (batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cdtype_of(cfg), device=device),
-            "v": torch.zeros(shape, dtype=cdtype_of(cfg), device=device)}
+        cache["kpos"] = torch.full((S,), -1, dtype=torch.int32,
+                                   device=device)
+    return cache
 
 
 def init_paged_cache(cfg, n_pages: int, page_size: int, device) -> dict:
@@ -210,24 +214,38 @@ def paged_prefill_scatter(cache: dict, kv: dict, page_rows) -> dict:
 def attn_decode(p: Attention, cfg, x, cache: dict, pos, *, page_table=None):
     """One-token decode. x (B,1,D).
 
-    pos: scalar int tensor (all slots aligned) or (B,) per-slot positions.
-    Writes the token's k/v at ``pos`` (in place) and attends over positions
-    <= pos. Paged cache (has "kp"): per-slot positions plus a (B,
-    max_pages) ``page_table`` are required.
+    pos: scalar int tensor (all slots aligned) or (B,) per-slot positions
+    (full cache only). Full cache: writes the token's k/v at ``pos`` (in
+    place) and attends over positions <= pos (and inside the window). Ring
+    cache (has "kpos"): writes at ``pos % S``, records ``pos`` in ``kpos``
+    and masks by the stored positions. Paged cache (has "kp"): per-slot
+    positions plus a (B, max_pages) ``page_table`` are required.
     """
     if "kp" in cache:
         if pos.ndim != 1 or page_table is None:
             raise ValueError("paged decode needs pos (B,) and a page_table")
         return _attn_decode_paged(p, cfg, x, cache, pos, page_table)
+    is_ring = "kpos" in cache
     if pos.ndim == 1:
+        if is_ring:
+            raise NotImplementedError("per-slot positions need a full cache")
         return _attn_decode_vec(p, cfg, x, cache, pos)
     S = cache["k"].shape[2]
     positions = pos.reshape(1).to(torch.int32)
     q, k, v = _project_qkv(p, cfg, x, positions)
-    cache["k"].index_copy_(2, positions.long(), k.to(cache["k"].dtype))
-    cache["v"].index_copy_(2, positions.long(), v.to(cache["v"].dtype))
-    kidx = torch.arange(S, dtype=torch.int32, device=x.device)
-    keep = kidx <= pos
+    slot = positions.long() % S if is_ring else positions.long()
+    cache["k"].index_copy_(2, slot, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(2, slot, v.to(cache["v"].dtype))
+    if is_ring:
+        kpos = cache["kpos"]
+        kpos.index_copy_(0, slot, positions)
+        keep = ((kpos >= 0) & (pos - kpos < (cfg.window or S))
+                & (kpos <= pos))
+    else:
+        kidx = torch.arange(S, dtype=torch.int32, device=x.device)
+        keep = kidx <= pos
+        if cfg.window:
+            keep &= pos - kidx < cfg.window
     kf, vf = _repeat_kv(cfg, cache["k"]), _repeat_kv(cfg, cache["v"])
     out = _softmax_attend(q, kf, vf, keep[None, None, None, :], x.dtype)
     return _out_proj(p, cfg, out), cache
@@ -246,6 +264,8 @@ def _attn_decode_vec(p: Attention, cfg, x, cache: dict, pos):
 
     kidx = torch.arange(S, dtype=torch.int32, device=x.device)
     keep = kidx[None, :] <= pos[:, None]                       # (B,S)
+    if cfg.window:
+        keep &= pos[:, None] - kidx[None, :] < cfg.window
     kf, vf = _repeat_kv(cfg, ck), _repeat_kv(cfg, cv)
     out = _softmax_attend(q, kf, vf, keep[:, None, None, :], x.dtype)
     return _out_proj(p, cfg, out), cache

@@ -12,10 +12,11 @@ returns a :class:`ModelApi` with
   input_specs(shape)             -> {name: TensorSpec} (no allocation)
   dummy_batch(shape, generator)  -> {name: tensor}
 
-``build`` serves the dense family. The others (moe, vlm, ssm, hybrid,
-encdec) raise ``NotImplementedError`` naming their ROADMAP item; the
-sharding specs (``param_spec``, ``cache_spec``) wait for the parallel
-layer (ROADMAP queue 1, item 11).
+``build`` serves the decoder-only LM families: dense, moe and vlm (whose
+precomputed patch embeddings ``img_embeds`` go in front of the tokens). The
+others (ssm, hybrid, encdec) raise ``NotImplementedError`` naming their
+ROADMAP item; the sharding specs (``param_spec``, ``cache_spec``) wait for
+the parallel layer (ROADMAP queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -49,26 +50,37 @@ class ModelApi:
 
     # ------------------------------------------------------------------
     def loss(self, params, batch, **kw):
-        """Mean next-token NLL. Labels = batch['labels']."""
+        """Mean next-token NLL (+ the MoE aux losses). Labels =
+        batch['labels']."""
         logits, aux = self.forward(params, batch, **kw)
+        # for a VLM the image tokens are in front: score the text tail only
         labels = batch["labels"]
         if logits.shape[1] != labels.shape[1]:
             logits = logits[:, -labels.shape[1]:]
         nll = L.softmax_xent(logits, labels, batch.get("mask"))
-        return nll, dict(aux, nll=nll)
+        total = nll
+        if aux:
+            total = total + self.cfg.router_aux_coef * aux.get(
+                "moe_lb_loss", 0.0) + 1e-3 * aux.get("moe_z_loss", 0.0)
+        return total, dict(aux, nll=nll)
 
     # ------------------------------------------------------------------
     def input_specs(self, shape: ShapeConfig, *,
                     for_decode: Optional[bool] = None,
                     batch_override: Optional[int] = None) -> dict[str, Any]:
         """TensorSpec stand-ins for a (shape) cell — no allocation."""
+        cfg = self.cfg
         B = batch_override or shape.global_batch
         S = shape.seq_len
         decode = shape.is_decode if for_decode is None else for_decode
         if decode:
             return {"tokens": TensorSpec((B, 1), torch.int32)}
-        return {"tokens": TensorSpec((B, S), torch.int32),
-                "labels": TensorSpec((B, S), torch.int32)}
+        specs = {"tokens": TensorSpec((B, S), torch.int32),
+                 "labels": TensorSpec((B, S), torch.int32)}
+        if cfg.family == "vlm":
+            specs["img_embeds"] = TensorSpec(
+                (B, cfg.n_img_tokens, cfg.d_model), L.cdtype_of(cfg))
+        return specs
 
     def dummy_batch(self, shape: ShapeConfig,
                     generator: Optional[torch.Generator] = None, *,
@@ -92,7 +104,7 @@ class ModelApi:
 # Family adapters
 # ---------------------------------------------------------------------------
 
-def _build_lm(cfg: ModelConfig) -> ModelApi:       # dense
+def _build_lm(cfg: ModelConfig) -> ModelApi:       # dense / moe / vlm
     def init(seed: int = 0, device="cuda"):
         gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
         return tf.init_lm(gen, cfg)
@@ -112,9 +124,9 @@ def _build_lm(cfg: ModelConfig) -> ModelApi:       # dense
     )
 
 
+LM_FAMILIES = ("dense", "moe", "vlm")
+
 _WAITING = {
-    "moe": "the MoE family (moe.py: qwen3, mixtral)",
-    "vlm": "the VLM family (its image embeds)",
     "ssm": "the SSM family (ssm.py)",
     "hybrid": "the hybrid family (hybrid.py)",
     "encdec": "the encoder-decoder family (encdec.py)",
@@ -122,10 +134,11 @@ _WAITING = {
 
 
 def build(cfg: ModelConfig) -> ModelApi:
-    if cfg.family == "dense":
+    if cfg.family in LM_FAMILIES:
         return _build_lm(cfg)
     if cfg.family in _WAITING:
         raise NotImplementedError(
-            f"{_WAITING[cfg.family]} is not ported; it waits for ROADMAP "
-            "queue 1, the rest of item 10 (only the dense family is served)")
+            f"{_WAITING[cfg.family]} is not ported; it waits for the next "
+            "port slice (ROADMAP queue 1, the rest of item 10: ssm.py, "
+            "hybrid.py, encdec.py); the dense, moe and vlm families are")
     raise ValueError(f"unknown model family {cfg.family!r}")

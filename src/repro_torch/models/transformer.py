@@ -1,12 +1,14 @@
-"""Decoder-only LM assembly, dense family.
+"""Decoder-only LM assembly (dense / MoE / VLM).
 
-PyTorch port of the dense branch of the reference's
-``repro.models.transformer``: a loop over an ``nn.ModuleList`` of layers in
-place of ``lax.scan`` over stacked layer params. Caches keep the
-reference's stacked layout — {"kv": {"k","v"}} (L, B, Kh, S, hd), or the
+PyTorch port of the reference's ``repro.models.transformer``: a loop over
+an ``nn.ModuleList`` of layers in place of ``lax.scan`` over stacked layer
+params. Caches keep the reference's stacked layout — {"kv": {"k","v"}}
+(L, B, Kh, S, hd), with ``kpos`` (L, S) for a sliding window's ring, or the
 paged {"kv": {"kp","vp"}} (L, P, Kh, page, hd) — and layer i works on the
 i-th slice in place (``models/attention.py``), so the same cache object
-comes back. The MoE branch raises (ROADMAP queue 1, the rest of item 10).
+comes back. A MoE layer holds ``moe`` (``models/moe.py``) in place of
+``mlp``; its aux losses are averaged over the layers, as the reference's
+``jnp.mean`` over the scan.
 """
 from __future__ import annotations
 
@@ -15,18 +17,31 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 
-_MOE = ("the MoE layers (moe.py) are not ported; they wait for qwen3 / "
-        "mixtral (ROADMAP queue 1, the rest of item 10)")
+
+def _is_moe(cfg) -> bool:
+    return cfg.n_experts > 0
 
 
 class Layer(nn.Module):
-    def __init__(self, ln1, attn_p, ln2, mlp):
+    """ln1, attn, ln2, and ``mlp`` (dense) or ``moe`` (MoE)."""
+
+    def __init__(self, ln1, attn_p, ln2, ffn):
         super().__init__()
         self.ln1 = ln1
         self.attn = attn_p
         self.ln2 = ln2
-        self.mlp = mlp
+        if isinstance(ffn, moe_mod.MoE):
+            self.moe = ffn
+        else:
+            self.mlp = ffn
+
+    def ffn(self, cfg, x, n_groups: int = 1):
+        """The MLP or the MoE block on x -> (y, aux)."""
+        if hasattr(self, "moe"):
+            return moe_mod.moe_block(self.moe, cfg, x, n_groups=n_groups)
+        return L.mlp(self.mlp, x, cfg), {}
 
 
 class LM(nn.Module):
@@ -42,23 +57,23 @@ class LM(nn.Module):
 
 def init_layer(gen: torch.Generator, cfg) -> Layer:
     dev = gen.device
-    return Layer(L.init_rmsnorm(cfg.d_model, cfg, dev),
-                 attn.init_attention(gen, cfg),
-                 L.init_rmsnorm(cfg.d_model, cfg, dev),
-                 L.init_mlp(gen, cfg))
+    ln1 = L.init_rmsnorm(cfg.d_model, cfg, dev)
+    a = attn.init_attention(gen, cfg)
+    ffn = moe_mod.init_moe(gen, cfg) if _is_moe(cfg) else L.init_mlp(gen, cfg)
+    return Layer(ln1, a, L.init_rmsnorm(cfg.d_model, cfg, dev), ffn)
 
 
 def init_lm(gen: torch.Generator, cfg) -> LM:
     """Every parameter drawn from ``gen`` on its device (embedding first,
-    then each layer's attention and MLP in order)."""
-    if cfg.n_experts:
-        raise NotImplementedError(_MOE)
+    then each layer's attention and MLP or MoE in order), one layer at a
+    time."""
     emb = L.init_embedding(gen, cfg)
     layers = [init_layer(gen, cfg) for _ in range(cfg.n_layers)]
     return LM(emb, layers, L.init_rmsnorm(cfg.d_model, cfg, gen.device))
 
 
-def layer_fwd(p: Layer, cfg, h, positions, *, return_cache=False):
+def layer_fwd(p: Layer, cfg, h, positions, *, n_groups=1,
+              return_cache=False):
     """One transformer block (train/prefill). Returns (h, aux), with
     ``return_cache`` (h, aux, {"k","v"})."""
     a = attn.attn_train(p.attn, cfg, L.rmsnorm(p.ln1, h, cfg.norm_eps),
@@ -67,9 +82,8 @@ def layer_fwd(p: Layer, cfg, h, positions, *, return_cache=False):
     if return_cache:
         a, kv = a
     h = h + a
-    x = L.rmsnorm(p.ln2, h, cfg.norm_eps)
-    h = h + L.mlp(p.mlp, x, cfg)
-    return (h, {}, kv) if return_cache else (h, {})
+    y, aux = p.ffn(cfg, L.rmsnorm(p.ln2, h, cfg.norm_eps), n_groups)
+    return (h + y, aux, kv) if return_cache else (h + y, aux)
 
 
 def layer_decode(p: Layer, cfg, h, cache, pos, *, page_table=None):
@@ -77,42 +91,54 @@ def layer_decode(p: Layer, cfg, h, cache, pos, *, page_table=None):
                                 L.rmsnorm(p.ln1, h, cfg.norm_eps), cache,
                                 pos, page_table=page_table)
     h = h + a
-    x = L.rmsnorm(p.ln2, h, cfg.norm_eps)
-    return h + L.mlp(p.mlp, x, cfg), cache
+    y, _ = p.ffn(cfg, L.rmsnorm(p.ln2, h, cfg.norm_eps))
+    return h + y, cache
 
 
 def _embed_inputs(params: LM, cfg, batch):
-    """tokens -> h (B,S,D), positions (S,)."""
-    if "img_embeds" in batch:
-        raise NotImplementedError("the VLM image embeds are not ported "
-                                  "(ROADMAP queue 1, the rest of item 10)")
+    """tokens (+ img_embeds for a VLM, put in front) -> h (B,S,D),
+    positions (S,)."""
     h = L.embed(params.embed, batch["tokens"], cfg)
+    if cfg.family == "vlm" and "img_embeds" in batch:
+        h = torch.cat([batch["img_embeds"].to(h.dtype), h], dim=1)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
     return h, positions
 
 
-def lm_forward(params: LM, cfg, batch, *, return_cache=False):
-    """-> (logits (B,S,V), aux); with ``return_cache`` also the per-layer
-    KV {"k","v"} stacked (L, B, Kh, S, hd) (the prefill path)."""
+def _mean_aux(auxs: list) -> dict:
+    """Each aux loss averaged over the layers."""
+    if not auxs or not auxs[0]:
+        return {}
+    return {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+
+
+def lm_forward(params: LM, cfg, batch, *, n_groups=1, return_cache=False):
+    """-> (logits (B,S,V), aux); aux holds the MoE losses (mean over the
+    layers). With ``return_cache`` also the per-layer KV {"k","v"} stacked
+    (L, B, Kh, S, hd) (the prefill path)."""
     h, positions = _embed_inputs(params, cfg, batch)
-    ks, vs = [], []
+    ks, vs, auxs = [], [], []
     for lp in params.layers:
         if return_cache:
-            h, _, kv = layer_fwd(lp, cfg, h, positions, return_cache=True)
+            h, aux, kv = layer_fwd(lp, cfg, h, positions, n_groups=n_groups,
+                                   return_cache=True)
             ks.append(kv["k"])
             vs.append(kv["v"])
         else:
-            h, _ = layer_fwd(lp, cfg, h, positions)
+            h, aux = layer_fwd(lp, cfg, h, positions, n_groups=n_groups)
+        auxs.append(aux)
     h = L.rmsnorm(params.final_norm, h, cfg.norm_eps)
     logits = L.unembed(params.embed, h, cfg)
     if return_cache:
-        return logits, {}, {"k": torch.stack(ks), "v": torch.stack(vs)}
-    return logits, {}
+        return (logits, _mean_aux(auxs),
+                {"k": torch.stack(ks), "v": torch.stack(vs)})
+    return logits, _mean_aux(auxs)
 
 
 def _stacked(cfg, one: dict) -> dict:
-    return {name: torch.zeros((cfg.n_layers,) + tuple(t.shape),
-                              dtype=t.dtype, device=t.device)
+    """One layer's cache tensors repeated on a leading (L, ...) axis (a
+    ring's ``kpos`` keeps its -1s)."""
+    return {name: t.expand((cfg.n_layers,) + tuple(t.shape)).clone()
             for name, t in one.items()}
 
 

@@ -1,7 +1,8 @@
 """Batched serving engine: continuous batching over a paged KV-cache pool.
 
-PyTorch port of the reference's ``repro.serve.engine`` for the dense
-family. Slots: a fixed decode batch of ``n_slots`` sequences with per-slot
+PyTorch port of the reference's ``repro.serve.engine`` for the families
+with an attention KV cache (dense, moe, vlm) without a sliding window.
+Slots: a fixed decode batch of ``n_slots`` sequences with per-slot
 positions. Requests queue up; a finished slot is immediately refilled from
 the queue — decode never stalls on stragglers of the batch.
 
@@ -18,7 +19,11 @@ Two cache layouts:
   admission wave prefills in the same batched, bucketed forward as the
   paged one's (the reference prefills one request at a time at its own
   length): the card's product kernels depend on the shapes, and the same
-  batch keeps the two layouts' greedy tokens equal in bf16.
+  batch keeps the two layouts' greedy tokens equal in bf16. For a MoE the
+  same batch is also the same routing: an expert's capacity depends on
+  the tokens of the call, padding rows included, so both layouts route the
+  same rows at the same shapes (the decode tick routes every slot, inactive
+  ones too, as the reference's does).
 
 Dense and paged layouts are numerically identical; tests pin it. The
 programs run eagerly: PyTorch has no ``jit`` to call, and the probe's serve
@@ -31,8 +36,12 @@ Sampling: greedy, or temperature with Gumbel noise from a
 ``torch.Generator`` seeded per call from the engine's host generator (the
 reference splits a ``PRNGKey``; the draws differ, greedy decoding is what
 the tests compare). The families without an attention KV cache (ssm,
-hybrid, encdec) and sliding-window configs wait for their models (ROADMAP
-queue 1, the rest of item 10).
+hybrid, encdec) wait for their models and the dense layout's sequential
+prefill (ROADMAP queue 1, the rest of item 10). A sliding-window config is
+refused in both layouts: the paged layout has no ring, as the reference's,
+and the reference's dense layout cannot serve one (its prefill pads the KV
+to ``max_seq`` where the batched cache is a ring of ``window`` slots, and
+the first admission fails; ROADMAP queue 3).
 """
 from __future__ import annotations
 
@@ -45,7 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import transformer as tf
-from repro_torch.models.model import ModelApi
+from repro_torch.models.model import LM_FAMILIES, ModelApi
 
 
 @dataclasses.dataclass
@@ -91,11 +100,23 @@ class ServeEngine:
             "ticks": 0, "wall_s": 0.0, "occupancy_sum": 0.0,
             "occupancy_n": 0}
 
-        if self.cfg.family != "dense" or self.cfg.window:
+        if self.cfg.family not in LM_FAMILIES:
             raise NotImplementedError(
-                f"serving family={self.cfg.family!r} window="
-                f"{self.cfg.window} is not ported (ROADMAP queue 1, the rest "
-                "of item 10); the dense family without a window is")
+                f"serving family={self.cfg.family!r} is not ported (ROADMAP "
+                "queue 1, the rest of item 10: the dense layout's sequential "
+                f"prefill); the families {list(LM_FAMILIES)} are")
+        if self.cfg.window:
+            if paged:
+                raise ValueError(
+                    f"paged serving needs an attention KV cache without a "
+                    f"sliding window (family={self.cfg.family!r}, "
+                    f"window={self.cfg.window})")
+            raise NotImplementedError(
+                f"serving a sliding-window config (window={self.cfg.window}) "
+                "is refused: the reference's dense layout cannot serve it "
+                "(its lm_prefill pads the KV to max_seq while init_cache "
+                "makes a ring of window slots, and the first admission "
+                "fails on the shapes; ROADMAP queue 3)")
         self.paged = True if paged is None else paged
 
         dev = self.device

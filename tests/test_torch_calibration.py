@@ -271,7 +271,7 @@ def test_calibrate_target_kind_plans_and_resolves(tmp_path):
             spec.validate()
     with pytest.raises(PlanError, match="not ported"):
         TargetSpec("serve", ("fp_add32",),
-                   {"arch": "qwen3_moe_30b_a3b"}).validate()
+                   {"arch": "mamba2_780m"}).validate()
 
 
 def test_calibrate_cli_runs_replays_inspects_and_applies(tmp_path, capsys,

@@ -195,8 +195,8 @@ def test_step_and_serve_plan_round_trip_with_the_reference_names(tmp_path):
     (TargetSpec("serve", ("fp_add32",), {"arch": "gemma_2b", "slots": 0}),
      "slots"),
     (TargetSpec("serve", ("fp_add32",), {}), "arch"),
-    (TargetSpec("step", ("fp_add32",), {"arch": "mixtral_8x22b"}),
-     "moe family is not ported"),
+    (TargetSpec("serve", ("fp_add32",), {"arch": "mixtral_8x22b"}),
+     "sliding-window config"),
     (TargetSpec("step", ("fp_add32",), {"arch": "gpt-17"}),
      "unknown architecture"),
     (TargetSpec("serve", ("fp",), {"arch": "gemma_2b"}),

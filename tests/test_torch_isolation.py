@@ -139,3 +139,13 @@ def test_chip_smoke_fails_without_card_or_checkout(tmp_path, alone):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+def test_scan_covers_the_moe_and_vlm_modules():
+    names = {os.path.relpath(p, ROOT) for p in PORT_FILES}
+    for module in ("models/moe.py", "models/transformer.py",
+                   "models/model.py", "convert.py", "fleet/plan.py",
+                   "serve/load.py", "launch/probe.py"):
+        assert f"src/repro_torch/{module}" in names
+        assert not set(_imported_roots(
+            os.path.join(ROOT, "src", "repro_torch", module))) & FORBIDDEN

@@ -307,8 +307,15 @@ def test_init_draws_the_reference_distributions():
                                   "zamba2_1p2b", "whisper_large_v3",
                                   "llava_next_34b"])
 def test_other_families_refused(arch):
+    """The ssm, hybrid and encdec families wait for the next slice; the moe
+    and vlm families build (``tests/test_torch_moe.py``,
+    ``test_torch_vlm.py``)."""
+    cfg = configs.get_smoke_config(arch)
+    if cfg.family in ("moe", "vlm"):
+        assert build(cfg).cfg is cfg
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        build(configs.get_smoke_config(arch))
+        build(cfg)
 
 
 def test_input_specs_and_dummy_batch():

@@ -238,11 +238,20 @@ def test_pool_below_single_request_rejected(smoke):
 
 
 def test_windowed_and_other_families_refused(smoke):
+    """A window: the paged layout with the reference's message, the dense
+    layout naming the reference's own fault; a family without an attention
+    KV cache: the next slice."""
     api, params = smoke
     windowed = dataclasses.replace(api, cfg=dataclasses.replace(
         api.cfg, window=16))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
         ServeEngine(windowed, params)
+    with pytest.raises(ValueError, match="without a sliding window"):
+        ServeEngine(windowed, params, paged=True)
+    ssm = dataclasses.replace(api, cfg=configs.get_smoke_config(
+        "mamba2_780m"))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        ServeEngine(ssm, params)
 
 
 # ---------------------------------------------------------------------------
@@ -460,3 +469,123 @@ def test_load_cli_on_cpu(tmp_path):
                 "--dense", "--json", str(tmp_path / "r.json")])
     assert not rep["paged"] and rep["requests_done"] == 8
     assert json.loads((tmp_path / "r.json").read_text())["requests_done"] == 8
+
+
+# ---------------------------------------------------------------------------
+# the MoE and VLM families
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "llava_next_34b"])
+def test_moe_and_vlm_tokens_equal_the_reference_engine_f32(arch, paged):
+    """Greedy tokens of qwen3 and llava smoke against the reference engine
+    in the same layout. Prompts of at most 8 tokens on pages of 8: the
+    reference's dense layout prefills one request at a time (T = its length
+    <= 8 = the smallest capacity) where both layouts of the port prefill
+    the wave (T = 2 x 8, capacity 16), so no layout drops a pair and the
+    MoE routes every token alike (under drops, see the next test)."""
+    from repro import configs as ref_configs
+    from repro.models.model import build as ref_build
+    from repro.serve import ServeEngine as RefEngine
+
+    rcfg = _f32(ref_configs.get_smoke_config(arch))
+    rapi = ref_build(rcfg)
+    rparams = rapi.init(jax.random.PRNGKey(0))
+    api = build(_f32(configs.get_smoke_config(arch)))
+    params = lm_params_to_torch(api.cfg, jax.tree.map(np.asarray, rparams))
+    prompts = _prompts(5, np.random.default_rng(12), lo=2, hi=9)
+    news = [5, 9, 3, 7, 6]
+    outs = []
+    for eng in (RefEngine(rapi, rparams, n_slots=2, max_seq=32,
+                          paged=paged, page_size=8),
+                ServeEngine(api, params, n_slots=2, max_seq=32, paged=paged,
+                            page_size=8)):
+        reqs = [eng.submit(p, max_new=n) for p, n in zip(prompts, news)]
+        eng.run()
+        assert all(r.done for r in reqs)
+        outs.append([r.out for r in reqs])
+    assert outs[0] == outs[1]
+
+
+def test_moe_drops_and_tokens_equal_the_reference_paged_engine_f32(
+        monkeypatch):
+    """Prompts up to 13 tokens on pages of 16: the wave's capacity drops
+    pairs, and the port's paged engine still gives the reference paged
+    engine's greedy tokens (the same rows routed at the same shapes)."""
+    from repro import configs as ref_configs
+    from repro.models.model import build as ref_build
+    from repro.serve import ServeEngine as RefEngine
+    from repro_torch.models import moe
+
+    arch = "qwen3_moe_30b_a3b"
+    rcfg = _f32(ref_configs.get_smoke_config(arch))
+    rapi = ref_build(rcfg)
+    rparams = rapi.init(jax.random.PRNGKey(0))
+    api = build(_f32(configs.get_smoke_config(arch)))
+    params = lm_params_to_torch(api.cfg, jax.tree.map(np.asarray, rparams))
+    prompts = _prompts(6, np.random.default_rng(13), lo=4, hi=14)
+    dropped = []
+    combine = moe._group_combine
+
+    def counting(out_buf, eg, slots, gates, capacity):
+        dropped.append(int((slots >= capacity).sum()))
+        return combine(out_buf, eg, slots, gates, capacity)
+
+    monkeypatch.setattr(moe, "_group_combine", counting)
+    outs = []
+    for eng in (RefEngine(rapi, rparams, n_slots=3, max_seq=64, paged=True,
+                          page_size=16),
+                ServeEngine(api, params, n_slots=3, max_seq=64, paged=True,
+                            page_size=16)):
+        reqs = [eng.submit(p, max_new=6) for p in prompts]
+        eng.run()
+        outs.append([r.out for r in reqs])
+    assert sum(dropped) > 0
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "llava_next_34b"])
+def test_moe_and_vlm_layouts_token_equal_bf16(arch):
+    """bf16, prompts up to 13 tokens (the MoE wave drops pairs): the dense
+    layout prefills the wave at the paged layout's shapes and routes every
+    slot a tick, so the two layouts' greedy tokens are equal."""
+    api = build(configs.get_smoke_config(arch))
+    params = api.init(0, "cpu")
+    prompts = _prompts(7, np.random.default_rng(14), lo=2, hi=14)
+    outs = []
+    for paged in (True, False):
+        eng = ServeEngine(api, params, n_slots=3, max_seq=64, paged=paged,
+                          page_size=16)
+        reqs = [eng.submit(p, max_new=5) for p in prompts]
+        eng.run()
+        outs.append([r.out for r in reqs])
+    assert outs[0] == outs[1]
+
+
+def test_mixtral_serving_refused_in_both_layouts():
+    from repro_torch.launch.serve import main
+
+    api = build(configs.get_smoke_config("mixtral_8x22b"))
+    params = api.init(0, "cpu")
+    with pytest.raises(ValueError, match="without a sliding window"):
+        ServeEngine(api, params, paged=True)
+    for paged in (None, False):
+        with pytest.raises(NotImplementedError,
+                           match="lm_prefill pads the KV.*ROADMAP queue 3"):
+            ServeEngine(api, params, paged=paged)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
+        main(["--arch", "mixtral-8x22b", "--smoke", "--device", "cpu"])
+
+
+def test_launch_serve_cli_serves_qwen3_smoke(capsys):
+    from repro_torch.launch.serve import main
+
+    eng, reqs = main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--device",
+                      "cpu", "--requests", "3", "--max-new", "4"])
+    assert eng.paged and all(r.done and len(r.out) == 4 for r in reqs)
+    dense, dreqs = main(["--arch", "qwen3-moe-30b-a3b", "--smoke",
+                         "--device", "cpu", "--requests", "3", "--max-new",
+                         "4", "--dense"])
+    assert not dense.paged
+    assert [r.out for r in dreqs] == [r.out for r in reqs]
+    assert "3 requests on 4 slots (dense, cpu)" in capsys.readouterr().out
