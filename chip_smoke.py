@@ -127,18 +127,42 @@ JAX or of the reference package. Phases, each of which fails the run:
    gemma-2b --kind decode`` at the smoke config, each again with
    ``--expect-no-measure``;
 8. the MoE family, as phase 7 (phase 7's model freed first):
-   qwen3-moe-30b-a3b at full width and all 48 layers in bf16 (~30.5 B
-   parameters, 61 GB, drawn on the card; its bytes and the card's free
-   memory printed) served paged, dense and paged (greedy tokens equal,
+   qwen3-moe-30b-a3b at full width and 16 of its 48 layers in bf16 (~10.6
+   B parameters, 21 GB, drawn on the card; its bytes and the card's free
+   memory printed; the depth cut keeps the script inside its limit with
+   phase 9) served paged, dense and paged (greedy tokens equal,
    tok/s, the (token, choice) pairs its dispatch drops a prefill); its
    prefill and decode tick as CUDA-graph step regions with the same
    checks, each step's kernels a call and top device operations from a
    trace of its graph, beside the time to read every weight once; both
-   read once into a store and replayed with 0 measured; then ``python -m
+   read once into a store at 5 reps a point (phase 7: 10) and replayed
+   with 0 measured; then ``python -m
    repro_torch.launch.probe --arch mixtral-8x22b --kind decode`` (the ring
    cache), ``--arch llava-next-34b`` (the image embeds) and ``--serve
    --arch qwen3-moe-30b-a3b`` at the smoke configs, each again with
-   ``--expect-no-measure``.
+   ``--expect-no-measure``;
+9. the SSM, hybrid and encoder-decoder families (each model freed before
+   the next is drawn; random weights from seed 0 drawn on the card):
+   mamba2-780m at full width and depth, in f32 with TF32 off, its
+   forward's logits at every position of 2 x 256 tokens (two chunks and
+   the inter-chunk recurrence) against 256 ``decode_step`` calls on the
+   same tokens (replayed from a CUDA graph), within ``F32_CHECK_SHARE``
+   of the largest |logit|; in
+   bf16 served as phase 7 (dense, sequential prefill), its greedy tokens
+   equal to a greedy loop through ``decode_step`` for each request alone;
+   its forward loss at batch 4 x 512 and its decode tick at batch 4 as
+   CUDA-graph step regions with phase 7's checks, read once into a store
+   at 3 reps a point and replayed with 0 measured; zamba2-1.2b at full
+   width and depth checked in f32 as mamba2 and served as mamba2;
+   whisper-large-v3 at full width and depth checked in f32 over 1,500
+   frames and 32 decoder positions, then in bf16 ``decode_init`` with
+   frames and 16 greedy decode steps; then ``python -m
+   repro_torch.launch.probe --arch zamba2-1.2b --kind decode``, ``--arch
+   whisper-large-v3`` and ``--arch mamba2-780m --kind decode`` at the
+   smoke configs, each again with
+   ``--expect-no-measure``, and the routes the reference fails (``--serve``
+   on the three, whisper ``--kind decode``), each refused with its fault
+   named.
 
 The last lines are the card, one ``{"kernels": [...]}`` JSON object, and
 ``{"ok": true, "device": {...}}``.
@@ -146,6 +170,7 @@ The last lines are the card, one ``{"kernels": [...]}`` JSON object, and
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -157,6 +182,7 @@ import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
+from typing import Optional
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
@@ -2114,16 +2140,22 @@ STEP_TRACE_REPS = 5
 L2_NOTE = "(k tiles L2-resident below k~380)"
 
 
-# phase 8: qwen3-moe-30b-a3b at full width and depth in bf16 (src/
-# repro_torch/configs/qwen3_moe_30b_a3b.py: 48 layers, d_model 2048, 32 / 4
-# heads of 128, 128 experts top-8 of d_ff 768, vocab 151,936; ~30.5 B
-# parameters, 61 GB), served and probed as phase 7's model is, its regions
-# read once and replayed; then the smoke configs of the other MoE and VLM
-# paths through the probe CLI: mixtral's ring cache (a decode step at
-# position 64 of a 16-slot ring), llava's image embeds (the forward loss
-# with 8 image tokens in front) and qwen3's serving
+# phase 8: qwen3-moe-30b-a3b at full width in bf16 (src/repro_torch/
+# configs/qwen3_moe_30b_a3b.py: d_model 2048, 32 / 4 heads of 128, 128
+# experts top-8 of d_ff 768, vocab 151,936), its depth cut from 48 layers
+# (61 GB) to MOE_LAYERS (~10.6 B parameters, 21 GB) so that the script with
+# phase 9 stays inside its limit (PERF.md §4), served and probed as phase
+# 7's model is, its regions read once and replayed; then the smoke configs
+# of the other MoE and VLM paths through the probe CLI: mixtral's ring
+# cache (a decode step at position 64 of a 16-slot ring), llava's image
+# embeds (the forward loss with 8 image tokens in front) and qwen3's
+# serving
 MOE_ARCH = "qwen3_moe_30b_a3b"
+MOE_LAYERS = 16
 MOE_READINGS = {"reading": "moe.jsonl", "replay": "moe.jsonl"}
+# reps of each sweep point of its one reading: 5, phase 7's 10 halved (the
+# same limit)
+MOE_REPS = 5
 MOE_CLI = {
     "probe_mixtral_decode_smoke": ["--arch", "mixtral-8x22b", "--kind",
                                    "decode"],
@@ -2236,26 +2268,163 @@ def _drops(record: dict, n_layers: int) -> dict:
     return out
 
 
+def _check_and_time(regions, eager: dict, weights_ms: float) -> dict:
+    """Each step region: its clean step a CUDA graph; noisy out bitwise
+    equal to clean out, static and run-time k in ``SERVE_KS``, and payload =
+    k for the default graph modes; t(0) from the graph and eagerly (host
+    clock and CUDA events), the device time and the kernels a call from a
+    trace, and its top device operations. ``eager`` maps a region's name to
+    its eager (fn, args)."""
+    import torch
+
+    from repro_torch.core.absorption import measure
+    from repro_torch.core.injector import GraphStep
+    from repro_torch.launch.probe import DEFAULT_GRAPH_MODES
+
+    res = {}
+    for region in regions:
+        clean = region.build("", 0)
+        if not isinstance(clean, GraphStep):
+            raise RuntimeError(f"{region.name}: the clean step is not a "
+                               "CUDA graph")
+        want = [t.clone() for t in _leaves(clean(*region.args_for("", 0)))]
+        torch.cuda.synchronize()
+        for mode in DEFAULT_GRAPH_MODES:
+            for k in SERVE_KS:
+                for how, call in (
+                        ("static", lambda: region.build(mode, k)(
+                            *region.args_for(mode, k))),
+                        ("runtime", lambda: region.build_rt(mode)(
+                            k, *region.args_for_rt(mode)))):
+                    got = _leaves(call()[0])
+                    torch.cuda.synchronize()
+                    if len(got) != len(want) or not all(
+                            torch.equal(a, b) for a, b in zip(got, want)):
+                        raise RuntimeError(f"{region.name}: noisy out != "
+                                           f"clean out ({mode} {how} "
+                                           f"k={k})")
+                rep = region.payload_check(mode, k)
+                if rep.payload != k:
+                    raise RuntimeError(f"{region.name}: payload check "
+                                       f"{mode} k={k}: {rep}")
+        print(f"{region.name}: noisy out bitwise equal to clean out, "
+              f"static and run-time k in {list(SERVE_KS)}, and payload "
+              f"= k for {', '.join(DEFAULT_GRAPH_MODES)}", flush=True)
+        fn, args = eager[region.name]
+        t_graph = measure(clean, region.args_for("", 0), reps=10)
+        t_eager = measure(fn, args, reps=10)
+        ev_graph = time_ms(partial(clean, *region.args_for("", 0)))
+        ev_eager = time_ms(partial(fn, *args))
+        dev_ms, per_kernel, n_kernels, whole = device_ms(
+            partial(clean, *region.args_for("", 0)), reps=STEP_TRACE_REPS)
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+        res[region.name] = {"t0_graph_ms": t_graph * 1e3,
+                            "t0_eager_ms": t_eager * 1e3,
+                            "event_graph_ms": ev_graph,
+                            "event_eager_ms": ev_eager,
+                            "device_ms": dev_ms,
+                            "kernels_a_call": n_kernels,
+                            "device_records_whole": whole,
+                            "weights_read_ms": weights_ms}
+        print(f"{region.name}: t(0) host clock with synchronize, min of "
+              f"10: graph {t_graph * 1e3!r} ms, eager {t_eager * 1e3!r} "
+              f"ms; CUDA events, median of {TIMING_REPS}: graph "
+              f"{ev_graph!r} ms, eager {ev_eager!r} ms; device "
+              f"{dev_ms!r} ms in {n_kernels} kernels a call (trace of "
+              f"{STEP_TRACE_REPS} graph replays, whole: {whole}); every "
+              f"weight read once: {weights_ms!r} ms; {card_line()}",
+              flush=True)
+        print(f"  top device operations (ms a call): "
+              f"{json.dumps(dict(top))}", flush=True)
+    return res
+
+
+def _read_regions(tmp: str, regions, readings: dict, reps: int) -> dict:
+    """Fresh readings at ``reps`` a point, each into its store, then a store
+    replayed (it must measure 0); beside the fit's Abs^raw (the hinge's
+    knee, k1) each mode prints the threshold reading (the last k within 5%
+    of t(0)) and the largest t(k)/t(0) of its sweep."""
+    from repro_torch.core.campaign import Campaign, CampaignStore
+    from repro_torch.core.controller import Controller
+    from repro_torch.launch.probe import DEFAULT_GRAPH_MODES
+
+    verdicts = {}
+    for reading, store in readings.items():
+        camp = Campaign(CampaignStore(os.path.join(tmp, store)),
+                        Controller(reps=reps))
+        t_read = time.perf_counter()
+        try:
+            reps_ = {r.name: camp.characterize(r, DEFAULT_GRAPH_MODES)
+                     for r in regions}
+        finally:
+            camp.store.close()
+        print(f"characterize ({reading}, reps {reps}): "
+              f"{camp.stats} in {time.perf_counter() - t_read:.1f} s",
+              flush=True)
+        if reading == "replay" and camp.stats.measured:
+            raise RuntimeError(f"the serve store replayed with "
+                               f"{camp.stats.measured} measured")
+        for name, rep in reps_.items():
+            _payloads_ok(rep)
+            modes = {m: {"abs_raw": r.fit.k1,
+                         "k1_threshold": r.fit.k1_threshold,
+                         "max_ratio": float(max(r.curve.ratios())),
+                         "ks": list(r.curve.ks),
+                         "ratios": [float(x) for x in r.curve.ratios()],
+                         "t0_ms": r.fit.t0 * 1e3}
+                     for m, r in rep.results.items()}
+            verdicts.setdefault(name, {})[reading] = {
+                "label": rep.bottleneck.label, "modes": modes}
+            print(f"{name} ({reading}): " + ", ".join(
+                f"{m} Abs^raw={v['abs_raw']!r} threshold="
+                f"{v['k1_threshold']!r} max t(k)/t(0)="
+                f"{v['max_ratio']!r}" + (f" {L2_NOTE}"
+                                         if m == "hbm_stream" else "")
+                for m, v in modes.items())
+                + f" => {rep.bottleneck.label}; {card_line()}",
+                flush=True)
+    return verdicts
+
+
+def _probe_cli(tmp: str, kernels: Kernels, counts: dict, seconds: dict,
+               cli: dict) -> None:
+    """The probe CLI's paths ``cli`` (name -> argv) at the smoke configs,
+    each driven once into its store (it must launch every default graph
+    mode's kernel) and replayed with 0 measured."""
+    from repro_torch.launch.probe import DEFAULT_GRAPH_MODES
+    from repro_torch.launch.probe import main as probe_main
+
+    graph = tuple(f"graph_{m}" for m in DEFAULT_GRAPH_MODES)
+    for name, argv in cli.items():
+        store = os.path.join(tmp, f"{name}.jsonl")
+        print(f"== python -m repro_torch.launch.probe {' '.join(argv)}",
+              flush=True)
+        drive(kernels, counts, seconds, name, graph,
+              lambda: probe_main(argv + ["--store", store]))
+        _, stats = probe_main(argv + ["--store", store,
+                                      "--expect-no-measure"])
+        if stats.measured:
+            raise RuntimeError(f"{name}: replay measured {stats.measured}")
+
+
 def _serve_phase(tmp: str, kernels: Kernels, *, title: str, arch: str,
-                 tag: str, readings: dict, cli: dict) -> dict:
+                 tag: str, readings: dict, reps: int, cli: dict,
+                 n_layers: Optional[int] = None) -> dict:
     """A model at full width and depth, served (paged and dense, equal
     greedy tokens), its prefill and decode tick as step regions (noisy =
     clean bitwise, payload = k, the noise overlapping the step in a trace,
-    the tick's kernels and top device operations, classified into a store
-    and replayed with 0 measured, t(0) from the graph and eagerly), then
+    the tick's kernels and top device operations, classified at ``reps``
+    a point into a store and replayed with 0 measured, t(0) from the graph
+    and eagerly), then
     the probe CLI's paths ``cli`` at the smoke configs. A MoE also prints
-    the pairs its dispatch drops. Returns the graph-noise kernels'
-    launches."""
+    the pairs its dispatch drops. ``n_layers`` cuts the depth. Returns the
+    graph-noise kernels' launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
-    from repro_torch.core.absorption import measure
-    from repro_torch.core.campaign import Campaign, CampaignStore
-    from repro_torch.core.controller import Controller
-    from repro_torch.core.injector import GraphStep, step_modes
+    from repro_torch.core.injector import step_modes
     from repro_torch.launch.probe import DEFAULT_GRAPH_MODES
-    from repro_torch.launch.probe import main as probe_main
     from repro_torch.launch.serve import report, serve
     from repro_torch.models.model import build
     from repro_torch.serve.load import (engine_for_probe, serve_names,
@@ -2266,6 +2435,8 @@ def _serve_phase(tmp: str, kernels: Kernels, *, title: str, arch: str,
     counts = {name: [0, 0] for name in kernels.rows}
     graph = tuple(f"graph_{m}" for m in DEFAULT_GRAPH_MODES)
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     moe = bool(cfg.n_experts)
     api = build(cfg)
     t0 = time.perf_counter()
@@ -2325,60 +2496,7 @@ def _serve_phase(tmp: str, kernels: Kernels, *, title: str, arch: str,
             res["prefill_dropped"] = _drops(drops, cfg.n_layers)
             print(f"{names[0]}: dispatch drops "
                   f"{json.dumps(res['prefill_dropped'])}", flush=True)
-        for region in regions:
-            clean = region.build("", 0)
-            if not isinstance(clean, GraphStep):
-                raise RuntimeError(f"{region.name}: the clean step is not a "
-                                   "CUDA graph")
-            want = [t.clone() for t in _leaves(clean(*region.args_for("", 0)))]
-            torch.cuda.synchronize()
-            for mode in DEFAULT_GRAPH_MODES:
-                for k in SERVE_KS:
-                    for how, call in (
-                            ("static", lambda: region.build(mode, k)(
-                                *region.args_for(mode, k))),
-                            ("runtime", lambda: region.build_rt(mode)(
-                                k, *region.args_for_rt(mode)))):
-                        got = _leaves(call()[0])
-                        torch.cuda.synchronize()
-                        if len(got) != len(want) or not all(
-                                torch.equal(a, b) for a, b in zip(got, want)):
-                            raise RuntimeError(f"{region.name}: noisy out != "
-                                               f"clean out ({mode} {how} "
-                                               f"k={k})")
-                    rep = region.payload_check(mode, k)
-                    if rep.payload != k:
-                        raise RuntimeError(f"{region.name}: payload check "
-                                           f"{mode} k={k}: {rep}")
-            print(f"{region.name}: noisy out bitwise equal to clean out, "
-                  f"static and run-time k in {list(SERVE_KS)}, and payload "
-                  f"= k for {', '.join(DEFAULT_GRAPH_MODES)}", flush=True)
-            fn, args = eager[region.name]
-            t_graph = measure(clean, region.args_for("", 0), reps=10)
-            t_eager = measure(fn, args, reps=10)
-            ev_graph = time_ms(partial(clean, *region.args_for("", 0)))
-            ev_eager = time_ms(partial(fn, *args))
-            dev_ms, per_kernel, n_kernels, whole = device_ms(
-                partial(clean, *region.args_for("", 0)), reps=STEP_TRACE_REPS)
-            top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-            res[region.name] = {"t0_graph_ms": t_graph * 1e3,
-                                "t0_eager_ms": t_eager * 1e3,
-                                "event_graph_ms": ev_graph,
-                                "event_eager_ms": ev_eager,
-                                "device_ms": dev_ms,
-                                "kernels_a_call": n_kernels,
-                                "device_records_whole": whole,
-                                "weights_read_ms": weights_ms}
-            print(f"{region.name}: t(0) host clock with synchronize, min of "
-                  f"10: graph {t_graph * 1e3!r} ms, eager {t_eager * 1e3!r} "
-                  f"ms; CUDA events, median of {TIMING_REPS}: graph "
-                  f"{ev_graph!r} ms, eager {ev_eager!r} ms; device "
-                  f"{dev_ms!r} ms in {n_kernels} kernels a call (trace of "
-                  f"{STEP_TRACE_REPS} graph replays, whole: {whole}); every "
-                  f"weight read once: {weights_ms!r} ms; {card_line()}",
-                  flush=True)
-            print(f"  top device operations (ms a call): "
-                  f"{json.dumps(dict(top))}", flush=True)
+        res.update(_check_and_time(regions, eager, weights_ms))
         tick = regions[1]
         fn, args = tick.build_rt(TRACE_MODE), tick.args_for_rt(TRACE_MODE)
         fn(TRACE_K, *args)
@@ -2393,61 +2511,13 @@ def _serve_phase(tmp: str, kernels: Kernels, *, title: str, arch: str,
         prof.export_chrome_trace(path)
         res["trace"] = _noise_overlap(path, "gmxu")
 
-        # fresh readings, each into its store, then a store replayed;
-        # beside the fit's Abs^raw (the hinge's knee, k1) each mode prints
-        # the threshold reading (the last k within 5% of t(0)) and the
-        # largest t(k)/t(0) of its sweep
-        verdicts = {}
-        for reading, store in readings.items():
-            camp = Campaign(CampaignStore(os.path.join(tmp, store)),
-                            Controller(reps=SERVE_REPS))
-            t_read = time.perf_counter()
-            try:
-                reps_ = {r.name: camp.characterize(r, DEFAULT_GRAPH_MODES)
-                         for r in regions}
-            finally:
-                camp.store.close()
-            print(f"characterize ({reading}, reps {SERVE_REPS}): "
-                  f"{camp.stats} in {time.perf_counter() - t_read:.1f} s",
-                  flush=True)
-            if reading == "replay" and camp.stats.measured:
-                raise RuntimeError(f"the serve store replayed with "
-                                   f"{camp.stats.measured} measured")
-            for name, rep in reps_.items():
-                _payloads_ok(rep)
-                modes = {m: {"abs_raw": r.fit.k1,
-                             "k1_threshold": r.fit.k1_threshold,
-                             "max_ratio": float(max(r.curve.ratios())),
-                             "ks": list(r.curve.ks),
-                             "ratios": [float(x) for x in r.curve.ratios()],
-                             "t0_ms": r.fit.t0 * 1e3}
-                         for m, r in rep.results.items()}
-                verdicts.setdefault(name, {})[reading] = {
-                    "label": rep.bottleneck.label, "modes": modes}
-                print(f"{name} ({reading}): " + ", ".join(
-                    f"{m} Abs^raw={v['abs_raw']!r} threshold="
-                    f"{v['k1_threshold']!r} max t(k)/t(0)="
-                    f"{v['max_ratio']!r}" + (f" {L2_NOTE}"
-                                             if m == "hbm_stream" else "")
-                    for m, v in modes.items())
-                    + f" => {rep.bottleneck.label}; {card_line()}",
-                    flush=True)
-        res["verdicts"] = verdicts
+        res["verdicts"] = _read_regions(tmp, regions, readings, reps)
         return res
 
     regions_res = drive(kernels, counts, seconds, f"serve_regions_{tag}",
                         graph, regions_path)
 
-    for name, argv in cli.items():
-        store = os.path.join(tmp, f"{name}.jsonl")
-        print(f"== python -m repro_torch.launch.probe {' '.join(argv)}",
-              flush=True)
-        drive(kernels, counts, seconds, name, graph,
-              lambda: probe_main(argv + ["--store", store]))
-        _, stats = probe_main(argv + ["--store", store,
-                                      "--expect-no-measure"])
-        if stats.measured:
-            raise RuntimeError(f"{name}: replay measured {stats.measured}")
+    _probe_cli(tmp, kernels, counts, seconds, cli)
     print(f"phase {title.split('.')[0]} wall time per path (s): "
           + json.dumps({k: round(v, 1) for k, v in seconds.items()}))
     print(f"serve results ({cfg.name}): " + json.dumps(
@@ -2465,7 +2535,7 @@ def phase_serve(tmp: str, kernels: Kernels) -> dict:
         tmp, kernels, arch=SERVE_ARCH, tag="gemma2b",
         title="7. serving: gemma-2b at full width and depth (bf16) and its "
               "step regions",
-        readings=SERVE_READINGS,
+        readings=SERVE_READINGS, reps=SERVE_REPS,
         cli={"probe_serve_smoke": ["--serve", "--arch", "gemma-2b"],
              "probe_decode_smoke": ["--arch", "gemma-2b", "--kind",
                                     "decode"]})
@@ -2486,9 +2556,392 @@ def phase_moe(tmp: str, kernels: Kernels) -> dict:
           flush=True)
     return _serve_phase(
         tmp, kernels, arch=MOE_ARCH, tag="qwen3moe",
-        title="8. the MoE family: qwen3-moe-30b-a3b at full width and depth "
-              "(bf16) and its step regions",
-        readings=MOE_READINGS, cli=MOE_CLI)
+        title=f"8. the MoE family: qwen3-moe-30b-a3b at full width, "
+              f"{MOE_LAYERS} of its 48 layers (bf16), and its step regions",
+        readings=MOE_READINGS, reps=MOE_REPS, cli=MOE_CLI,
+        n_layers=MOE_LAYERS)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the SSM, hybrid and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+# mamba2-780m (src/repro_torch/configs/mamba2_780m.py: 48 layers, d_model
+# 1536, d_inner 3072, 48 SSD heads of 64, state 128, chunk 128, conv 4,
+# vocab 50,280, tied), zamba2-1.2b (38 Mamba2 layers of d_model 2048, the
+# shared attention + MLP block before layers 0, 6, ..., 36) and
+# whisper-large-v3 (32 encoder and 32 decoder layers, d_model 1280, 1,500
+# frames), each at full width and depth
+SSM_ARCH = "mamba2_780m"
+SSM_SERVED = ("mamba2_780m", "zamba2_1p2b")
+WHISPER_ARCH = "whisper_large_v3"
+# the f32 check: (arch, batch, positions) -- the forward's logits at every
+# position against those of one decode_step a position on the same tokens
+# (whisper's encoder over its 1,500 frames first)
+F32_CHECKS = {"mamba2_780m": (2, 256), "zamba2_1p2b": (2, 256),
+              "whisper_large_v3": (2, 32)}
+# its tolerance, a share of the forward's largest |logit|
+F32_CHECK_SHARE = 1e-3
+# the step regions: the forward loss at batch x seq, and the decode tick at
+# batch after SSM_WARM_STEPS tokens
+SSM_REGION = {"batch": 4, "seq": 512}
+SSM_WARM_STEPS = 8
+SSM_READINGS = {"reading": "ssm.jsonl", "replay": "ssm.jsonl"}
+SSM_REPS = 3
+# whisper's greedy decode in bf16: slots, steps, self cache length
+WHISPER_DECODE = {"batch": 4, "steps": 16, "max_seq": 64}
+SSM_CLI = {
+    "probe_zamba2_decode_smoke": ["--arch", "zamba2-1.2b", "--kind",
+                                  "decode"],
+    "probe_whisper_train_smoke": ["--arch", "whisper-large-v3"],
+    "probe_mamba2_decode_smoke": ["--arch", "mamba2-780m", "--kind",
+                                  "decode"]}
+# the routes the reference fails, each refused with its fault named
+PAGED_ONLY = "paged serving needs an attention KV cache"
+SSM_REFUSED = (
+    (["--serve", "--arch", "mamba2-780m"], PAGED_ONLY),
+    (["--serve", "--arch", "zamba2-1.2b"], PAGED_ONLY),
+    (["--serve", "--arch", "whisper-large-v3"], PAGED_ONLY),
+    (["--arch", "whisper-large-v3", "--kind", "decode"], "KeyError: 'frames'"))
+
+
+def _free(label: str) -> None:
+    """Collect the models of the paths before and print the card's free
+    memory."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"free memory {label}: {free} of {total} bytes", flush=True)
+
+
+def _draw(arch: str, f32: bool = False):
+    """(api, params) of ``arch`` at full width and depth, drawn on the card
+    from seed 0 (in f32 with ``f32``); prints its size."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build
+
+    cfg = get_config(arch)
+    if f32:
+        cfg = dataclasses.replace(cfg, param_dtype="float32",
+                                  compute_dtype="float32")
+    api = build(cfg)
+    t0 = time.perf_counter()
+    params = api.init(0, "cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    print(f"{cfg.name} ({cfg.param_dtype}): {n} parameters ({nbytes} "
+          f"bytes; config param_count {cfg.param_count()}) drawn on the "
+          f"card in {time.perf_counter() - t0:.1f} s", flush=True)
+    return api, params, nbytes
+
+
+def _graph_decode(api, params, cache: dict, batch: int):
+    """``api.decode_step`` at ``batch`` captured once as a CUDA graph on
+    static token and position buffers (after two warm-up calls on a side
+    stream, as ``GraphStep``): returns ``step(tokens, pos) -> logits`` (the
+    graph's output, overwritten by every call). After each replay the
+    cache tensors the step returned anew (an SSM state is out of place) are
+    copied into ``cache``'s, which the graph reads."""
+    import torch
+
+    tok = torch.zeros((batch, 1), dtype=torch.int32, device="cuda")
+    pos = torch.zeros((), dtype=torch.int32, device="cuda")
+    cur = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            api.decode_step(params, cache, tok, pos)
+    cur.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        logits, new = api.decode_step(params, cache, tok, pos)
+    moved = [(cache[g][n], new[g][n]) for g in cache for n in cache[g]
+             if new[g][n] is not cache[g][n]]
+
+    def step(tokens, p: int):
+        tok.copy_(tokens)
+        pos.fill_(p)
+        graph.replay()
+        for old, fresh in moved:
+            old.copy_(fresh)
+        return logits
+
+    return step
+
+
+def _f32_check(arch: str) -> dict:
+    """The chunked (or blocked) forward against the recurrence, in f32 with
+    TF32 off: logits at every position of the forward against those of one
+    decode_step a position on the same tokens (the step replayed from a
+    CUDA graph: eagerly the host's dispatch of ~2,800 kernels a step would
+    take most of the phase)."""
+    import torch
+
+    api, params, _ = _draw(arch, f32=True)
+    cfg = api.cfg
+    batch, positions = F32_CHECKS[arch]
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (batch, positions),
+                         generator=gen, dtype=torch.int32).cuda()
+    fwd_batch = {"tokens": toks}
+    if cfg.family == "encdec":
+        frames = torch.randn((batch, cfg.enc_frames, cfg.d_model),
+                             generator=gen).cuda()
+        fwd_batch["frames"] = frames
+        init = {"frames": frames, "max_seq": positions}
+    else:
+        init = {"tokens": toks[:, :1], "max_seq": positions}
+    t0 = time.perf_counter()
+    logits, _ = api.forward(params, fwd_batch)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decode = _graph_decode(api, params, api.decode_init(params, init), batch)
+    err = torch.zeros((), device="cuda")
+    for t in range(positions):
+        step = decode(toks[:, t:t + 1], t)
+        err = torch.maximum(err, (step[:, 0] - logits[:, t]).abs().max())
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    scale = float(logits.abs().max())
+    res = {"batch": batch, "positions": positions,
+           "max_abs_err": float(err), "max_abs_logit": scale,
+           "tol": F32_CHECK_SHARE * scale, "forward_s": t_fwd,
+           "decode_s": t_dec}
+    print(f"{cfg.name} f32 (TF32 off), forward against {positions} "
+          f"decode steps at batch {batch}: {json.dumps(res)}; "
+          f"{card_line()}", flush=True)
+    if not (math.isfinite(scale) and bool(torch.isfinite(logits).all())):
+        raise RuntimeError(f"{cfg.name}: the f32 forward is not finite")
+    if not res["max_abs_err"] <= res["tol"]:
+        raise RuntimeError(f"{cfg.name}: forward and decode logits differ "
+                           f"by {res['max_abs_err']!r} > {res['tol']!r}")
+    return res
+
+
+def _greedy_alone(api, params, prompt: list, max_new: int, slots: int,
+                  max_seq: int) -> list:
+    """Greedy tokens of one request through ``decode_step`` alone: its
+    prompt one token at a time at batch 1 (as the engine's sequential
+    prefill), then decode steps at the engine's tick batch with the request
+    in every row (the card's product kernels depend on the batch shape; a
+    row's result does not depend on the other rows)."""
+    import torch
+
+    from repro_torch.serve.engine import CACHE_BATCH_AXIS
+
+    dev = "cuda"
+    p = torch.tensor(prompt, dtype=torch.int32, device=dev)[None]
+    cache = api.decode_init(params, {"tokens": p[:, :1], "max_seq": max_seq})
+    for i in range(len(prompt)):
+        logits, cache = api.decode_step(
+            params, cache, p[:, i:i + 1],
+            torch.tensor(i, dtype=torch.int32, device=dev))
+    out = [int(torch.argmax(logits[0, -1]))]
+    cache = {group: {name: cache[group][name].repeat_interleave(slots, ax)
+                     for name, ax in axes.items()}
+             for group, axes in CACHE_BATCH_AXIS[api.cfg.family].items()}
+    pos = torch.full((slots,), len(prompt), dtype=torch.int32, device=dev)
+    cur = torch.full((slots, 1), out[0], dtype=torch.int32, device=dev)
+    while len(out) < max_new and int(pos[0]) < max_seq - 1:
+        logits, cache = api.decode_step(params, cache, cur, pos)
+        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        out.append(int(nxt[0]))
+        pos = pos + 1
+        cur = nxt[:, None]
+    return out
+
+
+def _serve_sequential(api, params) -> dict:
+    """``launch/serve.py``'s path at phase 7's settings on the dense layout
+    (sequential prefill), and each request's tokens against
+    ``_greedy_alone``."""
+    from repro_torch.launch.serve import report, serve
+
+    eng, reqs, dt = serve(api, params, **SERVE_ARGS)
+    print(report(eng, reqs, dt), flush=True)
+    if eng.paged:
+        raise RuntimeError(f"{api.cfg.name}: served paged, want dense")
+    for r in reqs:
+        alone = _greedy_alone(api, params, r.prompt, r.max_new,
+                              SERVE_ARGS["slots"], SERVE_ARGS["max_seq"])
+        if alone != r.out:
+            raise RuntimeError(f"{api.cfg.name}: request {r.uid} served "
+                               f"{r.out}, alone {alone}")
+    rep = eng.report()
+    n_tok = sum(len(r.out) for r in reqs)
+    res = {"tok_s": n_tok / dt, "decode_tok_s": rep["decode_tok_s"],
+           "total_tok_s": rep["total_tok_s"], "ticks": rep["ticks"],
+           "prefill_calls": rep["prefill_calls"],
+           "prefill_tokens": rep["prefill_tokens"], "wall_s": dt}
+    print(f"{api.cfg.name} serve (dense, sequential prefill): "
+          f"{json.dumps(res)}; greedy tokens equal to each request's alone; "
+          f"{card_line()}", flush=True)
+    return res
+
+
+def _ssm_regions(tmp: str, api, params, weights_ms: float) -> dict:
+    """The forward loss at ``SSM_REGION`` and the decode tick at its batch
+    as step regions: phase 7's checks and timings, read once into a store
+    and replayed with 0 measured."""
+    import torch
+
+    from repro_torch.core.injector import step_modes, step_region
+    from repro_torch.launch.probe import (DEFAULT_GRAPH_MODES,
+                                          step_region_name)
+
+    cfg = api.cfg
+    B, S = SSM_REGION["batch"], SSM_REGION["seq"]
+    registry = step_modes("cuda")
+    registry = {m: registry[m] for m in DEFAULT_GRAPH_MODES}
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         dtype=torch.int32).cuda()
+    labels = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           dtype=torch.int32).cuda()
+    batch = {"tokens": toks, "labels": labels}
+
+    def loss(p, b):
+        return api.loss(p, b)[0]
+
+    cache = api.decode_init(params, B)
+    pos = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    for i in range(SSM_WARM_STEPS):
+        _, cache = api.decode_step(params, cache, toks[:, i:i + 1], pos + i)
+    pos = pos + SSM_WARM_STEPS
+    cur = toks[:, SSM_WARM_STEPS:SSM_WARM_STEPS + 1]
+
+    def tick(p, c, t):
+        return api.decode_step(p, c, t, pos)[0]
+
+    cells = {step_region_name(cfg.name, "train", S, B): (loss,
+                                                         (params, batch)),
+             step_region_name(cfg.name, "decode", S, B): (tick,
+                                                          (params, cache,
+                                                           cur))}
+    regions = [step_region(name, fn, args, registry)
+               for name, (fn, args) in cells.items()]
+    res = _check_and_time(regions, cells, weights_ms)
+    res["verdicts"] = _read_regions(tmp, regions, SSM_READINGS, SSM_REPS)
+    return res
+
+
+def _whisper_decode(api, params) -> dict:
+    """``decode_init`` with frames, then greedy decode steps through the
+    model API (the reference's decode cell, launch/steps.py)."""
+    import torch
+
+    cfg = api.cfg
+    B, steps = WHISPER_DECODE["batch"], WHISPER_DECODE["steps"]
+    gen = torch.Generator().manual_seed(2)
+    frames = torch.randn((B, cfg.enc_frames, cfg.d_model),
+                         generator=gen).to("cuda", torch.bfloat16)
+    t0 = time.perf_counter()
+    cache = api.decode_init(params, {"frames": frames,
+                                     "max_seq": WHISPER_DECODE["max_seq"]})
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    cur = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
+    out = []
+    t0 = time.perf_counter()
+    for t in range(steps):
+        logits, cache = api.decode_step(
+            params, cache, cur, torch.tensor(t, dtype=torch.int32,
+                                             device="cuda"))
+        if (logits.shape != (B, 1, cfg.vocab_size)
+                or not bool(torch.isfinite(logits).all())):
+            raise RuntimeError(f"{cfg.name}: decode step {t} gave "
+                               f"{tuple(logits.shape)} logits, or not "
+                               "finite ones")
+        cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        out.append(cur[:, 0].tolist())
+    torch.cuda.synchronize()
+    res = {"batch": B, "steps": steps, "decode_init_s": t_init,
+           "ms_a_step": (time.perf_counter() - t0) / steps * 1e3,
+           "cross_kv_bytes": sum(t.numel() * t.element_size()
+                                 for t in cache["cross"].values()),
+           "tokens_row0": [row[0] for row in out]}
+    print(f"{cfg.name} bf16: decode_init over {cfg.enc_frames} frames, "
+          f"then {steps} greedy decode steps: {json.dumps(res)}; "
+          f"{card_line()}", flush=True)
+    return res
+
+
+def _refused(tmp: str) -> None:
+    """The routes the reference fails exit with their fault named and no
+    traceback (a SystemExit with the message) and write no store."""
+    from repro_torch.launch.probe import main as probe_main
+
+    for argv, fault in SSM_REFUSED:
+        store = os.path.join(tmp, "refused.jsonl")
+        try:
+            probe_main(argv + ["--store", store])
+        except SystemExit as e:
+            msg = str(e.code)
+            if fault not in msg or os.path.exists(store):
+                raise RuntimeError(f"{' '.join(argv)}: refused with {msg!r}"
+                                   f", want {fault!r} and no store")
+            print(f"== python -m repro_torch.launch.probe {' '.join(argv)}"
+                  f": refused: {msg}", flush=True)
+            continue
+        raise RuntimeError(f"{' '.join(argv)}: ran; the reference fails it")
+
+
+def phase_ssm(tmp: str, kernels: Kernels) -> dict:
+    """Phase 9: mamba2-780m, zamba2-1.2b and whisper-large-v3 at full width
+    and depth, then the smoke probes of the three families and the refused
+    routes. Phase 8's model is freed first, and each model before the
+    next."""
+    from repro_torch.launch.probe import DEFAULT_GRAPH_MODES
+
+    banner("9. the SSM, hybrid and encoder-decoder families: mamba2-780m, "
+           "zamba2-1.2b and whisper-large-v3 at full width and depth")
+    seconds: dict = {}
+    counts = {name: [0, 0] for name in kernels.rows}
+    graph = tuple(f"graph_{m}" for m in DEFAULT_GRAPH_MODES)
+    res: dict = {}
+    for arch in (SSM_ARCH, "zamba2_1p2b", WHISPER_ARCH):
+        _free(f"before {arch}")
+        res[f"{arch}_f32"] = drive(kernels, counts, seconds,
+                                   f"f32_check_{arch}", (),
+                                   partial(_f32_check, arch))
+        _free(f"after the f32 check of {arch}")
+        api, params, nbytes = _draw(arch)
+        weights_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        if arch in SSM_SERVED:
+            res[f"{arch}_serve"] = drive(
+                kernels, counts, seconds, f"serve_{arch}", (),
+                partial(_serve_sequential, api, params))
+        if arch == SSM_ARCH:
+            res[f"{arch}_regions"] = drive(
+                kernels, counts, seconds, f"regions_{arch}", graph,
+                partial(_ssm_regions, tmp, api, params, weights_ms))
+        if arch == WHISPER_ARCH:
+            res[f"{arch}_decode"] = drive(
+                kernels, counts, seconds, f"decode_{arch}", (),
+                partial(_whisper_decode, api, params))
+        del api, params
+    _free("after the full-width models")
+    _probe_cli(tmp, kernels, counts, seconds, SSM_CLI)
+    _refused(tmp)
+    print("phase 9 wall time per path (s): "
+          + json.dumps({k: round(v, 1) for k, v in seconds.items()}))
+    print("phase 9 results: " + json.dumps(res), flush=True)
+    for name, (n_cuda, n_plain) in counts.items():
+        if n_cuda or n_plain:
+            print(f"{name}: kernel {n_cuda} launches on phase 9's paths, "
+                  f"plain version {n_plain} (the payload checks' oracle)")
+    return {name: n_cuda for name, (n_cuda, _) in counts.items()}
 
 
 def main() -> int:
@@ -2507,18 +2960,34 @@ def main() -> int:
     sys.path.insert(0, SRC)
 
     t_start = time.perf_counter()
+    elapsed = {}
+
+    def lap(phase: str) -> None:
+        elapsed[phase] = round(time.perf_counter() - t_start
+                               - sum(elapsed.values()), 1)
+
     card = phase_env()
     phase_build()
+    lap("1-2")
     main_args = main_inputs()
     max_err = phase_check(main_args)
+    lap("3")
     kernels = Kernels()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches = phase_main(tmp, kernels)
+    lap("4-5")
     rows = phase_timing(main_args, max_err, launches)
+    lap("6")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
         serve_launches = [phase_serve(tmp, kernels)]
+    lap("7")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp:
         serve_launches.append(phase_moe(tmp, kernels))
+    lap("8")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ssm_") as tmp:
+        serve_launches.append(phase_ssm(tmp, kernels))
+    lap("9")
+    print(f"\nwall time per phase (s): {json.dumps(elapsed)}")
     for row in rows:        # the serving paths are main paths too
         row["launches"] += sum(n[row["name"]] for n in serve_launches)
     print(f"\nchip_smoke: all phases passed in "

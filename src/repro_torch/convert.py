@@ -7,8 +7,8 @@ port's tensors, so both packages compute on identical inputs; ``carry_to_torch``
 arrays and tuples of arrays, ``core.loopnoise``), and
 ``noise_state_to_torch`` for a graph-level noise mode's state
 (``core.noise``: arrays, tuples of them, bf16 matrices and int32 scalars),
-and ``lm_params_to_torch`` for a model's initialised param tree (the models
-hold random weights from a seed; nothing is downloaded).
+and ``params_to_torch`` for a model's initialised param tree of any family
+(the models hold random weights from a seed; nothing is downloaded).
 """
 from __future__ import annotations
 
@@ -68,37 +68,117 @@ def noise_state_to_torch(name: str, state: dict, device="cpu") -> dict:
             for key, value in state.items()}
 
 
+def _layer(tree, i: int, device) -> dict:
+    """Slice i of every leaf of a stacked (L, ...) subtree, as tensors."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i, device) for k, v in tree.items()}
+    return _array_to_torch(np.asarray(tree)[i], device)
+
+
+def _tensors(tree, device) -> dict:
+    """Every leaf of an unstacked subtree, as tensors."""
+    if isinstance(tree, dict):
+        return {k: _tensors(v, device) for k, v in tree.items()}
+    return _array_to_torch(tree, device)
+
+
+def _norm(tree):
+    from repro_torch.models import layers as L
+    return L.RMSNorm(tree["scale"])
+
+
+def _attention(tree):
+    from repro_torch.models import attention as attn
+    return attn.Attention(*(tree[w] for w in ("wq", "wk", "wv", "wo")))
+
+
+def _mlp(tree):
+    from repro_torch.models import layers as L
+    return L.MLP(*(tree[w] for w in ("w_gate", "w_up", "w_down")))
+
+
+def _embedding(tree):
+    from repro_torch.models import layers as L
+    return L.Embedding(tree["table"], tree.get("head"))
+
+
 def lm_params_to_torch(cfg, params, device="cpu"):
     """The reference's LM param tree (dense, moe or vlm; numpy arrays as
     ``np.asarray`` gives them, bf16 carried bit for bit) -> the port's
     ``transformer.LM`` on ``device``. The reference stacks layer params on a
     leading (L, ...) axis — the experts as (L, E, d, f) — and each slice
     becomes one layer module, taken layer by layer."""
-    from repro_torch.models import attention as attn
-    from repro_torch.models import layers as L
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as tf
 
-    def t(a):
-        return _array_to_torch(a, device)
-
-    emb = params["embed"]
-    embed = L.Embedding(t(emb["table"]),
-                        t(emb["head"]) if "head" in emb else None)
-    lay = params["layers"]
     layers = []
     for i in range(cfg.n_layers):
-        a = lay["attn"]
-        if "moe" in lay:
-            ffn = moe_mod.MoE(*(t(np.asarray(lay["moe"][w])[i])
-                                for w in ("router", "w_gate", "w_up",
-                                          "w_down")))
-        else:
-            ffn = L.MLP(*(t(np.asarray(lay["mlp"][w])[i])
-                          for w in ("w_gate", "w_up", "w_down")))
-        layers.append(tf.Layer(
-            L.RMSNorm(t(np.asarray(lay["ln1"]["scale"])[i])),
-            attn.Attention(*(t(np.asarray(a[w])[i])
-                             for w in ("wq", "wk", "wv", "wo"))),
-            L.RMSNorm(t(np.asarray(lay["ln2"]["scale"])[i])), ffn))
-    return tf.LM(embed, layers, L.RMSNorm(t(params["final_norm"]["scale"])))
+        lay = _layer(params["layers"], i, device)
+        ffn = (moe_mod.MoE(*(lay["moe"][w] for w in ("router", "w_gate",
+                                                      "w_up", "w_down")))
+               if "moe" in lay else _mlp(lay["mlp"]))
+        layers.append(tf.Layer(_norm(lay["ln1"]), _attention(lay["attn"]),
+                               _norm(lay["ln2"]), ffn))
+    return tf.LM(_embedding(_tensors(params["embed"], device)), layers,
+                 _norm(_tensors(params["final_norm"], device)))
+
+
+def ssm_params_to_torch(cfg, params, device="cpu"):
+    """The reference's Mamba2 LM tree (``blocks`` stacked (L, ...)) -> the
+    port's ``ssm.SSMLM``, one ``Block`` a layer."""
+    from repro_torch.models import ssm
+
+    blocks = []
+    for i in range(cfg.n_layers):
+        lay = _layer(params["blocks"], i, device)
+        blocks.append(ssm.Block(_norm(lay["ln"]), ssm.SSM(**lay["ssm"])))
+    return ssm.SSMLM(_embedding(_tensors(params["embed"], device)), blocks,
+                     _norm(_tensors(params["final_norm"], device)))
+
+
+def hybrid_params_to_torch(cfg, params, device="cpu"):
+    """The reference's zamba2 tree (``mamba`` stacked (L, ...), one
+    ``shared`` block) -> the port's ``hybrid.Hybrid``."""
+    from repro_torch.models import hybrid
+    from repro_torch.models import ssm
+
+    mamba = []
+    for i in range(cfg.n_layers):
+        lay = _layer(params["mamba"], i, device)
+        mamba.append(ssm.Block(_norm(lay["ln"]), ssm.SSM(**lay["ssm"])))
+    sh = _tensors(params["shared"], device)
+    shared = hybrid.Shared(_norm(sh["ln1"]), _attention(sh["attn"]),
+                           _norm(sh["ln2"]), _mlp(sh["mlp"]))
+    return hybrid.Hybrid(_embedding(_tensors(params["embed"], device)), mamba,
+                         shared, _norm(_tensors(params["final_norm"], device)))
+
+
+def encdec_params_to_torch(cfg, params, device="cpu"):
+    """The reference's whisper tree (``enc_layers``, ``dec_layers`` stacked
+    (L, ...)) -> the port's ``encdec.EncDec``."""
+    from repro_torch.models import encdec
+
+    enc, dec = [], []
+    for i in range(cfg.enc_layers):
+        lay = _layer(params["enc_layers"], i, device)
+        enc.append(encdec.EncLayer(_norm(lay["ln1"]), _attention(lay["attn"]),
+                                   _norm(lay["ln2"]), _mlp(lay["mlp"])))
+    for i in range(cfg.n_layers):
+        lay = _layer(params["dec_layers"], i, device)
+        dec.append(encdec.DecLayer(
+            _norm(lay["ln1"]), _attention(lay["attn"]), _norm(lay["lnx"]),
+            _attention(lay["xattn"]), _norm(lay["ln2"]), _mlp(lay["mlp"])))
+    return encdec.EncDec(_embedding(_tensors(params["embed"], device)), enc,
+                         _norm(_tensors(params["enc_norm"], device)), dec,
+                         _norm(_tensors(params["final_norm"], device)))
+
+
+def params_to_torch(cfg, params, device="cpu"):
+    """A reference param tree of ``cfg``'s family -> the port's module."""
+    if cfg.family == "ssm":
+        return ssm_params_to_torch(cfg, params, device)
+    if cfg.family == "hybrid":
+        return hybrid_params_to_torch(cfg, params, device)
+    if cfg.family == "encdec":
+        return encdec_params_to_torch(cfg, params, device)
+    return lm_params_to_torch(cfg, params, device)

@@ -21,8 +21,11 @@ so every participant (the launcher, each worker subprocess, a human at the
 The JSON schema, digest and grid order are the reference's (``repro.fleet.
 plan``), so a plan file names the same regions in both packages. What the
 port accepts is narrower: ``backend`` "cuda" (the default) or "cpu", the
-single-file store layout, and "step" / "serve" targets of the dense, moe
-and vlm families (no sliding window on a serve target).
+single-file store layout, "step" targets of every family (but an encdec
+decode step, which the reference cannot build: ``KeyError: 'frames'``),
+and "serve" targets of the paged layout's families (dense, moe and vlm
+without a sliding window), refused at plan time where the reference fails
+later in every worker.
 
 Plan JSON (one object, schema-versioned):
 
@@ -104,11 +107,13 @@ class TargetSpec:
                             f"{KERNEL_MODES[kernel]}, not {bad}")
 
     def _validate_model(self) -> None:
-        """A "step" or "serve" target: a known architecture of the dense,
-        moe or vlm family (a serve target without a sliding window), the
-        graph-level modes, and positive serve parameters."""
+        """A "step" or "serve" target: a known architecture (a decode step
+        not of the encdec family; a serve target of the paged layout's
+        families, without a sliding window), the graph-level modes, and
+        positive serve parameters."""
         from repro_torch.configs import canonical, get_config
         from repro_torch.core.noise import make_modes
+        from repro_torch.launch.probe import ENCDEC_DECODE_REFUSED
         from repro_torch.models.model import LM_FAMILIES
 
         arch = self.params.get("arch")
@@ -118,11 +123,14 @@ class TargetSpec:
             cfg = get_config(canonical(arch))
         except KeyError as e:
             raise PlanError(str(e)) from None
-        if cfg.family not in LM_FAMILIES:
-            raise PlanError(f"{self.kind} target {arch!r}: the {cfg.family} "
-                            "family is not ported (ROADMAP queue 1, the "
-                            "rest of item 10: ssm.py, hybrid.py, encdec.py); "
-                            f"the families {list(LM_FAMILIES)} are")
+        if (self.kind == "step" and cfg.family == "encdec"
+                and self.params.get("kind", "train") == "decode"):
+            raise PlanError(f"step target {arch!r}: "
+                            f"{ENCDEC_DECODE_REFUSED}")
+        if self.kind == "serve" and cfg.family not in LM_FAMILIES:
+            raise PlanError(f"serve target {arch!r}: paged serving needs "
+                            "an attention KV cache without a sliding window "
+                            f"(family={cfg.family!r}, window={cfg.window})")
         if self.kind == "serve" and cfg.window:
             raise PlanError(f"serve target {arch!r}: a sliding-window "
                             f"config (window={cfg.window}) is not served; "

@@ -54,6 +54,12 @@ CAMPAIGN_DIR = "experiments/campaigns"
 # default graph-level mode set for the model-step and serve probes
 DEFAULT_GRAPH_MODES = ("fp_add32", "mxu_fma128", "vmem_ld", "hbm_stream")
 
+ENCDEC_DECODE_REFUSED = (
+    "a decode step of the encdec family is refused: the reference's "
+    "build_step_region calls decode_init(params, {'tokens', 'max_seq'}) "
+    "without 'frames', and encdec_decode_init reads batch['frames'], so it "
+    "fails with KeyError: 'frames' (ROADMAP queue 3)")
+
 
 def step_region_name(cfg_name: str, kind: str, seq: int, batch: int) -> str:
     """The model-step region's name, the reference's letter for letter."""
@@ -66,7 +72,8 @@ def build_step_region(arch: str, kind: str, modes: Sequence[str], *,
     "step" fleet TargetSpecs share: the smoke config, params drawn from
     seed 0 on ``device``, noise forked beside the whole step (the forward
     loss for ``kind="train"``, one decode step at position seq // 2
-    otherwise)."""
+    otherwise; an encdec decode step is refused, as the reference fails
+    it)."""
     import torch
 
     from repro_torch.configs import get_smoke_config
@@ -83,6 +90,8 @@ def build_step_region(arch: str, kind: str, modes: Sequence[str], *,
                          f"{', '.join(sorted(registry))}")
 
     cfg = get_smoke_config(arch)
+    if kind == "decode" and cfg.family == "encdec":
+        raise NotImplementedError(ENCDEC_DECODE_REFUSED)
     api = build(cfg)
     params = api.init(0, dev)
     shape = ShapeConfig("probe", kind, seq, batch)

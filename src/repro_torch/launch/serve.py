@@ -1,5 +1,8 @@
 """Serving launcher: batched generation with continuous batching over the
-paged KV-cache pool (``--dense`` forces the per-slot dense layout).
+paged KV-cache pool (``--dense`` forces the per-slot dense layout; the ssm
+and hybrid families serve on the dense layout with the sequential
+prefill, and the encdec family is refused as the reference fails it:
+``serve/engine.py``).
 
 PyTorch port of the reference's ``repro.launch.serve``, with the same flags
 and request stream (prompts of 2–11 tokens from ``RandomState(0)``) plus

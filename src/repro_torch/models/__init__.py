@@ -1,2 +1,3 @@
-"""Models of the port (the dense, MoE and VLM families): layers, attention,
-MoE, transformer, API."""
+"""Models of the port (every family: dense, MoE, VLM, SSM, hybrid and
+encoder-decoder): layers, attention, MoE, SSM, transformer, hybrid,
+encdec, API."""

@@ -25,8 +25,10 @@ of each slot and reads positions <= ``pos``, a prefill writes its pages and
 reads none, so calling either twice on the same arguments gives the same
 outputs and leaves the cache as after the first call.
 
-Not ported (ROADMAP queue 1): the flash score path (``attn_impl="flash"``),
-which raises, and whisper's cross-attention.
+Whisper's cross-attention (``cross_kv``, ``attn_cross``) attends over K/V
+precomputed from the encoder's output: no rope on q or on the cross K, no
+mask, f32 softmax. Not ported (ROADMAP queue 1): the flash score path
+(``attn_impl="flash"``), which raises.
 """
 from __future__ import annotations
 
@@ -40,8 +42,8 @@ from repro_torch.models.layers import (_normal, apply_rope, cdtype_of,
 
 NEG_INF = -1e30
 
-_FLASH = ("attn_impl='flash' is not ported; it waits for training (ROADMAP "
-          "queue 1, the rest of item 10)")
+_FLASH = ("attn_impl='flash' is not ported; it waits for training and its "
+          "custom VJP (ROADMAP queue 1, item 11)")
 
 
 class Attention(nn.Module):
@@ -304,3 +306,31 @@ def _attn_decode_paged(p: Attention, cfg, x, cache: dict, pos, page_table):
     kf, vf = _repeat_kv(cfg, ks), _repeat_kv(cfg, vs)
     out = _softmax_attend(q, kf, vf, keep[:, None, None, :], x.dtype)
     return _out_proj(p, cfg, out), cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+def init_cross_attention(gen: torch.Generator, cfg) -> Attention:
+    return init_attention(gen, cfg)
+
+
+def cross_kv(p: Attention, cfg, enc_out) -> dict:
+    """Cross K/V precomputed from the encoder output (B,F,D) ->
+    {"ck","cv"} (B,Kh,F,hd), no rope."""
+    x = enc_out.to(cdtype_of(cfg))
+    return {"ck": _proj(x, p.wk).transpose(1, 2),
+            "cv": _proj(x, p.wv).transpose(1, 2)}
+
+
+def attn_cross(p: Attention, cfg, x, ckv: dict):
+    """x (B,Sq,D) attends over the precomputed cross K/V: no rope on q, no
+    mask."""
+    q = _proj(x.to(cdtype_of(cfg)), p.wq).transpose(1, 2)
+    kf, vf = _repeat_kv(cfg, ckv["ck"]), _repeat_kv(cfg, ckv["cv"])
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    s = (q.float() * scale) @ kf.float().transpose(-1, -2)
+    w = torch.softmax(s, dim=-1)
+    out = (w @ vf.float()).to(x.dtype)
+    return _out_proj(p, cfg, out)

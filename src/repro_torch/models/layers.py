@@ -60,10 +60,22 @@ def init_rmsnorm(dim: int, cfg, device) -> RMSNorm:
 
 def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
     """RMSNorm computed in f32, returned in ``x``'s dtype."""
+    return rms_scale(x, p.scale, eps)
+
+
+def rms_scale(x: torch.Tensor, scale: torch.Tensor, eps: float):
+    """``rmsnorm`` with a bare scale tensor (the SSM's gated ``norm``)."""
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * p.scale.float()).to(x.dtype)
+    return (y * scale.float()).to(x.dtype)
+
+
+def stacked(n: int, one: dict) -> dict:
+    """One layer's cache tensors repeated on a leading (n, ...) axis, as the
+    reference stacks a scanned cache (a ring's ``kpos`` keeps its -1s)."""
+    return {name: t.expand((n,) + tuple(t.shape)).clone()
+            for name, t in one.items()}
 
 
 # ----------------------------------------------------------------------------

@@ -12,11 +12,13 @@ returns a :class:`ModelApi` with
   input_specs(shape)             -> {name: TensorSpec} (no allocation)
   dummy_batch(shape, generator)  -> {name: tensor}
 
-``build`` serves the decoder-only LM families: dense, moe and vlm (whose
-precomputed patch embeddings ``img_embeds`` go in front of the tokens). The
-others (ssm, hybrid, encdec) raise ``NotImplementedError`` naming their
-ROADMAP item; the sharding specs (``param_spec``, ``cache_spec``) wait for
-the parallel layer (ROADMAP queue 1, item 11).
+``build`` serves every family: the decoder-only LMs (dense, moe, and vlm,
+whose precomputed patch embeddings ``img_embeds`` go in front of the
+tokens), the Mamba2 LM (ssm), the zamba2 hybrid and whisper's
+encoder-decoder (whose ``frames`` are precomputed frame embeddings). The
+sharding specs (``param_spec``, ``cache_spec``) wait for the parallel layer
+(ROADMAP queue 1, item 11); the serving engine keeps its own table of each
+family's cache batch axis (``serve/engine.py``).
 """
 from __future__ import annotations
 
@@ -26,7 +28,10 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.models import encdec as encdec_mod
+from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf
 
 
@@ -77,6 +82,9 @@ class ModelApi:
             return {"tokens": TensorSpec((B, 1), torch.int32)}
         specs = {"tokens": TensorSpec((B, S), torch.int32),
                  "labels": TensorSpec((B, S), torch.int32)}
+        if cfg.family == "encdec":
+            specs["frames"] = TensorSpec(
+                (B, cfg.enc_frames, cfg.d_model), L.cdtype_of(cfg))
         if cfg.family == "vlm":
             specs["img_embeds"] = TensorSpec(
                 (B, cfg.n_img_tokens, cfg.d_model), L.cdtype_of(cfg))
@@ -104,41 +112,110 @@ class ModelApi:
 # Family adapters
 # ---------------------------------------------------------------------------
 
-def _build_lm(cfg: ModelConfig) -> ModelApi:       # dense / moe / vlm
+def _seeded(init_fn: Callable, cfg: ModelConfig) -> Callable:
+    """``init(seed, device)``: ``init_fn(generator, cfg)`` with a generator
+    on ``device`` seeded ``seed``."""
     def init(seed: int = 0, device="cuda"):
         gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
-        return tf.init_lm(gen, cfg)
+        return init_fn(gen, cfg)
+    return init
 
+
+def _batch_size(batch) -> int:
+    """A decode_init batch's size: a batch dict's tokens rows, or an int."""
+    return batch["tokens"].shape[0] if isinstance(batch, dict) else batch
+
+
+def _build_lm(cfg: ModelConfig) -> ModelApi:       # dense / moe / vlm
     def decode_init(params, batch):
-        B = batch["tokens"].shape[0] if isinstance(batch, dict) else batch
         max_seq = batch.get("max_seq", cfg.window or 32768) \
             if isinstance(batch, dict) else (cfg.window or 32768)
-        return tf.lm_decode_init(params, cfg, B, max_seq, _device_of(params))
+        return tf.lm_decode_init(params, cfg, _batch_size(batch), max_seq,
+                                 _device_of(params))
 
     return ModelApi(
         cfg=cfg,
-        init=init,
+        init=_seeded(tf.init_lm, cfg),
         forward=lambda p, b, **kw: tf.lm_forward(p, cfg, b, **kw),
         decode_init=decode_init,
         decode_step=lambda p, c, t, pos: tf.lm_decode_step(p, cfg, c, t, pos),
     )
 
 
+def _build_ssm(cfg: ModelConfig) -> ModelApi:
+    def forward(params, batch, **_):
+        h = L.embed(params.embed, batch["tokens"], cfg)
+        for lp in params.blocks:
+            h = h + ssm_mod.ssm_block(lp.ssm, cfg,
+                                      L.rmsnorm(lp.ln, h, cfg.norm_eps))
+        h = L.rmsnorm(params.final_norm, h, cfg.norm_eps)
+        return L.unembed(params.embed, h, cfg), {}
+
+    def decode_init(params, batch):
+        one = ssm_mod.init_ssm_cache(cfg, _batch_size(batch),
+                                     _device_of(params))
+        return {"ssm": L.stacked(cfg.n_layers, one)}
+
+    def decode_step(params, cache, tokens, pos):
+        del pos  # the SSM state is position-free
+        h = L.embed(params.embed, tokens, cfg)
+        states, convs = [], []
+        for i, lp in enumerate(params.blocks):
+            sc = {name: t[i] for name, t in cache["ssm"].items()}
+            out, new = ssm_mod.ssm_decode_step(
+                lp.ssm, cfg, L.rmsnorm(lp.ln, h, cfg.norm_eps), sc)
+            h = h + out
+            states.append(new["state"])
+            convs.append(new["conv"])
+        h = L.rmsnorm(params.final_norm, h, cfg.norm_eps)
+        return L.unembed(params.embed, h, cfg), {
+            "ssm": {"state": torch.stack(states),
+                    "conv": torch.stack(convs)}}
+
+    return ModelApi(cfg=cfg, init=_seeded(ssm_mod.init_ssm_lm, cfg),
+                    forward=forward, decode_init=decode_init,
+                    decode_step=decode_step)
+
+
+def _build_hybrid(cfg: ModelConfig) -> ModelApi:
+    def decode_init(params, batch):
+        max_seq = batch.get("max_seq", 4096) if isinstance(batch, dict) \
+            else 4096
+        return hybrid_mod.hybrid_decode_init(
+            params, cfg, _batch_size(batch), max_seq, _device_of(params))
+
+    return ModelApi(
+        cfg=cfg,
+        init=_seeded(hybrid_mod.init_hybrid, cfg),
+        forward=lambda p, b, **kw: hybrid_mod.hybrid_forward(p, cfg, b, **kw),
+        decode_init=decode_init,
+        decode_step=lambda p, c, t, pos: hybrid_mod.hybrid_decode_step(
+            p, cfg, c, t, pos))
+
+
+def _build_encdec(cfg: ModelConfig) -> ModelApi:
+    return ModelApi(
+        cfg=cfg,
+        init=_seeded(encdec_mod.init_encdec, cfg),
+        forward=lambda p, b, **kw: encdec_mod.encdec_forward(p, cfg, b, **kw),
+        decode_init=lambda p, b: encdec_mod.encdec_decode_init(p, cfg, b),
+        decode_step=lambda p, c, t, pos: encdec_mod.encdec_decode_step(
+            p, cfg, c, t, pos))
+
+
 LM_FAMILIES = ("dense", "moe", "vlm")
 
-_WAITING = {
-    "ssm": "the SSM family (ssm.py)",
-    "hybrid": "the hybrid family (hybrid.py)",
-    "encdec": "the encoder-decoder family (encdec.py)",
+_BUILDERS = {
+    "dense": _build_lm,
+    "moe": _build_lm,
+    "vlm": _build_lm,
+    "ssm": _build_ssm,
+    "hybrid": _build_hybrid,
+    "encdec": _build_encdec,
 }
 
 
 def build(cfg: ModelConfig) -> ModelApi:
-    if cfg.family in LM_FAMILIES:
-        return _build_lm(cfg)
-    if cfg.family in _WAITING:
-        raise NotImplementedError(
-            f"{_WAITING[cfg.family]} is not ported; it waits for the next "
-            "port slice (ROADMAP queue 1, the rest of item 10: ssm.py, "
-            "hybrid.py, encdec.py); the dense, moe and vlm families are")
-    raise ValueError(f"unknown model family {cfg.family!r}")
+    if cfg.family not in _BUILDERS:
+        raise ValueError(f"unknown model family {cfg.family!r}")
+    return _BUILDERS[cfg.family](cfg)

@@ -135,17 +135,10 @@ def lm_forward(params: LM, cfg, batch, *, n_groups=1, return_cache=False):
     return logits, _mean_aux(auxs)
 
 
-def _stacked(cfg, one: dict) -> dict:
-    """One layer's cache tensors repeated on a leading (L, ...) axis (a
-    ring's ``kpos`` keeps its -1s)."""
-    return {name: t.expand((cfg.n_layers,) + tuple(t.shape)).clone()
-            for name, t in one.items()}
-
-
 def lm_decode_init(params: LM, cfg, batch_size: int, max_seq: int, device):
     del params
-    return {"kv": _stacked(cfg, attn.init_cache(cfg, batch_size, max_seq,
-                                                device))}
+    return {"kv": L.stacked(cfg.n_layers, attn.init_cache(
+        cfg, batch_size, max_seq, device))}
 
 
 def lm_prefill(params: LM, cfg, batch, max_seq: int):
@@ -187,8 +180,8 @@ def lm_paged_decode_init(params: LM, cfg, n_pages: int, page_size: int,
     NOT part of the cache: slot->page assignment is a host (engine) decision
     and is passed into each decode step as a plain operand."""
     del params
-    return {"kv": _stacked(cfg, attn.init_paged_cache(cfg, n_pages,
-                                                      page_size, device))}
+    return {"kv": L.stacked(cfg.n_layers, attn.init_paged_cache(
+        cfg, n_pages, page_size, device))}
 
 
 def lm_paged_prefill(params: LM, cfg, batch, cache, page_rows):

@@ -1,10 +1,9 @@
 """Batched serving engine: continuous batching over a paged KV-cache pool.
 
-PyTorch port of the reference's ``repro.serve.engine`` for the families
-with an attention KV cache (dense, moe, vlm) without a sliding window.
-Slots: a fixed decode batch of ``n_slots`` sequences with per-slot
-positions. Requests queue up; a finished slot is immediately refilled from
-the queue — decode never stalls on stragglers of the batch.
+PyTorch port of the reference's ``repro.serve.engine``. Slots: a fixed
+decode batch of ``n_slots`` sequences with per-slot positions. Requests
+queue up; a finished slot is immediately refilled from the queue — decode
+never stalls on stragglers of the batch.
 
 Two cache layouts:
 
@@ -15,7 +14,9 @@ Two cache layouts:
   bookkeeping (``pos``, ``cur``, the active mask) lives on the device; each
   tick is one call of the tick program plus a single host sync that fetches
   the sampled tokens and positions.
-* **dense** (``paged=False``): the per-slot (B, Kh, S, hd) cache. Its
+* **dense** (``paged=False``, and the only layout of the ssm and hybrid
+  families): the per-slot cache, every slot decoding at each tick with
+  its own position. For the attention families (dense, moe, vlm) an
   admission wave prefills in the same batched, bucketed forward as the
   paged one's (the reference prefills one request at a time at its own
   length): the card's product kernels depend on the shapes, and the same
@@ -23,7 +24,11 @@ Two cache layouts:
   same batch is also the same routing: an expert's capacity depends on
   the tokens of the call, padding rows included, so both layouts route the
   same rows at the same shapes (the decode tick routes every slot, inactive
-  ones too, as the reference's does).
+  ones too, as the reference's does). The ssm and hybrid families prefill
+  SEQUENTIALLY, as the reference's: each request alone, its prompt
+  replayed one token at a time through ``decode_step`` on a fresh
+  single-slot cache, which is then scattered into the batched cache along
+  each leaf's batch axis (``CACHE_BATCH_AXIS``).
 
 Dense and paged layouts are numerically identical; tests pin it. The
 programs run eagerly: PyTorch has no ``jit`` to call, and the probe's serve
@@ -35,13 +40,14 @@ re-run any number of times.
 Sampling: greedy, or temperature with Gumbel noise from a
 ``torch.Generator`` seeded per call from the engine's host generator (the
 reference splits a ``PRNGKey``; the draws differ, greedy decoding is what
-the tests compare). The families without an attention KV cache (ssm,
-hybrid, encdec) wait for their models and the dense layout's sequential
-prefill (ROADMAP queue 1, the rest of item 10). A sliding-window config is
-refused in both layouts: the paged layout has no ring, as the reference's,
-and the reference's dense layout cannot serve one (its prefill pads the KV
-to ``max_seq`` where the batched cache is a ring of ``window`` slots, and
-the first admission fails; ROADMAP queue 3).
+the tests compare); a sequential prefill's first token is the argmax, as
+the reference's. Refused, as the reference fails: the paged layout for
+the ssm, hybrid and encdec families and for a sliding window (the
+reference's ``ValueError``); a sliding-window config in the dense layout
+(the reference's prefill pads the KV to ``max_seq`` where the batched
+cache is a ring of ``window`` slots, and the first admission fails); and
+the encdec family (the reference's engine calls ``decode_init`` without
+``frames``: ``KeyError: 'frames'``). ROADMAP queue 3 holds both faults.
 """
 from __future__ import annotations
 
@@ -55,6 +61,22 @@ import torch
 
 from repro_torch.models import transformer as tf
 from repro_torch.models.model import LM_FAMILIES, ModelApi
+
+# the families whose dense layout prefills sequentially, and the batch axis
+# of each of their cache leaves (the reference reads it from cache_spec();
+# every leaf is stacked on a leading layer or invocation axis)
+CACHE_BATCH_AXIS = {
+    "ssm": {"ssm": {"state": 1, "conv": 1}},
+    "hybrid": {"ssm": {"state": 1, "conv": 1}, "kv": {"k": 1, "v": 1}},
+}
+
+
+ENCDEC_REFUSED = (
+    "serving the encdec family is refused: the reference's engine calls "
+    "decode_init(params, {'tokens', 'max_seq'}) without 'frames', and "
+    "encdec_decode_init reads batch['frames'], so it fails with KeyError: "
+    "'frames' (ROADMAP queue 3); serving audio is a feature the reference "
+    "lacks")
 
 
 @dataclasses.dataclass
@@ -100,24 +122,23 @@ class ServeEngine:
             "ticks": 0, "wall_s": 0.0, "occupancy_sum": 0.0,
             "occupancy_n": 0}
 
-        if self.cfg.family not in LM_FAMILIES:
-            raise NotImplementedError(
-                f"serving family={self.cfg.family!r} is not ported (ROADMAP "
-                "queue 1, the rest of item 10: the dense layout's sequential "
-                f"prefill); the families {list(LM_FAMILIES)} are")
+        pageable = self.cfg.family in LM_FAMILIES and not self.cfg.window
+        if paged and not pageable:
+            raise ValueError(
+                f"paged serving needs an attention KV cache without a "
+                f"sliding window (family={self.cfg.family!r}, "
+                f"window={self.cfg.window})")
+        if self.cfg.family == "encdec":
+            raise NotImplementedError(ENCDEC_REFUSED)
         if self.cfg.window:
-            if paged:
-                raise ValueError(
-                    f"paged serving needs an attention KV cache without a "
-                    f"sliding window (family={self.cfg.family!r}, "
-                    f"window={self.cfg.window})")
             raise NotImplementedError(
                 f"serving a sliding-window config (window={self.cfg.window}) "
                 "is refused: the reference's dense layout cannot serve it "
                 "(its lm_prefill pads the KV to max_seq while init_cache "
                 "makes a ring of window slots, and the first admission "
                 "fails on the shapes; ROADMAP queue 3)")
-        self.paged = True if paged is None else paged
+        self.paged = pageable if paged is None else paged
+        self._sequential = self.cfg.family in CACHE_BATCH_AXIS
 
         dev = self.device
         self.pos = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
@@ -322,8 +343,40 @@ class ServeEngine:
         return float(self.active.mean())
 
     # -- dense path ----------------------------------------------------
+    def _admit(self, slot: int, req: Request) -> None:
+        """Sequential prefill of ``req`` into ``slot`` (ssm, hybrid): the
+        prompt replayed through ``decode_step`` one token at a time on a
+        fresh single-slot cache, then scattered into the batched one."""
+        dev = self.device
+        prompt = torch.tensor(req.prompt, dtype=torch.int32,
+                              device=dev)[None, :]              # (1, Sp)
+        sp = prompt.shape[1]
+        c1 = self.api.decode_init(self.params, {"tokens": prompt[:, :1],
+                                                "max_seq": self.max_seq})
+        for i in range(sp):
+            logits, c1 = self.api.decode_step(
+                self.params, c1, prompt[:, i:i + 1],
+                torch.tensor(i, dtype=torch.int32, device=dev))
+        for group, axes in CACHE_BATCH_AXIS[self.cfg.family].items():
+            for name, ax in axes.items():
+                self.cache[group][name].select(ax, slot).copy_(
+                    c1[group][name].select(ax, 0))
+        next_tok = torch.argmax(logits[0, -1]).to(torch.int32)
+        self.pos[slot] = sp
+        self.cur[slot, 0] = next_tok
+        req.out.append(int(next_tok))
+        self._set_active(slot, True)
+        self.slot_req[slot] = req
+        self.stats["prefill_tokens"] += sp
+        self.stats["prefill_calls"] += 1
+
     def _step_dense(self) -> None:
-        self._admit_wave()
+        if self._sequential:
+            for slot in range(self.n_slots):
+                if not self.active[slot] and self.queue:
+                    self._admit(slot, self.queue.popleft())
+        else:
+            self._admit_wave()
         if not self.active.any():
             return
         logits, self.cache = self.api.decode_step(self.params, self.cache,

@@ -26,6 +26,7 @@ except ModuleNotFoundError:   # property tests skip; the rest still runs
 
 import json
 import os
+import re
 
 import pytest
 
@@ -269,7 +270,9 @@ def test_calibrate_target_kind_plans_and_resolves(tmp_path):
                  TargetSpec("calibrate", CALIB_MODES, {"n": 0})):
         with pytest.raises(PlanError):
             spec.validate()
-    with pytest.raises(PlanError, match="not ported"):
+    with pytest.raises(PlanError, match=re.escape(
+            "serve target 'mamba2_780m': paged serving needs an attention "
+            "KV cache without a sliding window (family='ssm', window=0)")):
         TargetSpec("serve", ("fp_add32",),
                    {"arch": "mamba2_780m"}).validate()
 

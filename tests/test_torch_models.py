@@ -307,15 +307,16 @@ def test_init_draws_the_reference_distributions():
                                   "zamba2_1p2b", "whisper_large_v3",
                                   "llava_next_34b"])
 def test_other_families_refused(arch):
-    """The ssm, hybrid and encdec families wait for the next slice; the moe
-    and vlm families build (``tests/test_torch_moe.py``,
-    ``test_torch_vlm.py``)."""
+    """Every family builds now: the moe and vlm families
+    (``tests/test_torch_moe.py``, ``test_torch_vlm.py``) and the ssm,
+    hybrid and encdec families (``test_torch_ssm.py``,
+    ``test_torch_hybrid_encdec.py``); an unknown family is refused."""
     cfg = configs.get_smoke_config(arch)
-    if cfg.family in ("moe", "vlm"):
-        assert build(cfg).cfg is cfg
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        build(cfg)
+    api = build(cfg)
+    assert api.cfg is cfg
+    assert api.init(0, "cpu") is not None
+    with pytest.raises(ValueError, match="unknown model family"):
+        build(dataclasses.replace(cfg, family="rnn"))
 
 
 def test_input_specs_and_dummy_batch():

@@ -402,8 +402,13 @@ def test_plan_refusals_for_windows_and_the_next_families():
         TargetSpec("serve", ("fp_add32",),
                    {"arch": "mixtral_8x22b"}).validate()
     for arch in ("mamba2_780m", "zamba2_1p2b", "whisper_large_v3"):
-        with pytest.raises(PlanError, match="ssm.py, hybrid.py, encdec.py"):
-            TargetSpec("step", ("fp_add32",), {"arch": arch}).validate()
+        TargetSpec("step", ("fp_add32",), {"arch": arch}).validate()
+    for arch in ("mamba2_780m", "zamba2_1p2b"):
+        TargetSpec("step", ("fp_add32",),
+                   {"arch": arch, "kind": "decode"}).validate()
+    with pytest.raises(PlanError, match="KeyError: 'frames'"):
+        TargetSpec("step", ("fp_add32",),
+                   {"arch": "whisper_large_v3", "kind": "decode"}).validate()
 
 
 @pytest.mark.parametrize("argv,names", [

@@ -239,8 +239,9 @@ def test_pool_below_single_request_rejected(smoke):
 
 def test_windowed_and_other_families_refused(smoke):
     """A window: the paged layout with the reference's message, the dense
-    layout naming the reference's own fault; a family without an attention
-    KV cache: the next slice."""
+    layout naming the reference's own fault; the ssm family is served on
+    the dense layout; the encdec family is refused, naming the reference's
+    ``KeyError: 'frames'``."""
     api, params = smoke
     windowed = dataclasses.replace(api, cfg=dataclasses.replace(
         api.cfg, window=16))
@@ -248,10 +249,12 @@ def test_windowed_and_other_families_refused(smoke):
         ServeEngine(windowed, params)
     with pytest.raises(ValueError, match="without a sliding window"):
         ServeEngine(windowed, params, paged=True)
-    ssm = dataclasses.replace(api, cfg=configs.get_smoke_config(
-        "mamba2_780m"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        ServeEngine(ssm, params)
+    ssm = build(configs.get_smoke_config("mamba2_780m"))
+    assert not ServeEngine(ssm, ssm.init(0, "cpu")).paged
+    whisper = build(configs.get_smoke_config("whisper_large_v3"))
+    with pytest.raises(NotImplementedError,
+                       match="KeyError: 'frames'.*ROADMAP queue 3"):
+        ServeEngine(whisper, whisper.init(0, "cpu"))
 
 
 # ---------------------------------------------------------------------------
@@ -589,3 +592,97 @@ def test_launch_serve_cli_serves_qwen3_smoke(capsys):
     assert not dense.paged
     assert [r.out for r in dreqs] == [r.out for r in reqs]
     assert "3 requests on 4 slots (dense, cpu)" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# the ssm, hybrid and encdec families: the dense layout's sequential prefill
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["mamba2_780m", "zamba2_1p2b"])
+def test_sequential_prefill_tokens_equal_the_reference_engine_f32(arch):
+    """Greedy tokens of mamba2 and zamba2 smoke against the reference
+    engine, request for request, on the same weights: both serve on the
+    dense layout (the default for these families), each admission replays
+    its prompt through decode_step, slots refill as requests retire."""
+    from repro import configs as ref_configs
+    from repro.models.model import build as ref_build
+    from repro.serve import ServeEngine as RefEngine
+    from repro_torch.convert import params_to_torch
+
+    rapi = ref_build(_f32(ref_configs.get_smoke_config(arch)))
+    rparams = rapi.init(jax.random.PRNGKey(0))
+    api = build(_f32(configs.get_smoke_config(arch)))
+    params = params_to_torch(api.cfg, jax.tree.map(np.asarray, rparams))
+    prompts = _prompts(5, np.random.default_rng(15), lo=2, hi=12)
+    news = [5, 9, 3, 7, 6]
+    outs = []
+    for eng in (RefEngine(rapi, rparams, n_slots=2, max_seq=32),
+                ServeEngine(api, params, n_slots=2, max_seq=32)):
+        assert not eng.paged
+        reqs = [eng.submit(p, max_new=n) for p, n in zip(prompts, news)]
+        eng.run()
+        assert all(r.done for r in reqs)
+        assert eng.report()["prefill_calls"] == len(prompts)
+        outs.append([r.out for r in reqs])
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("arch", ["mamba2_780m", "zamba2_1p2b",
+                                  "whisper_large_v3"])
+def test_paged_serving_of_the_other_families_refused(arch):
+    """``paged=True`` raises the reference's ValueError for the three
+    families; the encdec family is refused on the dense layout too, naming
+    the reference's ``KeyError: 'frames'``."""
+    from repro import configs as ref_configs
+    from repro.models.model import build as ref_build
+    from repro.serve import ServeEngine as RefEngine
+
+    api = build(configs.get_smoke_config(arch))
+    params = api.init(0, "cpu")
+    rapi = ref_build(ref_configs.get_smoke_config(arch))
+    with pytest.raises(ValueError) as want:
+        RefEngine(rapi, rapi.init(jax.random.PRNGKey(0)), paged=True)
+    with pytest.raises(ValueError) as got:
+        ServeEngine(api, params, paged=True)
+    assert str(got.value) == str(want.value)
+    if api.cfg.family == "encdec":
+        with pytest.raises(KeyError, match="frames"):
+            RefEngine(rapi, rapi.init(jax.random.PRNGKey(0)))
+        for paged in (None, False):
+            with pytest.raises(NotImplementedError,
+                               match="KeyError: 'frames'"):
+                ServeEngine(api, params, paged=paged)
+    else:
+        assert not ServeEngine(api, params).paged
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b"])
+def test_launch_serve_cli_serves_the_ssm_families_on_cpu(arch, capsys):
+    from repro_torch.launch.serve import main
+
+    eng, reqs = main(["--arch", arch, "--smoke", "--device", "cpu",
+                      "--requests", "3", "--max-new", "4"])
+    assert not eng.paged and all(r.done and len(r.out) == 4 for r in reqs)
+    assert eng.report()["prefill_calls"] == 3
+    assert "3 requests on 4 slots (dense, cpu)" in capsys.readouterr().out
+
+
+def test_sequential_prefill_scatters_one_slot_only():
+    """An admission writes its own slot of every stacked leaf (axis 1) and
+    leaves the other slots' state alone."""
+    from repro_torch.serve.engine import CACHE_BATCH_AXIS
+
+    api = build(configs.get_smoke_config("zamba2_1p2b"))
+    eng = ServeEngine(api, api.init(0, "cpu"), n_slots=3, max_seq=16)
+    assert set(CACHE_BATCH_AXIS["hybrid"]) == set(eng.cache)
+    before = {g: {n: t.clone() for n, t in leaves.items()}
+              for g, leaves in eng.cache.items()}
+    eng._admit(1, eng.submit([5, 6, 7], max_new=2))
+    eng.queue.clear()
+    for group, axes in CACHE_BATCH_AXIS["hybrid"].items():
+        for name, ax in axes.items():
+            new, old = eng.cache[group][name], before[group][name]
+            assert not torch.equal(new.select(ax, 1), old.select(ax, 1))
+            for slot in (0, 2):
+                assert torch.equal(new.select(ax, slot), old.select(ax, slot))
+    assert eng.pos.tolist() == [0, 3, 0]
