@@ -162,7 +162,32 @@ JAX or of the reference package. Phases, each of which fails the run:
    smoke configs, each again with
    ``--expect-no-measure``, and the routes the reference fails (``--serve``
    on the three, whisper ``--kind decode``), each refused with its fault
-   named.
+   named;
+10. training (phase 9's models freed first, each path's before the next;
+   no hand-written kernel on these paths: the flash VJP is plain
+   PyTorch, as the reference's is plain jnp): gemma-2b at full width and
+   depth in bf16 with f32 masters (random weights drawn on the card from
+   seed 0), ``TrainConfig``'s defaults (AdamW, remat "nothing") with
+   warmup 1, 2 x 4096 tokens a step (train_4k's length) in 2
+   microbatches, the lcg task, ``Trainer.run`` for 4 steps: step 0's loss
+   within 2e-2 of ``api.loss`` computed before the step, finite losses and
+   grad norms; the state's bytes, the peak memory, each step's metrics
+   and wall seconds, tokens a second over steps 2-4 beside the step's
+   bound, and one more step traced (device time, kernels, top
+   operations); the flash VJP (``FlashAttention``) at gemma-2b's attention
+   widths (8 heads on 1 KV head, hd 256, seq 4096, f32, TF32 off, causal
+   and window 1024) against autograd through the blocked path, within
+   1e-4 of each result's largest |value|; the remat policies at full
+   width and 2 layers in f32 (1 x 1024 tokens), "nothing" and "dots"
+   within 1e-5 of each leaf's largest |g| under "full" (bitwise or not,
+   printed), the peak memory each adds; mamba2-780m at full width and depth
+   in bf16, 2 steps at 4 x 512 (the SSD's backward through autograd) and
+   one more traced;
+   ``python -m repro_torch.launch.train`` at the smoke config for 20
+   steps with checkpoints every 10, rerun to 40 (it must resume from step
+   20 and end below the first run's first loss), and ``Trainer.run`` with
+   a failure injected at step 12 (checkpoints every 5): step 12 replayed
+   once, its loss within 1e-6 of the uninterrupted run's.
 
 The last lines are the card, one ``{"kernels": [...]}`` JSON object, and
 ``{"ok": true, "device": {...}}``.
@@ -2944,6 +2969,380 @@ def phase_ssm(tmp: str, kernels: Kernels) -> dict:
     return {name: n_cuda for name, (n_cuda, _) in counts.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training
+# ---------------------------------------------------------------------------
+
+# gemma-2b at full width and depth (src/repro_torch/configs/gemma_2b.py),
+# bf16 params with f32 masters, TrainConfig's defaults (AdamW, remat
+# "nothing") but warmup_steps=1 (lr > 0 from the first update); train_4k's
+# sequence length (configs.base.SHAPES) at global batch 2 in 2
+# microbatches, the lcg task, Trainer.run for 4 steps
+TRAIN_ARCH = "gemma_2b"
+TRAIN_RUN = {"batch": 2, "microbatches": 2, "steps": 4}
+# step 0's loss against api.loss on the same params and batch, before the
+# step: the reference's own microbatch tolerance (tests/test_train.py)
+TRAIN_LOSS_REL = 2e-2
+# the flash VJP at gemma-2b's attention widths, f32, TF32 off, against
+# autograd through the blocked path: within FLASH_SHARE of each result's
+# largest |value|
+FLASH_VJP = {"batch": 1, "heads": 8, "kv_heads": 1, "head_dim": 256,
+             "seq": 4096, "windows": (0, 1024)}
+FLASH_SHARE = 1e-4
+# remat at full width, 2 of the 18 layers, f32, TF32 off: the gradients
+# under "nothing" and "dots" against "full", within REMAT_SHARE of each
+# leaf's largest |g|
+REMAT_CHECK = {"layers": 2, "batch": 1, "seq": 1024}
+REMAT_SHARE = 1e-5
+# mamba2-780m at full width and depth in bf16, remat "nothing"
+SSM_TRAIN = {"batch": 4, "seq": 512, "steps": 2}
+# the CLI at the smoke config, then a rerun that resumes; the restart
+# replay of Trainer.run (fail at step 12, checkpoints every 5 steps)
+TRAIN_CLI = ["--arch", "gemma-2b", "--smoke", "--seq", "128", "--batch",
+             "16", "--ckpt-every", "10"]
+RESTART = {"steps": 15, "fail_at": 12, "ckpt_every": 5, "seq": 128,
+           "batch": 16}
+RESTART_TOL = 1e-6
+
+
+def _state_bytes(state, microbatches: int) -> dict:
+    """The training state's bytes by part, with the f32 gradient
+    accumulator a step of several microbatches holds."""
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    params = list(state.params.parameters())
+    out = {"params": nbytes(params),
+           "master": nbytes((state.opt.master or {}).values()),
+           "mu": nbytes(state.opt.mu.values()),
+           "nu": nbytes(state.opt.nu.values())}
+    if microbatches > 1:
+        out["f32_accumulator"] = sum(p.numel() * 4 for p in params)
+    return out
+
+
+def _train_steps(api, params, shape, tcfg, steps: int) -> dict:
+    """``Trainer.run`` for ``steps`` steps on the lcg pipeline at
+    ``shape`` from ``params`` (AdamW state drawn beside them): each step's
+    metrics and wall seconds, the state's bytes and the peak memory; then
+    one more step traced (``device_ms``): its device time, kernels and top
+    device operations. Fails on a non-finite loss or grad norm."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.train import (Trainer, TrainState, adamw_init,
+                                   make_train_step)
+
+    cfg = api.cfg
+    pipe = SyntheticPipeline(cfg, shape, task="lcg", device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = TrainState(params=params, opt=adamw_init(params))
+    trainer = Trainer(api, tcfg, device="cuda")
+    state, hist = trainer.run(state, pipe, steps=steps)
+    torch.cuda.synchronize()
+    res = {"state_bytes": _state_bytes(state, tcfg.microbatches),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "steps": [{k: h[k] for k in ("step", "loss", "grad_norm", "lr",
+                                        "wall_s")} for h in hist]}
+    for h in hist:
+        print(f"{cfg.name} step {h['step']}: loss {h['loss']!r} grad_norm "
+              f"{h['grad_norm']!r} lr {h['lr']!r} wall {h['wall_s']!r} s",
+              flush=True)
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            raise RuntimeError(f"{cfg.name}: step {h['step']} gave loss "
+                               f"{h['loss']!r}, grad norm {h['grad_norm']!r}")
+    dev_ms, per_kernel, n_kernels, whole = device_ms(
+        partial(make_train_step(api, tcfg), state, pipe.batch(steps)),
+        reps=1, windows=1)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    res["trace"] = {"device_ms": dev_ms, "kernels_a_step": n_kernels,
+                    "device_records_whole": whole, "top_ms": dict(top)}
+    print(f"{cfg.name}: one more step traced: device {dev_ms!r} ms in "
+          f"{n_kernels} kernels (whole: {whole}); top device operations "
+          f"(ms a step): {json.dumps(dict(top))}", flush=True)
+    return res
+
+
+def _train_bound(cfg, tokens: int, seq: int, batch_rows: int) -> dict:
+    """The step's least time: max(FLOPs / the bf16 peak, the optimizer's
+    bytes / the HBM rate). FLOPs: 8·N·D (forward, the recomputed forward
+    of remat "nothing", and the backward's two) plus 4× the causal
+    attention's forward products (QK^T and PV over the S(S+1)/2 pairs a
+    head sees); optimizer bytes: each parameter's f32 gradient sum read,
+    its master, mu and nu read and written, its bf16 copy written."""
+    n = cfg.param_count()
+    pairs = seq * (seq + 1) // 2
+    attn_fwd = (2 * 2 * pairs * cfg.head_dim * cfg.n_heads * batch_rows
+                * cfg.n_layers)
+    flops = 8 * n * tokens + 4 * attn_fwd
+    opt_bytes = n * (4 + 3 * 8 + 2)
+    return {"flops": flops, "optimizer_bytes": opt_bytes,
+            "flops_s": flops / BF16_FLOPS,
+            "bytes_s": opt_bytes / HBM_BYTES_PER_S,
+            "bound_s": max(flops / BF16_FLOPS, opt_bytes / HBM_BYTES_PER_S)}
+
+
+def _train_gemma() -> dict:
+    """(a) gemma-2b at full width and depth: step 0's loss against
+    ``api.loss`` computed first, then 4 steps; tokens a second over steps
+    2-4 beside the step's bound."""
+    import torch
+
+    from repro_torch.configs import SHAPES, ShapeConfig, TrainConfig
+    from repro_torch.data.pipeline import SyntheticPipeline
+
+    api, params, _ = _draw(TRAIN_ARCH)
+    cfg = api.cfg
+    seq = SHAPES["train_4k"].seq_len
+    shape = ShapeConfig("train_4k", "train", seq, TRAIN_RUN["batch"])
+    batch0 = SyntheticPipeline(cfg, shape, task="lcg", device="cuda").batch(0)
+    with torch.no_grad():
+        want = float(api.loss(params, batch0)[0])
+    del batch0
+    tcfg = TrainConfig(warmup_steps=1,
+                       microbatches=TRAIN_RUN["microbatches"])
+    res = _train_steps(api, params, shape, tcfg, TRAIN_RUN["steps"])
+    del params
+    tokens = TRAIN_RUN["batch"] * seq
+    later = res["steps"][1:]
+    res.update(forward_loss=want, tokens_per_step=tokens,
+               tok_s_steps_2_4=tokens * len(later)
+               / sum(h["wall_s"] for h in later),
+               bound=_train_bound(cfg, tokens, seq, TRAIN_RUN["batch"]))
+    got = res["steps"][0]["loss"]
+    res["loss_rel_diff"] = abs(got - want) / abs(want)
+    print(f"{cfg.name} training at full width and depth, {tokens} tokens a "
+          f"step in {tcfg.microbatches} microbatches: {json.dumps(res)}; "
+          f"{card_line()}", flush=True)
+    if not res["loss_rel_diff"] <= TRAIN_LOSS_REL:
+        raise RuntimeError(f"{cfg.name}: step 0's loss {got!r} against "
+                           f"api.loss {want!r}: past {TRAIN_LOSS_REL}")
+    return res
+
+
+def _flash_vjp() -> dict:
+    """(b) ``FlashAttention`` against autograd through the blocked path at
+    gemma-2b's attention widths (the KV head repeated to the 8 query
+    heads, so dk and dv sum over them), causal and windowed."""
+    import torch
+
+    from repro_torch.models import attention as attn
+
+    c = FLASH_VJP
+    B, H, KH, S, hd = (c["batch"], c["heads"], c["kv_heads"], c["seq"],
+                       c["head_dim"])
+    gen = torch.Generator().manual_seed(3)
+    q0, do = (torch.randn((B, H, S, hd), generator=gen).cuda()
+              for _ in range(2))
+    k0, v0 = (torch.randn((B, KH, S, hd), generator=gen).cuda()
+              for _ in range(2))
+    pos = torch.arange(S, device="cuda")
+    res = {}
+    for window in c["windows"]:
+        outs = {}
+        for impl in ("flash", "blocked"):
+            q, k, v = (t.clone().requires_grad_(True) for t in (q0, k0, v0))
+            kf = k.repeat_interleave(H // KH, dim=1)
+            vf = v.repeat_interleave(H // KH, dim=1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if impl == "flash":
+                out = attn.sdpa_flash(q, kf, vf, causal=True, window=window)
+            else:
+                def mask_fn(qpos, kidx, window=window):
+                    keep = qpos[:, None] >= pos[kidx][None, :]
+                    if window:
+                        keep &= qpos[:, None] - pos[kidx][None, :] < window
+                    return keep
+
+                out = attn._sdpa_blocked(None, q, kf, vf, mask_fn, pos, 1024)
+            grads = torch.autograd.grad(out, (q, k, v), do)
+            torch.cuda.synchronize()
+            outs[impl] = ((out.detach(),) + grads,
+                          time.perf_counter() - t0)
+        row = {"flash_s": outs["flash"][1], "blocked_s": outs["blocked"][1]}
+        for name, got, want in zip(("out", "dq", "dk", "dv"),
+                                   outs["flash"][0], outs["blocked"][0]):
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            row[name] = {"max_abs_err": err, "tol": FLASH_SHARE * scale}
+            if not err <= FLASH_SHARE * scale:
+                raise RuntimeError(f"flash VJP, window {window}: {name} "
+                                   f"differs by {err!r} > "
+                                   f"{FLASH_SHARE * scale!r}")
+        res[f"window_{window}"] = row
+    print(f"flash VJP at B {B}, {H} heads (KV {KH} repeated), hd {hd}, seq "
+          f"{S}, f32, TF32 off, against autograd through the blocked path:"
+          f" {json.dumps(res)}", flush=True)
+    return res
+
+
+def _remat_check() -> dict:
+    """(c) gemma-2b at full width and REMAT_CHECK's layers in f32: the
+    gradients under every remat policy, against "full"; the peak memory
+    each call adds to what was allocated before it."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build
+    from repro_torch.train import loss_and_grads
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=REMAT_CHECK["layers"],
+                              param_dtype="float32", compute_dtype="float32")
+    api = build(cfg)
+    params = api.init(0, "cuda")
+    gen = torch.Generator().manual_seed(4)
+    shape = (REMAT_CHECK["batch"], REMAT_CHECK["seq"])
+    batch = {name: torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                                 dtype=torch.int32).cuda()
+             for name in ("tokens", "labels")}
+    grads, res = {}, {}
+    for remat in ("full", "dots", "nothing"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        _, _, grads[remat] = loss_and_grads(api, params, batch, remat=remat)
+        torch.cuda.synchronize()
+        res[remat] = {"s": time.perf_counter() - t0,
+                      "peak_bytes_above_start":
+                          torch.cuda.max_memory_allocated() - base}
+    for remat in ("dots", "nothing"):
+        worst = 0.0
+        for name, want in grads["full"].items():
+            err = float((grads[remat][name] - want).abs().max())
+            worst = max(worst, err / max(float(want.abs().max()), 1e-30))
+        res[remat]["max_share_of_max_g"] = worst
+        res[remat]["bitwise"] = all(
+            torch.equal(grads[remat][n], g) for n, g in grads["full"].items())
+        if not worst <= REMAT_SHARE:
+            raise RuntimeError(f"remat {remat}: gradients differ from "
+                               f"'full' by {worst!r} of a leaf's largest "
+                               f"|g| > {REMAT_SHARE}")
+    print(f"remat at full width, {cfg.n_layers} layers, f32, TF32 off, "
+          f"{shape[0]} x {shape[1]} tokens: {json.dumps(res)}", flush=True)
+    return res
+
+
+def _train_ssm() -> dict:
+    """(d) mamba2-780m at full width and depth: SSM_TRAIN's steps."""
+    from repro_torch.configs import ShapeConfig, TrainConfig
+
+    api, params, _ = _draw(SSM_ARCH)
+    shape = ShapeConfig("ssm_train", "train", SSM_TRAIN["seq"],
+                        SSM_TRAIN["batch"])
+    res = _train_steps(api, params, shape, TrainConfig(warmup_steps=1),
+                       SSM_TRAIN["steps"])
+    print(f"{api.cfg.name} training at full width and depth, "
+          f"{SSM_TRAIN['batch']} x {SSM_TRAIN['seq']} tokens: "
+          f"{json.dumps(res)}; {card_line()}", flush=True)
+    return res
+
+
+def _final_losses(stdout: str) -> tuple:
+    """(final, first) from the CLI's last line."""
+    line = [ln for ln in stdout.splitlines()
+            if ln.startswith("final loss:")][-1]
+    final, first = line.removeprefix("final loss:").split("(first:")
+    return float(final), float(first.rstrip(") "))
+
+
+def _train_cli(tmp: str) -> dict:
+    """(e) the CLI at the smoke config, a rerun that resumes from its
+    checkpoint; then ``Trainer.run`` with a failure at RESTART's step,
+    against the same run without one."""
+    import torch
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_smoke_config
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.models.model import build
+    from repro_torch.train import Trainer
+
+    env = dict(os.environ, PYTHONPATH=SRC)
+    ckpt_dir = os.path.join(tmp, "train_ckpt")
+    runs = []
+    for steps in (20, 40):
+        argv = [sys.executable, "-m", "repro_torch.launch.train",
+                *TRAIN_CLI, "--steps", str(steps), "--ckpt-dir", ckpt_dir]
+        out = subprocess.run(argv, env=env, capture_output=True, text=True,
+                             timeout=600)
+        print(f"== {' '.join(argv[1:])}\n{out.stdout}", flush=True)
+        if out.returncode:
+            raise RuntimeError(f"launch.train --steps {steps} failed: "
+                               f"{out.stderr[-2000:]}")
+        runs.append(out.stdout)
+    if "resumed from checkpoint step 20" not in runs[1]:
+        raise RuntimeError("the rerun did not resume from step 20")
+    first_final, first_first = _final_losses(runs[0])
+    second_final, _ = _final_losses(runs[1])
+    if not second_final < first_first:
+        raise RuntimeError(f"the resumed run's final loss {second_final} is "
+                           f"not below the first run's first {first_first}")
+
+    cfg = get_smoke_config(TRAIN_ARCH)
+    api = build(cfg)
+    shape = ShapeConfig("restart", "train", RESTART["seq"], RESTART["batch"])
+    pipe = SyntheticPipeline(cfg, shape, task="lcg", device="cuda")
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=2, total_steps=20,
+                       ckpt_every=RESTART["ckpt_every"])
+    armed = [True]
+
+    def fail(step):
+        if step == RESTART["fail_at"] and armed[0]:
+            armed[0] = False
+            raise RuntimeError("injected failure")
+
+    hists = []
+    for injector, ckpt in ((fail, CheckpointManager(
+            os.path.join(tmp, "restart_ckpt"), keep=2)), (None, None)):
+        tr = Trainer(api, tcfg, ckpt_manager=ckpt, device="cuda")
+        _, hist = tr.run(tr.init_state(), pipe, steps=RESTART["steps"],
+                         fail_injector=injector)
+        hists.append(hist)
+    torch.cuda.synchronize()
+    seen = [h["step"] for h in hists[0]]
+    at = RESTART["fail_at"]
+    replayed = [h["loss"] for h in hists[0] if h["step"] == at]
+    clean = hists[1][at]["loss"]
+    res = {"cli_first_run": {"first": first_first, "final": first_final},
+           "cli_resumed_final": second_final, "steps_seen": seen,
+           "replayed_loss": replayed, "uninterrupted_loss": clean,
+           "bitwise": replayed == [clean]}
+    print(f"train CLI and restart replay: {json.dumps(res)}", flush=True)
+    if seen.count(at) != 1 or seen[-1] != RESTART["steps"] - 1:
+        raise RuntimeError(f"restart: steps seen {seen}")
+    if not abs(replayed[0] - clean) <= RESTART_TOL:
+        raise RuntimeError(f"restart: step {at}'s replayed loss "
+                           f"{replayed[0]!r} against {clean!r}")
+    return res
+
+
+def phase_train(tmp: str, kernels: Kernels) -> dict:
+    """Phase 10: training. Phase 9's models are freed first, and each
+    path's before the next."""
+    banner("10. training: gemma-2b at full width and depth, the flash VJP, "
+           "remat, mamba2-780m, the CLI and the restart replay")
+    seconds: dict = {}
+    counts = {name: [0, 0] for name in kernels.rows}
+    res: dict = {}
+    paths = (("gemma", _train_gemma), ("flash_vjp", _flash_vjp),
+             ("remat", _remat_check), ("ssm", _train_ssm),
+             ("cli", partial(_train_cli, tmp)))
+    for name, fn in paths:
+        _free(f"before the training path {name}")
+        res[name] = drive(kernels, counts, seconds, f"train_{name}", (), fn)
+    _free("after the training paths")
+    print("phase 10 wall time per path (s): "
+          + json.dumps({k: round(v, 1) for k, v in seconds.items()}))
+    print("phase 10 results: " + json.dumps(res), flush=True)
+    return {name: n_cuda for name, (n_cuda, _) in counts.items()}
+
+
 def main() -> int:
     try:
         import torch
@@ -2987,6 +3386,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ssm_") as tmp:
         serve_launches.append(phase_ssm(tmp, kernels))
     lap("9")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        serve_launches.append(phase_train(tmp, kernels))
+    lap("10")
     print(f"\nwall time per phase (s): {json.dumps(elapsed)}")
     for row in rows:        # the serving paths are main paths too
         row["launches"] += sum(n[row["name"]] for n in serve_launches)

@@ -12,9 +12,13 @@ import dataclasses
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
+    SHAPES,
     HardwareConfig,
+    MeshConfig,
     ModelConfig,
     ShapeConfig,
+    TrainConfig,
+    shape_applicable,
 )
 
 ARCHS: tuple[str, ...] = (

@@ -1,8 +1,11 @@
 """Model, shape and hardware configurations.
 
-``ModelConfig`` and ``ShapeConfig`` are the reference's (``repro.configs.
-base``), field for field, so the ten ``configs/<arch>.py`` data modules
-resolve to the same names, widths and smoke reductions in both packages.
+``ModelConfig``, ``ShapeConfig`` (with ``SHAPES`` and ``shape_applicable``),
+``MeshConfig`` and ``TrainConfig`` are the reference's (``repro.configs.
+base``), field for field and default for default, so the ten
+``configs/<arch>.py`` data modules resolve to the same names, widths and
+smoke reductions in both packages, and a training run takes the same
+hyperparameters.
 
 Hardware models for the analytic saturation model (``core/analytic.py``):
 
@@ -88,6 +91,19 @@ class ModelConfig:
     def ssm_nheads(self) -> int:
         return self.d_inner // self.ssm_headdim
 
+    @property
+    def is_subquadratic(self) -> bool:
+        """Can this arch decode at 500k context without a full-attention KV
+        scan? True for SSM / hybrid and sliding-window attention."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.window > 0
+
+    @property
+    def has_decode(self) -> bool:
+        """Every assigned arch decodes (whisper's decoder does)."""
+        return True
+
     # Parameter count estimate (for MODEL_FLOPS = 6 N D and memory budgeting).
     def param_count(self) -> int:
         n = 0
@@ -139,6 +155,63 @@ class ShapeConfig:
     @property
     def is_decode(self) -> bool:
         return self.kind == "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k":    ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k":  ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k":   ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """(runs?, reason-if-skipped). long_500k needs sub-quadratic attention."""
+    if shape.name == "long_500k" and not cfg.is_subquadratic:
+        return False, ("full attention at 524288 ctx — skipped per "
+                       "assignment (sub-quadratic only)")
+    if shape.is_decode and not cfg.has_decode:
+        return False, "encoder-only arch has no decode step"
+    return True, ""
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """A device mesh's shape and axis names (the reference's; no mesh runs
+    in the port yet: ROADMAP queue 1)."""
+    shape: tuple[int, ...]
+    axes: tuple[str, ...]
+
+    @property
+    def n_devices(self) -> int:
+        out = 1
+        for s in self.shape:
+            out *= s
+        return out
+
+    @property
+    def batch_axes(self) -> tuple[str, ...]:
+        return tuple(a for a in self.axes if a in ("pod", "data"))
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    microbatches: int = 1            # grad accumulation
+    remat: str = "nothing"           # nothing | dots | full  (what to SAVE)
+    scan_group: int = 1              # layers per checkpointed group
+    grad_compress: str = "none"      # none | int8
+    seed: int = 0
+    ckpt_every: int = 200
+    ckpt_dir: str = "/tmp/repro_ckpt"
+    step_deadline_s: float = 0.0     # straggler watchdog; 0 = off
 
 
 @dataclass(frozen=True)

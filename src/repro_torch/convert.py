@@ -8,7 +8,13 @@ arrays and tuples of arrays, ``core.loopnoise``), and
 ``noise_state_to_torch`` for a graph-level noise mode's state
 (``core.noise``: arrays, tuples of them, bf16 matrices and int32 scalars),
 and ``params_to_torch`` for a model's initialised param tree of any family
-(the models hold random weights from a seed; nothing is downloaded).
+(the models hold random weights from a seed; nothing is downloaded), and
+``train_state_to_torch`` for a training state (params, AdamW moments and
+master copies, step), so both packages train from the same state.
+
+The reference stacks every per-layer leaf on a leading (L, ...) axis
+(``STACKED_TREES``); the port holds one module a layer, so a leaf's rank
+there is one more than the port tensor's (``reference_ndim``).
 """
 from __future__ import annotations
 
@@ -66,6 +72,17 @@ def noise_state_to_torch(name: str, state: dict, device="cpu") -> dict:
                   if isinstance(value, (tuple, list))
                   else _array_to_torch(value, device))
             for key, value in state.items()}
+
+
+# the param subtrees the reference stacks (L, ...), one slice a layer
+STACKED_TREES = ("layers", "blocks", "mamba", "enc_layers", "dec_layers")
+
+
+def reference_ndim(name: str, t: torch.Tensor) -> int:
+    """The rank of the reference's leaf for the port's parameter ``name``
+    (a ``named_parameters`` key): ``layers.3.ln1.scale`` (d,) is a slice of
+    the reference's (L, d) leaf, ``final_norm.scale`` is (d,) in both."""
+    return t.ndim + (name.split(".", 1)[0] in STACKED_TREES)
 
 
 def _layer(tree, i: int, device) -> dict:
@@ -182,3 +199,30 @@ def params_to_torch(cfg, params, device="cpu"):
     if cfg.family == "encdec":
         return encdec_params_to_torch(cfg, params, device)
     return lm_params_to_torch(cfg, params, device)
+
+
+def named_to_torch(cfg, tree, device="cpu") -> dict:
+    """A param-shaped reference tree -> {port parameter name: tensor}."""
+    return {name: p.detach() for name, p in
+            params_to_torch(cfg, tree, device).named_parameters()}
+
+
+def train_state_to_torch(cfg, state, device="cpu"):
+    """The reference's ``TrainState`` (numpy leaves: params, the AdamW
+    ``mu``/``nu``/``master`` trees laid out as the params, the step, the
+    compression residuals) -> the port's ``train.TrainState`` on
+    ``device``, through ``params_to_torch``'s layout map."""
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.trainer import TrainState
+
+    opt = state.opt
+    step = torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32,
+                        device=device)
+    return TrainState(
+        params=params_to_torch(cfg, state.params, device),
+        opt=AdamWState(step=step, mu=named_to_torch(cfg, opt.mu, device),
+                       nu=named_to_torch(cfg, opt.nu, device),
+                       master=(None if opt.master is None
+                               else named_to_torch(cfg, opt.master, device))),
+        residuals=(None if state.residuals is None
+                   else named_to_torch(cfg, state.residuals, device)))

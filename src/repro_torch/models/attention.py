@@ -27,8 +27,16 @@ outputs and leaves the cache as after the first call.
 
 Whisper's cross-attention (``cross_kv``, ``attn_cross``) attends over K/V
 precomputed from the encoder's output: no rope on q or on the cross K, no
-mask, f32 softmax. Not ported (ROADMAP queue 1): the flash score path
-(``attn_impl="flash"``), which raises.
+mask, f32 softmax.
+
+``attn_impl="flash"`` selects the reference's XLA-level flash attention on
+the train / prefill path: an online softmax over (q_block, kv_block) tiles
+with static triangular and window pruning, and a hand-written backward
+(``FlashAttention``, a ``torch.autograd.Function``, the reference's
+``custom_vjp``) that recomputes each tile from the saved row max and sum,
+so no (S, S) score tensor survives the forward. It is plain PyTorch, as the
+reference's is plain jnp; the Pallas kernel's counterpart is
+``kernels/flash_attention``.
 """
 from __future__ import annotations
 
@@ -41,9 +49,6 @@ from repro_torch.models.layers import (_normal, apply_rope, cdtype_of,
                                        dtype_of, param, rope_angles)
 
 NEG_INF = -1e30
-
-_FLASH = ("attn_impl='flash' is not ported; it waits for training and its "
-          "custom VJP (ROADMAP queue 1, item 11)")
 
 
 class Attention(nn.Module):
@@ -103,6 +108,14 @@ def _softmax_attend(q, k, v, keep, out_dtype):
     return (w @ v.float()).to(out_dtype)
 
 
+def _divisor_block(block: int, S: int) -> int:
+    """``block`` capped at S, else the largest divisor of S below it."""
+    block = min(block, S)
+    if S % block:
+        block = next(d for d in range(block, 0, -1) if S % d == 0)
+    return block
+
+
 def _sdpa_blocked(cfg, q, k, v, mask_fn, q_positions, q_block):
     """Blocked-over-queries softmax attention.
 
@@ -119,11 +132,145 @@ def _sdpa_blocked(cfg, q, k, v, mask_fn, q_positions, q_block):
 
     if Sq <= q_block:
         return block(q, q_positions)
-    if Sq % q_block:  # non-divisible: largest divisor
-        q_block = next(d for d in range(q_block, 0, -1) if Sq % d == 0)
+    q_block = _divisor_block(q_block, Sq)
     return torch.cat([block(q[:, :, i:i + q_block],
                             q_positions[i:i + q_block])
                       for i in range(0, Sq, q_block)], dim=2)
+
+
+def _flash_blocks(S, q_block, kv_block, causal, window):
+    """Static per-q-block kv ranges (the triangular / window pruning):
+    (q_block, kv_block, [(q0, lo, hi)]) with kv blocks lo..hi-1 visited."""
+    q_block = _divisor_block(q_block, S)
+    kv_block = _divisor_block(kv_block, S)
+    ranges = []
+    for qi in range(S // q_block):
+        q0 = qi * q_block
+        lo = max(0, (q0 - window + 1)) // kv_block if window else 0
+        hi = ((q0 + q_block - 1) // kv_block + 1) if causal \
+            else S // kv_block
+        ranges.append((q0, lo, hi))
+    return q_block, kv_block, ranges
+
+
+def _tile_mask(q0, k0, q_block, kv_block, causal, window, device):
+    """(q_block, kv_block) keep-mask of the tile at rows q0, columns k0."""
+    qpos = q0 + torch.arange(q_block, device=device)[:, None]
+    kpos = k0 + torch.arange(kv_block, device=device)[None, :]
+    keep = torch.ones((q_block, kv_block), dtype=torch.bool, device=device)
+    if causal:
+        keep &= qpos >= kpos
+    if window:
+        keep &= qpos - kpos < window
+    return keep
+
+
+def _tile_scores(qb, kt, q0, k0, q_block, kv_block, causal, window):
+    """Masked f32 scores of a (pre-scaled f32) q block against a kv tile."""
+    s = qb @ kt.float().transpose(-1, -2)
+    keep = _tile_mask(q0, k0, q_block, kv_block, causal, window, qb.device)
+    return torch.where(keep, s, NEG_INF)
+
+
+def _flash_fwd_impl(q, k, v, causal, window, q_block, kv_block):
+    """Online-softmax forward with STATIC triangular / window pruning: per
+    q block only the kv blocks inside the causal prefix (and window) are
+    visited; peak score memory is one (q_block, kv_block) tile. Returns
+    (out, m, l) — the row max and sum the backward recomputes from."""
+    B, H, S, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    q_block, kv_block, ranges = _flash_blocks(S, q_block, kv_block, causal,
+                                              window)
+    outs, ms, ls = [], [], []
+    for q0, lo, hi in ranges:
+        qb = q[:, :, q0:q0 + q_block].float() * scale
+        m = torch.full((B, H, q_block, 1), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, H, q_block, 1), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((B, H, q_block, hd), dtype=torch.float32,
+                          device=q.device)
+        for ki in range(lo, hi):
+            k0 = ki * kv_block
+            s = _tile_scores(qb, k[:, :, k0:k0 + kv_block], q0, k0, q_block,
+                             kv_block, causal, window)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            l = corr * l + p.sum(dim=-1, keepdim=True)
+            acc = acc * corr + p @ v[:, :, k0:k0 + kv_block].float()
+            m = m_new
+        outs.append((acc / torch.clamp(l, min=1e-30)).to(q.dtype))
+        ms.append(m)
+        ls.append(l)
+    return torch.cat(outs, dim=2), torch.cat(ms, dim=2), torch.cat(ls, dim=2)
+
+
+def _flash_bwd(q, k, v, out, m, l, do, causal, window, q_block, kv_block):
+    """Flash backward: each tile recomputed from the saved (m, l) row stats,
+    ``delta = sum(dO · O)``; dq per q block, dk and dv accumulated in f32
+    by the kv block."""
+    B, H, S, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    q_block, kv_block, ranges = _flash_blocks(S, q_block, kv_block, causal,
+                                              window)
+    dof = do.float()
+    delta = (dof * out.float()).sum(dim=-1, keepdim=True)
+    dq_blocks = []
+    dk = torch.zeros((B, H, k.shape[2], hd), dtype=torch.float32,
+                     device=q.device)
+    dv = torch.zeros_like(dk)
+    for q0, lo, hi in ranges:
+        rows = slice(q0, q0 + q_block)
+        qb = q[:, :, rows].float() * scale
+        mb = m[:, :, rows]
+        lb = torch.clamp(l[:, :, rows], min=1e-30)
+        dob = dof[:, :, rows]
+        db = delta[:, :, rows]
+        dqb = torch.zeros((B, H, q_block, hd), dtype=torch.float32,
+                          device=q.device)
+        for ki in range(lo, hi):
+            k0 = ki * kv_block
+            cols = slice(k0, k0 + kv_block)
+            kt = k[:, :, cols].float()
+            s = _tile_scores(qb, kt, q0, k0, q_block, kv_block, causal,
+                             window)
+            p = torch.exp(s - mb) / lb
+            dv[:, :, cols] += p.transpose(-1, -2) @ dob
+            dp = dob @ v[:, :, cols].float().transpose(-1, -2)
+            ds = p * (dp - db)                     # d(scaled scores)
+            dqb = dqb + (ds @ kt) * scale
+            dk[:, :, cols] += ds.transpose(-1, -2) @ qb
+        dq_blocks.append(dqb)
+    dq = torch.cat(dq_blocks, dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``_flash_fwd_impl`` forward, ``_flash_bwd`` backward (the
+    reference's ``_sdpa_flash_core`` custom VJP). q, k, v (B,H,S,hd) with
+    the KV heads already repeated; causal, window, q_block and kv_block
+    are static."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_block, kv_block):
+        out, m, l = _flash_fwd_impl(q, k, v, causal, window, q_block,
+                                    kv_block)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.static = (causal, window, q_block, kv_block)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, m, l = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, m, l, do, *ctx.static)
+        return dq, dk, dv, None, None, None, None
+
+
+def sdpa_flash(q, k, v, *, causal, window, q_block=1024, kv_block=1024):
+    """XLA-level flash attention with its hand-written backward. The
+    positions are arange(S), as on the train / prefill path."""
+    return FlashAttention.apply(q, k, v, causal, window, q_block, kv_block)
 
 
 def _out_proj(p: Attention, cfg, attn_out: torch.Tensor) -> torch.Tensor:
@@ -139,25 +286,29 @@ def attn_train(p: Attention, cfg, x, positions, *, causal=True, window=0,
     """Full-sequence self-attention (train / prefill).
 
     positions: (S,) int absolute positions. window>0 = sliding window.
-    Returns y (B,S,D), and with ``return_cache`` the roped k and raw v
-    (B,Kh,S,hd) for a decode cache.
+    ``cfg.attn_impl`` selects the score path: "blocked" (q-chunked,
+    materializes (q_block, Sk) scores) or "flash" (online softmax, static
+    pruning, ``FlashAttention``'s backward). Returns y (B,S,D), and with
+    ``return_cache`` the roped k and raw v (B,Kh,S,hd) for a decode cache.
     """
-    if cfg.attn_impl == "flash":
-        raise NotImplementedError(_FLASH)
     q, k, v = _project_qkv(p, cfg, x, positions)
     kf, vf = _repeat_kv(cfg, k), _repeat_kv(cfg, v)
 
-    def mask_fn(qpos, kidx):
-        kpos = positions[kidx]
-        keep = torch.ones((qpos.shape[0], kidx.shape[0]), dtype=torch.bool,
-                          device=qpos.device)
-        if causal:
-            keep &= qpos[:, None] >= kpos[None, :]
-        if window:
-            keep &= qpos[:, None] - kpos[None, :] < window
-        return keep
+    if cfg.attn_impl == "flash":
+        out = sdpa_flash(q, kf, vf, causal=causal, window=window,
+                         q_block=q_block)
+    else:
+        def mask_fn(qpos, kidx):
+            kpos = positions[kidx]
+            keep = torch.ones((qpos.shape[0], kidx.shape[0]),
+                              dtype=torch.bool, device=qpos.device)
+            if causal:
+                keep &= qpos[:, None] >= kpos[None, :]
+            if window:
+                keep &= qpos[:, None] - kpos[None, :] < window
+            return keep
 
-    out = _sdpa_blocked(cfg, q, kf, vf, mask_fn, positions, q_block)
+        out = _sdpa_blocked(cfg, q, kf, vf, mask_fn, positions, q_block)
     y = _out_proj(p, cfg, out)
     if return_cache:
         return y, {"k": k, "v": v}

@@ -11,11 +11,14 @@ and only read.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models.transformer import remat_call
 
 
 class EncLayer(nn.Module):
@@ -80,36 +83,47 @@ def init_encdec(gen: torch.Generator, cfg) -> EncDec:
                   L.init_rmsnorm(cfg.d_model, cfg, dev))
 
 
-def encode(params: EncDec, cfg, frames):
-    """frames (B,F,D) stub embeddings -> encoder states (B,F,D)."""
+def encode(params: EncDec, cfg, frames, *, remat="nothing"):
+    """frames (B,F,D) stub embeddings -> encoder states (B,F,D); each layer
+    checkpointed as ``remat`` says."""
     h = frames.to(L.cdtype_of(cfg))
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+
+    def body(hh, lp):
+        hh = hh + attn.attn_train(lp.attn, cfg,
+                                  L.rmsnorm(lp.ln1, hh, cfg.norm_eps),
+                                  positions, causal=False)
+        return hh + L.mlp(lp.mlp, L.rmsnorm(lp.ln2, hh, cfg.norm_eps), cfg)
+
     for lp in params.enc_layers:
-        h = h + attn.attn_train(lp.attn, cfg,
-                                L.rmsnorm(lp.ln1, h, cfg.norm_eps),
-                                positions, causal=False)
-        h = h + L.mlp(lp.mlp, L.rmsnorm(lp.ln2, h, cfg.norm_eps), cfg)
+        h = remat_call(remat, partial(body, lp=lp), h, modules=(lp,))
     return L.rmsnorm(params.enc_norm, h, cfg.norm_eps)
 
 
-def decoder_forward(params: EncDec, cfg, tokens, enc_out):
+def decoder_forward(params: EncDec, cfg, tokens, enc_out, *,
+                    remat="nothing"):
     h = L.embed(params.embed, tokens, cfg)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
-    for lp in params.dec_layers:
-        h = h + attn.attn_train(lp.attn, cfg,
-                                L.rmsnorm(lp.ln1, h, cfg.norm_eps),
-                                positions, causal=True)
+
+    def body(hh, lp):
+        hh = hh + attn.attn_train(lp.attn, cfg,
+                                  L.rmsnorm(lp.ln1, hh, cfg.norm_eps),
+                                  positions, causal=True)
         ckv = attn.cross_kv(lp.xattn, cfg, enc_out)
-        h = h + attn.attn_cross(lp.xattn, cfg,
-                                L.rmsnorm(lp.lnx, h, cfg.norm_eps), ckv)
-        h = h + L.mlp(lp.mlp, L.rmsnorm(lp.ln2, h, cfg.norm_eps), cfg)
+        hh = hh + attn.attn_cross(lp.xattn, cfg,
+                                  L.rmsnorm(lp.lnx, hh, cfg.norm_eps), ckv)
+        return hh + L.mlp(lp.mlp, L.rmsnorm(lp.ln2, hh, cfg.norm_eps), cfg)
+
+    for lp in params.dec_layers:
+        h = remat_call(remat, partial(body, lp=lp), h, modules=(lp,))
     h = L.rmsnorm(params.final_norm, h, cfg.norm_eps)
     return L.unembed(params.embed, h, cfg)
 
 
-def encdec_forward(params: EncDec, cfg, batch, **_):
-    enc_out = encode(params, cfg, batch["frames"])
-    return decoder_forward(params, cfg, batch["tokens"], enc_out), {}
+def encdec_forward(params: EncDec, cfg, batch, *, remat="nothing", **_):
+    enc_out = encode(params, cfg, batch["frames"], remat=remat)
+    return decoder_forward(params, cfg, batch["tokens"], enc_out,
+                           remat=remat), {}
 
 
 def encdec_decode_init(params: EncDec, cfg, batch) -> dict:

@@ -12,12 +12,15 @@ the Mamba states come back as new tensors (``models/ssm.py``).
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
+from repro_torch.models.transformer import remat_call
 
 
 def n_invocations(cfg) -> int:
@@ -67,14 +70,22 @@ def _shared_block(sp: Shared, cfg, h, positions):
     return h + L.mlp(sp.mlp, L.rmsnorm(sp.ln2, h, cfg.norm_eps), cfg)
 
 
-def hybrid_forward(params: Hybrid, cfg, batch, **_):
+def hybrid_forward(params: Hybrid, cfg, batch, *, remat="nothing", **_):
+    """Each layer (the shared block where it runs, then the Mamba block)
+    checkpointed as ``remat`` says, as the reference's scan body."""
     h = L.embed(params.embed, batch["tokens"], cfg)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
-    for idx, lp in enumerate(params.mamba):
+    sp = params.shared
+
+    def body(hh, idx, lp):
         if idx % cfg.attn_every == 0:
-            h = _shared_block(params.shared, cfg, h, positions)
-        h = h + ssm.ssm_block(lp.ssm, cfg,
-                              L.rmsnorm(lp.ln, h, cfg.norm_eps))
+            hh = _shared_block(sp, cfg, hh, positions)
+        return hh + ssm.ssm_block(lp.ssm, cfg,
+                                  L.rmsnorm(lp.ln, hh, cfg.norm_eps))
+
+    for idx, lp in enumerate(params.mamba):
+        h = remat_call(remat, partial(body, idx=idx, lp=lp), h,
+                       modules=(lp, sp))
     h = L.rmsnorm(params.final_norm, h, cfg.norm_eps)
     return L.unembed(params.embed, h, cfg), {}
 

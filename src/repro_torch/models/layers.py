@@ -32,7 +32,9 @@ def cdtype_of(cfg) -> torch.dtype:
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """A frozen parameter (the port serves and probes; it does not train)."""
+    """A parameter created frozen: serving and probing take no gradient,
+    and the trainer turns ``requires_grad`` on for its step only
+    (``train/trainer.py``)."""
     return nn.Parameter(t, requires_grad=False)
 
 

@@ -5,8 +5,8 @@ returns a :class:`ModelApi` with
 
   init(seed, device)             -> params (an ``nn.Module``; see
                                     ``transformer.LM``)
-  forward(params, batch)         -> (logits, aux)          train / prefill
-  loss(params, batch)            -> (scalar, aux)
+  forward(params, batch, remat=) -> (logits, aux)          train / prefill
+  loss(params, batch, **kw)      -> (scalar, aux)
   decode_init(params, batch|B)   -> cache
   decode_step(params, cache, tokens, pos) -> (logits, cache)
   input_specs(shape)             -> {name: TensorSpec} (no allocation)
@@ -23,6 +23,7 @@ family's cache batch axis (``serve/engine.py``).
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -143,11 +144,15 @@ def _build_lm(cfg: ModelConfig) -> ModelApi:       # dense / moe / vlm
 
 
 def _build_ssm(cfg: ModelConfig) -> ModelApi:
-    def forward(params, batch, **_):
+    def forward(params, batch, *, remat="nothing", **_):
         h = L.embed(params.embed, batch["tokens"], cfg)
+
+        def body(hh, lp):
+            return hh + ssm_mod.ssm_block(lp.ssm, cfg,
+                                          L.rmsnorm(lp.ln, hh, cfg.norm_eps))
+
         for lp in params.blocks:
-            h = h + ssm_mod.ssm_block(lp.ssm, cfg,
-                                      L.rmsnorm(lp.ln, h, cfg.norm_eps))
+            h = tf.remat_call(remat, partial(body, lp=lp), h, modules=(lp,))
         h = L.rmsnorm(params.final_norm, h, cfg.norm_eps)
         return L.unembed(params.embed, h, cfg), {}
 

@@ -9,15 +9,66 @@ i-th slice in place (``models/attention.py``), so the same cache object
 comes back. A MoE layer holds ``moe`` (``models/moe.py``) in place of
 ``mlp``; its aux losses are averaged over the layers, as the reference's
 ``jnp.mean`` over the scan.
+
+Remat (``remat_call``): ``remat`` names what the backward may SAVE of a
+layer, as the reference's ``REMAT_POLICIES`` — "nothing" (the default: the
+layer is recomputed, ``torch.utils.checkpoint``), "dots" (a selective
+checkpoint that keeps the products' outputs) or "full" (no checkpoint).
+``scan_group=g`` checkpoints groups of g layers. Without a gradient to
+take (no_grad, or nothing that requires one) a layer runs plain, as
+``jax.checkpoint`` is a no-op outside differentiation.
 """
 from __future__ import annotations
 
+import itertools
+from functools import partial
+
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
+
+
+REMAT_POLICIES = ("nothing", "dots", "full")
+
+# the products whose outputs the "dots" policy saves (the reference's
+# checkpoint_dots)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default,
+                   torch.ops.aten.matmul.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    if op in _DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(remat: str, fn, *args, modules=()):
+    """``fn(*args)``, keeping for the backward what ``remat`` says: a
+    checkpoint (non-reentrant) around it for "nothing", a selective one
+    saving the products' outputs for "dots", none for "full". ``modules``
+    hold the parameters ``fn`` uses; when neither they nor the tensor
+    arguments require a gradient, or grad mode is off, ``fn`` runs plain."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat!r}; want one of "
+                         f"{REMAT_POLICIES}")
+    tensors = itertools.chain(
+        (a for a in args if isinstance(a, torch.Tensor)),
+        *(m.parameters() for m in modules))
+    if (remat == "full" or not torch.is_grad_enabled()
+            or not any(t.requires_grad for t in tensors)):
+        return fn(*args)
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = partial(ckpt.create_selective_checkpoint_contexts,
+                                   _save_dots)
+    return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                           preserve_rng_state=False, **kw)
 
 
 def _is_moe(cfg) -> bool:
@@ -112,21 +163,48 @@ def _mean_aux(auxs: list) -> dict:
     return {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
 
 
-def lm_forward(params: LM, cfg, batch, *, n_groups=1, return_cache=False):
+def lm_forward(params: LM, cfg, batch, *, remat="nothing", n_groups=1,
+               return_cache=False, scan_group=1):
     """-> (logits (B,S,V), aux); aux holds the MoE losses (mean over the
     layers). With ``return_cache`` also the per-layer KV {"k","v"} stacked
-    (L, B, Kh, S, hd) (the prefill path)."""
+    (L, B, Kh, S, hd) (the prefill path).
+
+    ``remat`` per layer (``remat_call``). scan_group=g > 1 checkpoints
+    groups of g layers: saved residuals drop g× and recompute grows g× —
+    the activation-memory knob for the deepest configs; each group's aux
+    is its layers' mean, then the groups' mean is taken."""
     h, positions = _embed_inputs(params, cfg, batch)
     ks, vs, auxs = [], [], []
-    for lp in params.layers:
-        if return_cache:
-            h, aux, kv = layer_fwd(lp, cfg, h, positions, n_groups=n_groups,
-                                   return_cache=True)
-            ks.append(kv["k"])
-            vs.append(kv["v"])
-        else:
-            h, aux = layer_fwd(lp, cfg, h, positions, n_groups=n_groups)
-        auxs.append(aux)
+    if scan_group > 1 and not return_cache:
+        if cfg.n_layers % scan_group:
+            raise ValueError(f"{cfg.n_layers} layers do not split into "
+                             f"groups of {scan_group}")
+
+        def group(hh, lps):
+            gaux = []
+            for lp in lps:
+                hh, aux = layer_fwd(lp, cfg, hh, positions,
+                                    n_groups=n_groups)
+                gaux.append(aux)
+            return hh, ({k: sum(a[k] for a in gaux) / scan_group
+                         for k in gaux[0]} if gaux[0] else {})
+
+        for g0 in range(0, cfg.n_layers, scan_group):
+            lps = params.layers[g0:g0 + scan_group]
+            h, aux = remat_call(remat, partial(group, lps=lps), h,
+                                modules=lps)
+            auxs.append(aux)
+    else:
+        for lp in params.layers:
+            body = partial(layer_fwd, lp, cfg, positions=positions,
+                           n_groups=n_groups, return_cache=return_cache)
+            if return_cache:
+                h, aux, kv = remat_call(remat, body, h, modules=(lp,))
+                ks.append(kv["k"])
+                vs.append(kv["v"])
+            else:
+                h, aux = remat_call(remat, body, h, modules=(lp,))
+            auxs.append(aux)
     h = L.rmsnorm(params.final_norm, h, cfg.norm_eps)
     logits = L.unembed(params.embed, h, cfg)
     if return_cache:

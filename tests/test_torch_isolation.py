@@ -149,3 +149,27 @@ def test_scan_covers_the_moe_and_vlm_modules():
         assert f"src/repro_torch/{module}" in names
         assert not set(_imported_roots(
             os.path.join(ROOT, "src", "repro_torch", module))) & FORBIDDEN
+
+
+TRAINING_MODULES = ("train/__init__.py", "train/optimizer.py",
+                    "train/grad_compression.py", "train/trainer.py",
+                    "data/pipeline.py", "ckpt/checkpoint.py",
+                    "launch/train.py", "models/attention.py",
+                    "models/transformer.py", "convert.py")
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_scan_covers_the_training_modules(module):
+    path = os.path.join(ROOT, "src", "repro_torch", module)
+    assert path in PORT_FILES
+    assert not set(_imported_roots(path)) & FORBIDDEN
+
+
+def test_training_imports_with_jax_and_reference_blocked():
+    code = (BLOCKED_IMPORT
+            + "import repro_torch.train, repro_torch.train.trainer\n"
+            + "import repro_torch.data.pipeline, repro_torch.ckpt\n"
+            + "import repro_torch.launch.train as t\n"
+            + "t.build_parser().parse_args(['--arch', 'gemma-2b'])\n")
+    subprocess.run([sys.executable, "-c", code], env=_env(), check=True,
+                   timeout=120)
