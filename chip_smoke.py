@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase (the proof)
+    python3 chip_smoke.py --phases 1-3,11  # a part (phase 1 always runs)
 
 Needs one NVIDIA Hopper card, ``nvcc`` and this checkout; imports nothing of
 JAX or of the reference package. Phases, each of which fails the run:
@@ -12,7 +13,7 @@ JAX or of the reference package. Phases, each of which fails the run:
    one ``nvcc`` per library, all started together; the registers of every
    kernel (``nvcc -Xptxas -v``, no spills allowed), ``loop_regions.cu``
    included; the SASS FADD count of the static fp probe, matmul and
-   attention at k=8 and k=24 (the fp adds must survive); the loop regions'
+   attention at k=4 and k=24 (the fp adds must survive); the loop regions'
    SASS census between static k=8 and k=24: FADD for fp_add, FFMA for
    fp_fma, LDG for l1_ld, mem_ld and chase, at least 16 more in each of the
    six region kernels, and l1_ld's extra loads neither .STRONG nor volatile
@@ -21,8 +22,11 @@ JAX or of the reference package. Phases, each of which fails the run:
    loops, Livermore), and each DECAN removal variant keeping only its class
    (the FP variant without the loop's LDG, the LS variant without the
    chains' FMUL or FADD); each graph-level noise mode's kernel
-   (``graph_noise.cu``) growing by >= 16 of its pattern instruction (FADD,
-   HMMA, LDS, LDG, LDG);
+   (``graph_noise.cu``) growing by >= 20 of its pattern instruction (FADD,
+   HMMA, LDS, LDG, LDG) from k=4 to k=24; the libraries' SASS dumped in a
+   thread pool first; alongside, the static audit's builds (k = 4, 12
+   and clean of every pair phases 4 and 11 audit, the sabotaged probe's)
+   and the static builds of phase 4's payload checks (``PAYLOAD_KS``);
 3. check: every kernel, mode and k in {0, 1, 24, K_MAX+7} against its plain
    PyTorch version on the card at moderate sizes (attention: B=2, H=8,
    KH=2, S=512, hd 64, 128 and 256, causal / non-causal / window 128, f32
@@ -57,11 +61,15 @@ JAX or of the reference package. Phases, each of which fails the run:
    version, static equal to run-time k, the input state unchanged;
 4. the main path, through the user's entry points, each path driven with
    every launch count set to 0 just before it and read just after:
-   a. Qwen3-30B-A3B's attention (32 query heads, 4 KV heads, head_dim 128,
-      batch 1, seq 4096, causal) as a one-shard SweepPlan run by
-      ``python -m repro_torch.fleet run`` (a subprocess worker), then
-      ``run --resume --expect-no-measure`` (must measure 0), then
-      ``status``;
+   a. the main fleet plan: Qwen3-30B-A3B's attention (32 query heads, 4
+      KV heads, head_dim 128, batch 1, seq 4096, causal), the probe at
+      1056 steps, spmxv n=2^21 L=16 q=0 and the matmul at n=4096, one
+      shard, run by ``python -m repro_torch.fleet run --in-process`` (the
+      shard in the fleet's process) under the default ``--audit gate``
+      (every pair audited
+      first), then ``run --resume --expect-no-measure`` (must audit and
+      measure nothing), ``fleet audit --expect-clean`` (every pair
+      intact), then ``status``;
    b. an attention family at seq 256 and 512 (the region's default widths)
       on two subprocess shards, merged, then replayed;
    c. ``repro_torch.launch.probe --pallas attention --pallas-n 1024``;
@@ -189,8 +197,22 @@ JAX or of the reference package. Phases, each of which fails the run:
    a failure injected at step 12 (checkpoints every 5): step 12 replayed
    once, its loss within 1e-6 of the uninterrupted run's.
 
-The last lines are the card, one ``{"kernels": [...]}`` JSON object, and
-``{"ok": true, "device": {...}}``.
+11. the static noise audit (no measurement but the sabotage's ``warn``
+   run): phase 4's main plan (each pair intact; its verdict, survival a
+   pattern, predicted resource and census delta printed), a loop-region
+   plan (the calibration regions' stream_kernel x fp_add, l1_ld, mem_ld)
+   and gemma-2b's decode step (the graph-noise kernels), in this process
+   (the census timed); the golden fixtures captured again, their reports
+   equal to ``tests/golden_torch/audit_expected.json``; |body| from the clean SASS
+   of every region the port builds (nonzero; a step region's 0); the
+   loop and step payload census (payload = k, overhead and body_ops from
+   the SASS); the probe's fp under ``REPRO_NOISE_SABOTAGE=const`` through
+   ``python -m repro_torch.launch.probe --plan``: the audit reads it dead
+   with its class and the gate refuses it with no point stored, ``--audit
+   warn`` measures it.
+
+The last lines are the card, one ``{"kernels": [...]}`` JSON object (when
+phase 6 ran), and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -510,6 +532,38 @@ def phase_env() -> str:
 
 
 def _static_set():
+    """(kernel source, mode id, k, variant defines[, sabotage]) of every
+    static build phase 2 makes: the check's, the audit's and phase 4's
+    payload checks'."""
+    return list(dict.fromkeys(_check_set() + _audit_set() + _payload_set()))
+
+
+# phase 4's payload checks: the static build at the last k of each sweep,
+# (mode, k) as the main path's sweeps end on the card (the robust schedule
+# at 320, the sensitive ones where saturation stops them); built with the
+# rest in phase 2's pool rather than one after another in phase 4 (a sweep
+# that ends elsewhere builds its own, as before)
+PAYLOAD_KS = {"probe": (("fp", 320), ("vmem", 320)),
+              "spmxv": (("fp", 320), ("vmem", 320)),
+              "matmul": (("fp", 320), ("mxu", 8), ("vmem", 64)),
+              "attention": (("fp", 320), ("mxu", 8), ("vmem", 64)),
+              "attention hd64": (("fp", 320), ("fp", 64), ("mxu", 24),
+                                 ("vmem", 320), ("vmem", 64))}
+
+
+def _payload_set():
+    from repro_torch.kernels.noise_slots import MODE_IDS
+
+    src = {"probe": ("noise_probes", ()), "spmxv": ("spmv_ell", ()),
+           "matmul": ("noisy_matmul", ()),
+           "attention": ("flash_attention", attention_variant(128, "float32")),
+           "attention hd64": ("flash_attention",
+                              attention_variant(64, "float32"))}
+    return [(src[kern][0], MODE_IDS[m], k, src[kern][1])
+            for kern, pairs in PAYLOAD_KS.items() for m, k in pairs]
+
+
+def _check_set():
     """(kernel source, mode id, k, variant defines) of every static build
     the check needs."""
     from repro_torch.kernels.noise_slots import MODE_IDS
@@ -532,31 +586,81 @@ def _static_set():
     from repro_torch.kernels.graph_noise.kernel import MODE_IDS as GRAPH_IDS
 
     want += [("graph_noise", GRAPH_IDS[m], k, ()) for m in GRAPH_MODES
-             for k in sorted({*GRAPH_CHECK_KS, 8, STATIC_CHECK_K})]
+             for k in sorted({*GRAPH_CHECK_KS, STATIC_CHECK_K})]
     # phase 7: the serve regions' payload checks, and the largest k of a
     # robust sweep (controller._ks_for)
     want += [("graph_noise", GRAPH_IDS[m], k, ()) for m in GRAPH_MODES[:4]
              for k in (*SERVE_KS, 320)]
-    return want + [("noise_probes", MODE_IDS["fp"], 8, ()),
-                   ("noisy_matmul", MODE_IDS["fp"], 8, ()),
-                   ("flash_attention", MODE_IDS["fp"], 8,
-                    attention_variant(128, "float32"))]
+    return want
+
+
+def _audit_set():
+    """The static builds the audit reads (clean, K_LO and K_HI of every
+    pair phases 4 and 11 audit; the loop and DECAN clean builds the payload
+    census reads), and the sabotaged probe fp's."""
+    from repro_torch.analysis import K_HI, K_LO
+    from repro_torch.core.calibration import CALIB_MODES
+    from repro_torch.core.loopnoise import MODE_IDS as LOOP_IDS
+    from repro_torch.kernels.graph_noise.kernel import MODE_IDS as GRAPH_IDS
+    from repro_torch.kernels.noise_slots import MODE_IDS
+    from repro_torch.kernels.region import KERNEL_MODES
+
+    src = {"probe": ("noise_probes", ()), "spmxv": ("spmv_ell", ()),
+           "matmul": ("noisy_matmul", ()),
+           "attention": ("flash_attention", attention_variant(128, "float32")),
+           "attention hd64": ("flash_attention",
+                              attention_variant(64, "float32"))}
+    want = []
+    for kern, (source, defines) in src.items():
+        want.append((source, 0, 0, defines))
+        want += [(source, MODE_IDS[m], k, defines)
+                 for m in KERNEL_MODES[kern.split()[0]] for k in (K_LO, K_HI)]
+    want += [("graph_noise", GRAPH_IDS[m], k, ()) for m in GRAPH_MODES
+             for k in (0, K_LO, K_HI)]
+    want += [("loop_regions", 0, 0, ()), ("decan_loops", 0, 0, ())]
+    want += [("loop_regions", LOOP_IDS[m], k, ()) for m in CALIB_MODES
+             for k in (K_LO, K_HI)]
+    return want + [("noise_probes", m, k, (), True)
+                   for m, k in ((0, 0), (MODE_IDS["fp"], K_LO),
+                                (MODE_IDS["fp"], K_HI))]
 
 
 def _fadd_grows(kernel: str, defines: tuple, per_pattern: int) -> None:
+    from repro_torch.analysis import K_LO
     from repro_torch.kernels import _build
 
-    fp8 = _build.sass_count(_build.static_lib_path(kernel, 1, 8, defines),
-                            "FADD")
-    fp24 = _build.sass_count(
+    lo = _build.sass_count(_build.static_lib_path(kernel, 1, K_LO, defines),
+                           "FADD")
+    hi = _build.sass_count(
         _build.static_lib_path(kernel, 1, STATIC_CHECK_K, defines), "FADD")
-    print(f"SASS FADD in the static fp {kernel}: k=8 -> {fp8}, "
-          f"k={STATIC_CHECK_K} -> {fp24}")
-    want = (STATIC_CHECK_K - 8) * per_pattern
-    if fp8 is not None and fp24 - fp8 < want:
-        raise RuntimeError(f"{kernel}: fp noise adds were folded: the k=24 "
-                           f"build has {fp24 - fp8} more FADD than k=8, "
-                           f"want >= {want}")
+    print(f"SASS FADD in the static fp {kernel}: k={K_LO} -> {lo}, "
+          f"k={STATIC_CHECK_K} -> {hi}")
+    want = (STATIC_CHECK_K - K_LO) * per_pattern
+    if lo is not None and hi - lo < want:
+        raise RuntimeError(f"{kernel}: fp noise adds were folded: the "
+                           f"k={STATIC_CHECK_K} build has {hi - lo} more FADD "
+                           f"than k={K_LO}, want >= {want}")
+
+
+def _census_paths() -> list:
+    """The libraries phase 2's SASS census reads: the run-time library,
+    the fp kernels' and the graph modes' static builds at K_LO and k=24,
+    the loop and DECAN ones at k=8 and 24."""
+    from repro_torch.analysis import K_LO
+    from repro_torch.core.loopnoise import MODE_IDS as LOOP_IDS
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.graph_noise.kernel import MODE_IDS as GRAPH_IDS
+
+    fp = [("noise_probes", ()), ("noisy_matmul", ()),
+          ("flash_attention", attention_variant(128, "float32"))]
+    libs = [(src, 1, k, d) for src, d in fp for k in (K_LO, STATIC_CHECK_K)]
+    libs += [("graph_noise", GRAPH_IDS[m], k, ()) for m in GRAPH_MODES
+             for k in (K_LO, STATIC_CHECK_K)]
+    libs += [(src, LOOP_IDS[m], k, ()) for src in ("loop_regions",
+                                                   "decan_loops")
+             for m in LOOP_MODES for k in (8, STATIC_CHECK_K)]
+    return [_build.runtime_lib_path()] + [
+        _build.static_lib_path(*lib, sabotage=False) for lib in libs]
 
 
 def _no_spills(usage: dict) -> None:
@@ -587,17 +691,31 @@ def phase_build() -> None:
         fn(*args)
         return time.perf_counter() - t0
 
+    def static(source, mode_id, k, defines, sabotage=False):
+        return _build.static_build(source, mode_id, k, defines,
+                                   sabotage=sabotage)
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(_static_set()) + 1) as pool:
+    want = _static_set()
+    with ThreadPoolExecutor(max_workers=len(want) + 1) as pool:
         rt = pool.submit(timed, _build.runtime_lib)
-        statics = [pool.submit(timed, _build.static_lib, *s)
-                   for s in _static_set()]
+        statics = [pool.submit(timed, static, *s) for s in want]
         rt_s = rt.result()
         static_s = [f.result() for f in statics]
+    n_audit = len(set(_audit_set()) - set(_check_set()))
     print(f"runtime-k library ({len(_build.KERNEL_SOURCES)} sources, "
           f"parallel nvcc + link): {rt_s:.1f} s; {len(statics)} static-k "
-          f"builds alongside (slowest {max(static_s):.1f} s): "
+          f"builds alongside ({n_audit} of them for the audit, "
+          f"{len(want) - len(set(_check_set() + _audit_set()))} for phase "
+          f"4's payload checks; slowest {max(static_s):.1f} s): "
           f"{time.perf_counter() - t0:.1f} s in all")
+    t0 = time.perf_counter()
+    paths = _census_paths()
+    with ThreadPoolExecutor(max_workers=16) as pool:
+        list(pool.map(_build.sass_dump, paths))
+    print(f"cuobjdump -sass of the {len(paths)} libraries the census reads "
+          f"(a thread pool of 16): {time.perf_counter() - t0:.1f} s",
+          flush=True)
     _no_spills({k: _build.ptxas_usage(k) for k in _build.KERNEL_SOURCES})
     # 4 elements per thread and pattern: k=24 holds 16 patterns more
     _fadd_grows("noise_probes", (), 4)
@@ -651,14 +769,15 @@ def _loop_census() -> None:
                            f"pattern instructions a kernel): {failed}")
 
 
-def _growth(source: str, mode_id: int, op: str, fn_prefixes) -> dict:
+def _growth(source: str, mode_id: int, op: str, fn_prefixes,
+            lo: int = 8) -> dict:
     """{function: pattern instructions of ``op`` in the static k=24 build
-    minus the k=8 build} for every function of ``source`` whose mangled
-    name starts with one of ``fn_prefixes``."""
+    minus the k=``lo`` build} for every function of ``source`` whose
+    mangled name starts with one of ``fn_prefixes``."""
     from repro_torch.kernels import _build
 
     census = {}
-    for k in (8, STATIC_CHECK_K):
+    for k in (lo, STATIC_CHECK_K):
         c = _build.sass_census(_build.static_lib_path(source, mode_id, k), op)
         if c is None:
             raise RuntimeError("cuobjdump not found: no SASS census")
@@ -667,7 +786,7 @@ def _growth(source: str, mode_id: int, op: str, fn_prefixes) -> dict:
     for fn in census[STATIC_CHECK_K]:
         if fn.startswith(tuple(fn_prefixes)):
             grown = sum(census[STATIC_CHECK_K][fn].values())
-            out[fn] = grown - sum(census[8].get(fn, {}).values())
+            out[fn] = grown - sum(census[lo].get(fn, {}).values())
     return out
 
 
@@ -732,22 +851,24 @@ def _decan_census() -> None:
 
 
 def _graph_census() -> None:
-    """graph_noise.cu: each mode's static k=24 build holds >= 16 more
-    pattern instructions than k=8 in its kernel (fp FADD, mxu HMMA, vmem
+    """graph_noise.cu: each mode's static k=24 build holds >= 20 more
+    pattern instructions than k=4 (the audit's K_LO) in its kernel (fp FADD, mxu HMMA, vmem
     LDS, hbm_stream and hbm_latency LDG)."""
+    from repro_torch.analysis import K_LO
     from repro_torch.kernels.graph_noise.kernel import MODE_IDS as GRAPH_IDS
 
-    want = STATIC_CHECK_K - 8
+    want = STATIC_CHECK_K - K_LO
     failed = []
     growth = {}
     for mode in GRAPH_MODES:
         fn, op = GRAPH_SASS[mode]
         g = _growth("graph_noise", GRAPH_IDS[mode], op,
-                    (f"_Z{len(fn)}{fn}I",))
+                    (f"_Z{len(fn)}{fn}I",), lo=K_LO)
         growth[mode] = (op, list(g.values()))
         if len(g) != 1 or min(g.values()) < want:
             failed.append(f"{mode}: {op} growth {g}")
-    print(f"SASS in the static graph_noise builds, k=8 -> k={STATIC_CHECK_K}: "
+    print(f"SASS in the static graph_noise builds, k={K_LO} -> "
+          f"k={STATIC_CHECK_K}: "
           f"{growth}")
     if failed:
         raise RuntimeError(f"graph_noise SASS census (want >= {want} more "
@@ -1481,20 +1602,31 @@ def _bench(tmp: str, study: str, kernels, *extra) -> dict:
     return result
 
 
-def _fleet_plan_run(tmp: str, name: str, params: dict, shards: int,
-                    kernels: Kernels) -> dict:
-    """Save a plan, run it through the fleet CLI (subprocess workers), check
-    its payloads and fits from the merged store and report, replay it with
-    --expect-no-measure, print its status; returns its report."""
+def _audit_records(store: str) -> int:
+    """How many audit records a store file holds."""
+    with open(store) as f:
+        return sum(1 for line in f if '"kind": "audit"' in line)
+
+
+def _fleet_plan_run(tmp: str, name: str, targets: list, shards: int,
+                    kernels: Kernels, *launcher) -> dict:
+    """Save a plan, run it through the fleet CLI (subprocess workers; the
+    default --audit gate audits every pair first), check its payloads and
+    fits from the merged store and report, replay it with
+    --expect-no-measure (it must audit and measure nothing), hold it to
+    ``fleet audit --expect-clean`` (every pair intact), print its status;
+    returns its report."""
     from repro_torch.core.campaign import CampaignStore
-    from repro_torch.fleet.plan import SweepPlan, TargetSpec
+    from repro_torch.fleet.plan import SweepPlan
 
     plan = SweepPlan(name=name, store=os.path.join(tmp, name, "store.jsonl"),
-                     targets=[TargetSpec("pallas", ("fp", "mxu", "vmem"),
-                                         params)],
-                     reps=2, shards=shards, backend="cuda")
+                     targets=targets, reps=2, shards=shards, backend="cuda")
     path = plan.save(os.path.join(tmp, f"{name}.plan.json"))
-    _fleet("run", "--plan", path)
+    _fleet("run", "--plan", path, *launcher)
+    audited = _audit_records(plan.store)
+    if audited != len(plan.grid()):
+        raise RuntimeError(f"{name}: the gate wrote {audited} audit records "
+                           f"for {len(plan.grid())} pairs")
     for ws in plan.worker_stores():
         kernels.add_worker(ws + ".stats.json")
     store = CampaignStore(plan.store, readonly=True)
@@ -1513,8 +1645,30 @@ def _fleet_plan_run(tmp: str, name: str, params: dict, shards: int,
                        ("abs_raw", "t0_s", "slope_s_per_pattern")):
                 raise RuntimeError(f"{region}/{mode}: non-finite fit {row}")
     _fleet("run", "--plan", path, "--resume", "--expect-no-measure")
+    if _audit_records(plan.store) != audited:
+        raise RuntimeError(f"{name}: the resume audited again")
+    _fleet("audit", "--plan", path, "--expect-clean")
     _fleet("status", "--plan", path)
     return report
+
+
+def main_targets() -> list:
+    """Phase 4's main fleet plan: the four kernels at the main path's
+    shapes (Qwen3-30B-A3B's attention widths at seq 4096)."""
+    from repro_torch.fleet.plan import TargetSpec
+
+    fmv = ("fp", "mxu", "vmem")
+    return [
+        TargetSpec("pallas", fmv, {
+            "kernel": "attention", "sizes": [MAIN_ATTENTION["seq"]],
+            **{k: v for k, v in MAIN_ATTENTION.items() if k != "seq"}}),
+        TargetSpec("pallas", fmv, {"kernel": "probe",
+                                   "sizes": [MAIN_PROBE_STEPS]}),
+        TargetSpec("pallas", ("fp", "vmem"), {
+            "kernel": "spmxv", "sizes": [MAIN_SPMXV_N], "nnz_per_row": 16}),
+        TargetSpec("pallas", fmv, {"kernel": "matmul",
+                                   "sizes": [MAIN_MATMUL_N]}),
+    ]
 
 
 def drive(kernels: Kernels, counts: dict, seconds: dict, name: str, kernel,
@@ -1551,15 +1705,16 @@ def phase_main(tmp: str, kernels: Kernels) -> dict:
     def timed(name, kernel, fn):
         return drive(kernels, counts, seconds, name, kernel, fn)
 
-    print(f"== 4a. Qwen3-30B-A3B attention {MAIN_ATTENTION}, one shard; "
-          f"card before (SM clock, power, temperature): {card_state()}",
-          flush=True)
-    report = timed("attention_qwen3", "flash_attention",
-                   lambda: _fleet_plan_run(
-        tmp, "qwen3_30b_a3b_attention",
-        {"kernel": "attention", "sizes": [MAIN_ATTENTION["seq"]],
-         **{k: v for k, v in MAIN_ATTENTION.items() if k != "seq"}},
-        1, kernels))
+    print(f"== 4a. the main fleet plan: Qwen3-30B-A3B attention "
+          f"{MAIN_ATTENTION}, probe {MAIN_PROBE_STEPS} steps, spmxv "
+          f"n={MAIN_SPMXV_N} L=16 q=0, matmul n={MAIN_MATMUL_N}; one shard "
+          f"in the fleet's process, audited at the gate; card before (SM "
+          f"clock, power, "
+          f"temperature): {card_state()}", flush=True)
+    report = timed("main_plan", ("flash_attention", "noise_probes",
+                                 "spmv_ell", "noisy_matmul"),
+                   lambda: _fleet_plan_run(tmp, "main_plan", main_targets(),
+                                           1, kernels, "--in-process"))
     print(f"  card after: {card_state()}", flush=True)
     for region, rep in report.items():
         verdicts[region] = (rep["bottleneck"]["label"],
@@ -1570,8 +1725,10 @@ def phase_main(tmp: str, kernels: Kernels) -> dict:
     print("== 4b. attention family seq 256, 512 (default widths), two "
           "shards on one card", flush=True)
     timed("attention_family", "flash_attention", lambda: _fleet_plan_run(
-        tmp, "attention_family", {"kernel": "attention",
-                                  "sizes": [256, 512]}, 2, kernels))
+        tmp, "attention_family",
+        [TargetSpec("pallas", ("fp", "mxu", "vmem"),
+                    {"kernel": "attention", "sizes": [256, 512]})],
+        2, kernels))
 
     cli = {
         "attention_1024": ["--pallas", "attention", "--pallas-n", "1024"],
@@ -3343,7 +3500,301 @@ def phase_train(tmp: str, kernels: Kernels) -> dict:
     return {name: n_cuda for name, (n_cuda, _) in counts.items()}
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase 11: the static noise audit
+# ---------------------------------------------------------------------------
+
+def _probe_out(*args, env: Optional[dict] = None) -> tuple:
+    """``python -m repro_torch.launch.probe ARGS`` with ``env`` added to
+    the environment; its output printed; (exit code, output)."""
+    full = dict(os.environ)
+    full["PYTHONPATH"] = os.pathsep.join(
+        p for p in (SRC, full.get("PYTHONPATH")) if p)
+    full.update(env or {})
+    sys.stdout.flush()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.probe",
+                          *args], env=full, timeout=900, capture_output=True,
+                         text=True)
+    text = out.stdout + out.stderr
+    print(text, end="" if text.endswith("\n") else "\n", flush=True)
+    return out.returncode, text
+
+
+def _save_plan(tmp: str, name: str, targets: list):
+    from repro_torch.fleet.plan import SweepPlan
+
+    plan = SweepPlan(name=name, store=os.path.join(tmp, name, "store.jsonl"),
+                     targets=targets, reps=2, shards=1, backend="cuda")
+    return plan, plan.save(os.path.join(tmp, f"{name}.plan.json"))
+
+
+def _audit_table(plan) -> dict:
+    """Print the plan's audit records (verdict, survival a pattern, the
+    predicted resource and the census delta); returns them by pair."""
+    from repro_torch.core.campaign import CampaignStore
+
+    records = CampaignStore(plan.store, readonly=True).audits
+    for (region, mode), rec in sorted(records.items()):
+        print(f"  {region} × {mode}: {rec['verdict']}"
+              f"{' (' + rec['corruption'] + ')' if rec['corruption'] else ''}"
+              f", survival {rec['survival']} a pattern, target "
+              f"{rec['target']}, predicts {rec['predicted']}, agrees "
+              f"{rec['agrees']}, pressure {rec['resources']}; "
+              f"{rec['detail']}")
+    return records
+
+
+def _derived_bodies() -> dict:
+    """|l1.l2| from the clean SASS of every region the port builds (small
+    sizes: the SASS does not depend on them), and a step region's 0."""
+    import torch
+
+    from repro_torch.bench import kernels as bk
+    from repro_torch.bench.studies import T3_SCENARIOS
+    from repro_torch.core.controller import derive_body_size
+    from repro_torch.core.injector import step_modes, step_region
+    from repro_torch.kernels.region import pallas_region
+
+    regions = [
+        pallas_region("probe", n_steps=64),
+        pallas_region("spmxv", n=512, nnz_per_row=16),
+        pallas_region("spmxv", n=512, nnz_per_row=128),
+        pallas_region("matmul", n=256),
+        pallas_region("attention", seq=128),
+        pallas_region("attention", seq=128, head_dim=128),
+        bk.stream_region(n=4096), bk.lat_mem_rd_region(table_len=4096,
+                                                       n_iter=16),
+        bk.haccmk_region(n_iter=16), bk.spmxv_region(n=4096),
+        bk.matmul_region(n=64), bk.matmul_region(n=64, optimized=True),
+        *(bk.table3_target(name, kind, depth, 16, n=4096).region()
+          for name, (kind, depth) in T3_SCENARIOS.items()),
+        bk.livermore_target(16, n=4096).region(),
+    ]
+    bodies = {}
+    for region in regions:
+        site = region.sass("", 0)
+        label = f"{region.name} [{site.source} {site.kernels[0][0]}]"
+        bodies[label] = derive_body_size(region)
+    x = torch.zeros(1, device="cuda")
+    step = step_region("step", lambda t: t * 2, (x,),
+                       {"fp_add32": step_modes("cuda")["fp_add32"]})
+    bodies["step region (a CUDA graph)"] = derive_body_size(step)
+    print("derived |body| from the clean SASS: " + json.dumps(bodies))
+    zero = [k for k, v in bodies.items() if not v and "step" not in k]
+    if zero:
+        raise RuntimeError(f"derive_body_size gave 0 for {zero}")
+    return bodies
+
+
+def _census_reports() -> dict:
+    """The payload census of loop and step InjectionReports: payload from
+    the aux oracle, overhead and body_ops from the SASS."""
+    import torch
+
+    from repro_torch.bench.kernels import stream_region
+    from repro_torch.core.injector import step_modes, step_region
+    from repro_torch.launch.probe import DEFAULT_GRAPH_MODES
+
+    out = {}
+    loop = stream_region(n=1 << 16)
+    for mode in LOOP_MODES:
+        out[f"stream_triad × {mode} k={STATIC_CHECK_K}"] = loop.payload_check(
+            mode, STATIC_CHECK_K)
+    registry = step_modes("cuda")
+    x = torch.ones(1024, device="cuda")
+    step = step_region("step", lambda t: t * 2, (x,),
+                       {m: registry[m] for m in DEFAULT_GRAPH_MODES})
+    for mode in DEFAULT_GRAPH_MODES:
+        out[f"step × {mode} k={SERVE_KS[-1]}"] = step.payload_check(
+            mode, SERVE_KS[-1])
+    rows = {}
+    for label, rep in out.items():
+        rows[label] = {"payload": rep.payload, "expected": rep.expected,
+                       "overhead": rep.overhead, "body_ops": rep.body_ops}
+        if rep.payload != rep.expected or not rep.body_ops:
+            raise RuntimeError(f"{label}: payload census {rep}")
+    print("payload census (payload from the aux oracle; overhead and "
+          "body_ops from the SASS): " + json.dumps(rows))
+    return rows
+
+
+def _check_sabotage(tmp: str) -> dict:
+    """The sabotaged static fp probe (``REPRO_NOISE_SABOTAGE=const``),
+    through the probe CLI's plan entry (``run_worker``): under the default
+    gate the audit reads it dead with its class named and refuses it with
+    the store holding no point; ``--audit warn`` measures it (and its
+    payload check reads 0 surviving patterns)."""
+    from repro_torch.core.campaign import CampaignStore
+    from repro_torch.fleet.plan import TargetSpec
+
+    plan, path = _save_plan(tmp, "sabotage", [TargetSpec(
+        "pallas", ("fp",), {"kernel": "probe", "sizes": [MAIN_PROBE_STEPS]})])
+    env = {"REPRO_NOISE_SABOTAGE": "const"}
+    rc, out = _probe_out("--plan", path, env=env)
+    store = CampaignStore(plan.store, readonly=True)
+    rec = store.audits.get((f"pallas_probe_s{MAIN_PROBE_STEPS}", "fp"))
+    if rec is None or rec["verdict"] != "dead" or not rec["corruption"]:
+        raise RuntimeError(f"sabotage: the audit's record {rec}")
+    if rc == 0 or "audit gate" not in out or store.points:
+        raise RuntimeError(f"sabotage: the gate let the run through (exit "
+                           f"{rc}; {sum(map(len, store.points.values()))} "
+                           "points)")
+    rc, out = _probe_out("--plan", path, "--audit", "warn", env=env)
+    store = CampaignStore(plan.store, readonly=True)
+    n_points = sum(len(v) for v in store.points.values())
+    pay = (next(iter(store.done.values()), {}) or {}).get("payload") or {}
+    if rc != 0 or not n_points or "--audit warn: measuring anyway" not in out:
+        raise RuntimeError(f"sabotage: --audit warn did not measure (exit "
+                           f"{rc}, {n_points} points)")
+    print(f"sabotage: audit {rec['verdict']} ({rec['corruption']}), the gate "
+          f"refused with 0 points stored, --audit warn measured {n_points} "
+          f"points; their payload check: {pay.get('payload')}/"
+          f"{pay.get('expected')} patterns survived")
+    return {"verdict": rec["verdict"], "corruption": rec["corruption"],
+            "warn_points": n_points, "payload": pay.get("payload")}
+
+
+def _check_fixtures(tmp: str) -> dict:
+    """Capture the audit's golden fixtures again on this card
+    (``repro_torch.analysis.capture``, the builds' dumps this process read
+    already reused) and hold their reports to
+    the committed ``tests/golden_torch/audit_expected.json``: verdict,
+    corruption class and predicted resource of every pair must be the
+    same (a changed toolkit would have to be captured anew)."""
+    import gzip
+
+    from repro_torch.analysis.capture import capture
+
+    out = os.path.join(tmp, "golden", "sass")
+    got = capture(out, os.path.join(tmp, "golden", "audit_expected.json"))
+    golden = os.path.join(HERE, "tests", "golden_torch")
+    with open(os.path.join(golden, "audit_expected.json")) as f:
+        want = json.load(f)
+    keys = ("verdict", "corruption", "predicted", "agrees")
+    differ = {name: ({k: got.get(name, {}).get(k) for k in keys},
+                     {k: rec.get(k) for k in keys})
+              for name, rec in want.items()
+              if any(got.get(name, {}).get(k) != rec.get(k) for k in keys)}
+    same = 0
+    for name in want:
+        with gzip.open(os.path.join(out, name + ".json.gz"), "rt") as f:
+            new = json.load(f)
+        with gzip.open(os.path.join(golden, "sass", name + ".json.gz"),
+                       "rt") as f:
+            old = json.load(f)
+        same += all(new[k] == old[k] for k in ("clean", "lo", "hi"))
+    print(f"golden fixtures: {same}/{len(want)} pairs' dumps byte-identical "
+          f"to the committed ones; reports equal in {len(want) - len(differ)}"
+          f"/{len(want)}")
+    if differ or sorted(got) != sorted(want):
+        raise RuntimeError(f"the card's census disagrees with the golden "
+                           f"fixtures: {differ}")
+    return {"pairs": len(want), "dumps_identical": same}
+
+
+def phase_audit(tmp: str) -> dict:
+    from repro_torch.core.calibration import CALIB_MODES
+    from repro_torch.fleet.executor import audit_fleet_plan
+    from repro_torch.fleet.plan import TargetSpec
+    from repro_torch.launch.probe import DEFAULT_GRAPH_MODES
+
+    banner("11. the static noise audit (SASS census at k = 4 and 12 and "
+           "clean)")
+    seconds, result = {}, {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 2)
+        return out
+
+    print("== 11a. phase 4's main plan, audited in this process (the "
+          "builds' SASS dumped and parsed in a thread pool; phase 4a runs "
+          "it through `fleet run` under the gate and `fleet audit "
+          "--expect-clean`)", flush=True)
+    from repro_torch.analysis import AuditReport, audit_plan
+    from repro_torch.core.campaign import CampaignStore
+
+    plan, _ = _save_plan(tmp, "audit_main", main_targets())
+    reports = timed("main plan census (in process)", audit_plan, plan)
+    store = CampaignStore(plan.store)
+    for rep in reports:
+        print("  " + rep.explain())
+        store.append({"kind": "audit", **rep.to_dict()})
+    store.close()
+    records = _audit_table(plan)
+    if sorted(rec["verdict"] for rec in records.values()) \
+            != ["intact"] * len(plan.grid()):
+        raise RuntimeError("a main-path pair is not intact: " + "; ".join(
+            AuditReport.from_dict(r).explain() for r in records.values()))
+    not_agreeing = sorted(f"{r} × {m}" for (r, m), rec in records.items()
+                          if rec["agrees"] is not True)
+    print(f"main-path pairs whose predicted resource is not their target's: "
+          f"{not_agreeing or 'none'}")
+    result["main"] = {f"{r} × {m}": rec for (r, m), rec in records.items()}
+    print("== 11b. a loop-region plan (the calibration regions: "
+          "stream_kernel) and gemma-2b's decode step (graph_noise), audited "
+          "in this process", flush=True)
+    for name, target in (
+            ("loop", TargetSpec("calibrate", CALIB_MODES, {})),
+            ("step", TargetSpec("step", DEFAULT_GRAPH_MODES,
+                                {"arch": "gemma-2b", "kind": "decode"}))):
+        sub, _ = _save_plan(tmp, f"audit_{name}", [target])
+        records = timed(f"{name} plan audit", audit_fleet_plan, sub)
+        if [r.get("verdict") for r in records.values()] \
+                != ["intact"] * len(sub.grid()):
+            raise RuntimeError(f"{name} plan: not every pair intact")
+        result[name] = {f"{r} × {m}": rec
+                        for (r, m), rec in _audit_table(sub).items()}
+    print("== 11c. the golden fixtures captured again", flush=True)
+    result["fixtures"] = timed("fixture capture", _check_fixtures, tmp)
+    print("== 11d. |body| and the payload census", flush=True)
+    result["bodies"] = timed("derived bodies", _derived_bodies)
+    result["census"] = timed("payload census", _census_reports)
+    print("== 11e. the sabotaged static fp build", flush=True)
+    result["sabotage"] = timed("sabotage", _check_sabotage, tmp)
+    print("phase 11 seconds: " + json.dumps(seconds))
+    result["seconds"] = seconds
+    return result
+
+
+PHASES = (1, 2, 3, 4, 6, 7, 8, 9, 10, 11)   # 4 runs 4 and 5
+
+
+def parse_phases(text: Optional[str]) -> list:
+    """``--phases`` (e.g. ``1-3,11``) as the phases to run, in order; every
+    phase without it. Phase 1 always runs; 5 is part of 4; 6 needs 3 and 4
+    (its rows hold their errors and launches)."""
+    if not text:
+        return list(PHASES)
+    chosen = {1}
+    for part in text.split(","):
+        lo, _, hi = part.strip().partition("-")
+        try:
+            span = range(int(lo), int(hi or lo) + 1)
+        except ValueError:
+            raise SystemExit(f"--phases: {part!r} is not N or N-M")
+        for n in span:
+            if n == 5:
+                n = 4
+            if n not in PHASES:
+                raise SystemExit(f"--phases: no phase {n}; phases "
+                                 f"{PHASES} (5 runs with 4)")
+            chosen.add(n)
+    if 6 in chosen and not {3, 4} <= chosen:
+        raise SystemExit("--phases: phase 6 needs phases 3 and 4")
+    return sorted(chosen)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="On-card smoke run of the "
+                                             "PyTorch/CUDA port.")
+    ap.add_argument("--phases", default=None,
+                    help="the phases to run, e.g. 1-3,11 (default: all; "
+                         "the full run is the proof)")
+    phases = parse_phases(ap.parse_args(argv).phases)
     try:
         import torch
     except ImportError:
@@ -3366,36 +3817,43 @@ def main() -> int:
                                - sum(elapsed.values()), 1)
 
     card = phase_env()
-    phase_build()
+    if 2 in phases:
+        phase_build()
     lap("1-2")
-    main_args = main_inputs()
-    max_err = phase_check(main_args)
-    lap("3")
+    main_args = main_inputs() if {3, 6} & set(phases) else None
+    max_err, launches, rows = {}, {}, []
+    if 3 in phases:
+        max_err = phase_check(main_args)
+        lap("3")
     kernels = Kernels()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        launches = phase_main(tmp, kernels)
-    lap("4-5")
-    rows = phase_timing(main_args, max_err, launches)
-    lap("6")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
-        serve_launches = [phase_serve(tmp, kernels)]
-    lap("7")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp:
-        serve_launches.append(phase_moe(tmp, kernels))
-    lap("8")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ssm_") as tmp:
-        serve_launches.append(phase_ssm(tmp, kernels))
-    lap("9")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        serve_launches.append(phase_train(tmp, kernels))
-    lap("10")
+    if 4 in phases:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            launches = phase_main(tmp, kernels)
+        lap("4-5")
+    if 6 in phases:
+        rows = phase_timing(main_args, max_err, launches)
+        lap("6")
+    serve_launches = []
+    for n, phase, prefix in ((7, phase_serve, "serve"),
+                             (8, phase_moe, "moe"), (9, phase_ssm, "ssm"),
+                             (10, phase_train, "train")):
+        if n in phases:
+            with tempfile.TemporaryDirectory(
+                    prefix=f"chip_smoke_{prefix}_") as tmp:
+                serve_launches.append(phase(tmp, kernels))
+            lap(str(n))
+    if 11 in phases:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_audit_") as tmp:
+            phase_audit(tmp)
+        lap("11")
     print(f"\nwall time per phase (s): {json.dumps(elapsed)}")
     for row in rows:        # the serving paths are main paths too
         row["launches"] += sum(n[row["name"]] for n in serve_launches)
-    print(f"\nchip_smoke: all phases passed in "
-          f"{time.perf_counter() - t_start:.1f} s")
+    print(f"\nchip_smoke: {'all phases' if phases == list(PHASES) else 'phases ' + ','.join(map(str, phases))} "
+          f"passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": rows}))
+    if rows:
+        print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

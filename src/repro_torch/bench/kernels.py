@@ -39,6 +39,12 @@ from repro_torch.kernels.region import resolve_device
 from repro_torch.kernels.spmv_ell.ref import make_band_ell
 
 
+def _loop_sass(kernel: str) -> tuple:
+    """The loop region's SASS site: ``kernel`` of the loop_regions.cu static
+    builds."""
+    return ("loop_regions", ((kernel, ""),))
+
+
 def _maker(run, plain_run, **kw):
     """``make_fn`` for ``loop_region``: the wrapper ``run`` (kernel or, for
     CPU tensors, plain version) or, with ``plain``, the plain version."""
@@ -74,7 +80,7 @@ def stream_region(n: int = 1 << 23, chunk: int = 512, *,
                        _maker(lk.stream_triad, lref.stream_triad_plain,
                               chunk=chunk),
                        lambda: (a, b, c), body_size=5, n_iter=n // chunk,
-                       device=dev)
+                       device=dev, sass=_loop_sass("stream_kernel"))
 
 
 # ---------------------------------------------------------------------------
@@ -94,7 +100,8 @@ def lat_mem_rd_region(table_len: int = 1 << 21, hops_per_iter: int = 8,
                        _maker(lk.lat_mem_rd, lref.lat_mem_rd_plain,
                               n_iter=n_iter, hops=hops_per_iter),
                        lambda: (table, idx0), body_size=hops_per_iter,
-                       n_iter=n_iter, device=dev)
+                       n_iter=n_iter, device=dev,
+                       sass=_loop_sass("lat_kernel"))
 
 
 # ---------------------------------------------------------------------------
@@ -110,7 +117,8 @@ def haccmk_region(n_iter: int = 120_000, width: int = 8, *,
     return loop_region("haccmk",
                        _maker(lk.haccmk, lref.haccmk_plain, n_iter=n_iter),
                        lambda: (x,), body_size=5 * lref.HACC_CHAINS,
-                       n_iter=n_iter, device=dev)
+                       n_iter=n_iter, device=dev,
+                       sass=_loop_sass("haccmk_kernel"))
 
 
 # ---------------------------------------------------------------------------
@@ -132,7 +140,8 @@ def spmxv_region(n: int = 1 << 20, nnz_per_row: int = 16, q: float = 0.0,
                        _maker(lk.spmxv, lref.spmxv_plain,
                               rows_per_iter=rows_per_iter),
                        lambda: (vals, cols, x, y), body_size=6,
-                       n_iter=n // rows_per_iter, device=dev)
+                       n_iter=n // rows_per_iter, device=dev,
+                       sass=_loop_sass("spmxv_kernel"))
 
 
 # ---------------------------------------------------------------------------
@@ -156,14 +165,16 @@ def matmul_region(n: int = 192, optimized: bool = False, *,
                            _maker(lk.matmul_o3, lref.matmul_o3_plain,
                                   n_iter=n_iter),
                            lambda: (a, b), body_size=2 * lref.ROWS_O3 + 1,
-                           n_iter=n_iter, device=dev)
+                           n_iter=n_iter, device=dev,
+                           sass=_loop_sass("mm_o3_kernel"))
     n_iter = 32 * n // lref.UNROLL_O0
     out = torch.zeros((1, n), dtype=torch.float32, device=dev)
     return loop_region("matmul_O0",
                        _maker(lk.matmul_o0, lref.matmul_o0_plain,
                               n_iter=n_iter),
                        lambda: (a, b, out), body_size=5 * lref.UNROLL_O0,
-                       n_iter=n_iter, device=dev)
+                       n_iter=n_iter, device=dev,
+                       sass=_loop_sass("mm_o0_kernel"))
 
 
 # ---------------------------------------------------------------------------
@@ -212,7 +223,9 @@ def table3_target(name: str, kind: str, depth: int, n_iter: int, *,
     return DecanTarget(name, _variants(dk.table3, kw), lambda: (a, b, c, x0),
                        build_noisy=_maker(dk.table3, dref.table3_plain, **kw),
                        n_iter=n_iter, device=dev,
-                       build_plain=_variants(dref.table3_plain, kw))
+                       build_plain=_variants(dref.table3_plain, kw),
+                       sass=("decan_loops", (
+                           ("t3_kernel", f"ILi{dref.KINDS[kind]}ELb1ELb1E"),)))
 
 
 def livermore_target(n_iter: int, *, n: int = 1 << 18, width: int = 8,
@@ -232,4 +245,5 @@ def livermore_target(n_iter: int, *, n: int = 1 << 18, width: int = 8,
                        build_noisy=_maker(dk.livermore, dref.livermore_plain,
                                           **kw),
                        n_iter=n_iter, device=dev,
-                       build_plain=_variants(dref.livermore_plain, kw))
+                       build_plain=_variants(dref.livermore_plain, kw),
+                       sass=("decan_loops", (("liv_kernel", "ILb1ELb1E"),)))

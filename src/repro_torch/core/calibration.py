@@ -134,7 +134,7 @@ def forced_regime(base, name: str, shapes: dict) -> "object":
                         body_size=base.body_size, build_rt=build_rt,
                         args_for_rt=args_for_rt,
                         payload_check=lambda mode, k: None,
-                        audit_hint=base.audit_hint)
+                        audit_hint=base.audit_hint, sass=base.sass)
 
 
 def calibrate_targets(*, n: int = 4096, chunk: int = 512,

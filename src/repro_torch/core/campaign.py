@@ -23,9 +23,9 @@ writes loads (and replays) in the other. Schema (one JSON object per line):
   {"kind": "pred",   "region": r, "mode": m, "ks": [...], "ts": [...],
    "fit": {...}, "hw": {...}, "terms": {...}, "alpha": a, "tol": t,
    "k_max": n}                                  # AnalyticCampaign
-Records of the kinds the port does not write yet (audit, calib from the
-reference's tools) are ingested under the reference's supersede rules, so
-reading a reference store keeps them.
+``audit`` records (the static noise audit, ``fleet.executor.
+audit_fleet_plan``) and ``calib`` records (``core.calibration``) are kept
+under the reference's supersede rules, so a reference store reads alike.
 
 Supersede rules: later records supersede earlier ones for the same key; a
 "meta" record whose settings differ from the pair's current meta discards

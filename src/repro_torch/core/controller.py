@@ -46,8 +46,17 @@ class RegionTarget:
 
     ``payload_check(mode_name, k)`` verifies the payload of a static-k build
     (Pallas-kernel regions compare the noise accumulator against its exact
-    oracle). ``audit_hint`` parameterizes the static noise audit, which the
-    port has not reached yet; it is kept so region records match.
+    oracle). ``audit_hint`` parameterizes the static noise audit
+    (``repro_torch.analysis``):
+      ``in_loop`` — the noise is meant to execute per loop step;
+      ``steps`` — the loop a CTA runs over its grid steps (kernel regions);
+      ``scoped`` — the noise runs in a kernel of its own (a step region's
+      graph-noise kernel), so the census reads that kernel alone.
+    ``sass(mode_name, k)`` (on the card; None for the plain versions) names
+    the static build whose SASS carries k patterns of the mode and the
+    functions in it (a ``kernels._build.SassSite``); k = 0 is the clean
+    build (``sass("", 0)`` too, where the region has a body of its own).
+    The audit and the payload census read it.
     """
     name: str
     build: Callable[[str, int], Callable]
@@ -58,6 +67,7 @@ class RegionTarget:
     args_for_rt: Optional[Callable[[str], tuple]] = None
     payload_check: Optional[Callable[[str, int], object]] = None
     audit_hint: Optional[dict] = None
+    sass: Optional[Callable[[str, int], object]] = None
 
 
 @dataclasses.dataclass
@@ -217,9 +227,8 @@ class Controller:
                             ks: Sequence[int]):
         """Static payload check (§2.3) on a static-k build, at the largest
         nonzero k of the sweep. Only regions with a ``payload_check`` can be
-        verified (the HLO census of graph-level regions is not ported);
-        others report None. A failing check raises: on the card it means a
-        kernel did not build or run."""
+        verified; others report None. A failing check raises: on the card
+        it means a kernel did not build or run."""
         k_chk = next((k for k in reversed(list(ks)) if k), 8)
         if target.payload_check is None:
             return None
@@ -239,9 +248,44 @@ class Controller:
 
 
 def derive_body_size(target: RegionTarget) -> int:
-    """|l1.l2| of a region that does not state it. The reference reads it
-    from optimized HLO; the port has no such census yet, so it is 0."""
-    return 0
+    """|l1.l2| of a region that does not state it, from the SASS of its
+    clean build (``payload.body_size``). 0 for a region with no compiled
+    body: the plain versions on the cpu, and a step region, whose clean
+    step is a CUDA graph of library kernels built from no source here. A
+    census that fails is logged and reads 0, as the reference's does."""
+    site = target.sass("", 0) if target.sass is not None else None
+    if site is None or not site.body:
+        return 0
+    try:
+        from repro_torch.analysis.audit import site_text
+
+        return payload_mod.body_size(site_text(site),
+                                     kernels={b for b, _ in site.kernels})
+    except Exception:
+        log.warning("body-size derivation failed for %s", target.name,
+                    exc_info=True)
+        return 0
+
+
+def census_payload(target: RegionTarget, mode: str, k: int, *,
+                   expected: int, trips: int = 1):
+    """The SASS census of a region's static k-pattern build against its
+    clean build (``payload.analyze_injection``); None when the region has
+    no compiled noise (the plain versions). Raises when the SASS cannot be
+    read (a failed payload check on the card)."""
+    if target.sass is None or not k:
+        return None
+    from repro_torch.analysis.audit import site_text
+
+    site = target.sass(mode, k)
+    if site is None:
+        return None
+    clean = target.sass(mode, 0)
+    return payload_mod.analyze_injection(
+        site_text(clean), site_text(site), mode=mode,
+        target=target.payload_target.get(mode, _default_target(mode)),
+        expected=expected, kernels={b for b, _ in site.kernels},
+        trips=trips)
 
 
 def _default_target(mode: str) -> str:
@@ -260,7 +304,8 @@ def _default_target(mode: str) -> str:
 def loop_region(name: str,
                 make_fn: Callable[..., Callable],
                 args_for: Callable[[], tuple], *, body_size: int = 0,
-                n_iter: int = 0, device="cuda") -> RegionTarget:
+                n_iter: int = 0, device="cuda",
+                sass: Optional[tuple] = None) -> RegionTarget:
     """Adapter for loop-level targets.
 
     ``make_fn(noise_or_None, k, static=True, plain=False)`` returns the
@@ -272,9 +317,16 @@ def loop_region(name: str,
 
     ``device`` is where the carries live (``loop_carry``: the card's
     256 MiB buffers for mem_ld and chase on CUDA). ``n_iter``: the loop's
-    trip count (the payload's dynamic count).
+    trip count (the payload's dynamic count). ``sass``: ``(source,
+    kernels)``, the ``csrc/<source>.cu`` static builds and the loop
+    kernel's (base name, mangled-tail prefix) in them, which the audit and
+    the payload census read on the card.
     """
+    from repro_torch.core.loopnoise import MODE_IDS
+    from repro_torch.kernels._build import SassSite
+
     modes = make_loop_modes()
+    on_card = str(device).startswith("cuda")
 
     def carry(mode: str) -> dict:
         return loop_carry(mode, device)
@@ -301,19 +353,29 @@ def loop_region(name: str,
     def args_rt(mode: str):
         return (*args_for(), carry(mode))
 
+    def site(mode: str, k: int) -> SassSite:
+        mode_id = MODE_IDS[mode] if mode and k else 0
+        return SassSite(sass[0], mode_id, k if mode_id else 0,
+                        kernels=tuple(sass[1]))
+
     def payload_check(mode: str, k: int) -> payload_mod.InjectionReport:
         """Run the static-k build once and hold its aux against the plain
-        version's: an exact match proves that all k patterns ran."""
+        version's: an exact match proves that all k patterns ran; on the
+        card the SASS census gives ``overhead`` and ``body_ops``."""
         got = want = None
         if k:
             call_args = args(mode, k)
             got = build(mode, k)(*call_args)[1]
             want = make_fn(modes[mode], k, plain=True)(*call_args)[1]
-        return payload_mod.analyze_aux(
+        rep = payload_mod.analyze_aux(
             got, want, mode=mode, target=_default_target(mode), expected=k,
             body_ops=body_size, trips=n_iter)
+        return payload_mod.with_census(rep, census_payload(
+            target, mode, k, expected=k, trips=n_iter))
 
-    return RegionTarget(name=name, build=build, args_for=args,
-                        body_size=body_size, build_rt=build_rt,
-                        args_for_rt=args_rt, payload_check=payload_check,
-                        audit_hint={"scoped": True, "in_loop": True})
+    target = RegionTarget(name=name, build=build, args_for=args,
+                          body_size=body_size, build_rt=build_rt,
+                          args_for_rt=args_rt, payload_check=payload_check,
+                          audit_hint={"scoped": True, "in_loop": True},
+                          sass=site if sass is not None and on_card else None)
+    return target

@@ -53,6 +53,7 @@ class DecanTarget:
     loop's trip count (the payload's dynamic count) and ``device`` where
     the noise carries live. ``build_plain(fp, ls)`` (optional): the
     variants' plain versions, which a check holds the kernels against.
+    ``sass``: the reference kernel's SASS site, ``loop_region``'s ``sass``.
     """
     name: str
     build: Callable[[bool, bool], Callable]
@@ -62,6 +63,7 @@ class DecanTarget:
     n_iter: int = 0
     device: str = "cuda"
     build_plain: Optional[Callable[[bool, bool], Callable]] = None
+    sass: Optional[tuple] = None
 
     def region(self):
         """RegionTarget over the reference kernel (both parts kept), with
@@ -73,7 +75,7 @@ class DecanTarget:
         from repro_torch.core.controller import loop_region
         return loop_region(self.name, self.build_noisy, self.args_for,
                            body_size=self.body_size, n_iter=self.n_iter,
-                           device=self.device)
+                           device=self.device, sass=self.sass)
 
 
 @dataclasses.dataclass

@@ -210,6 +210,12 @@ def step_region(name: str, step_fn: Callable, args: tuple,
     On the card the clean step is a ``GraphStep`` (captured at its first
     call); on the CPU it is ``step_fn`` itself. Every build of the region
     shares it and one noise stream.
+
+    On the card the region's noise in SASS (``RegionTarget.sass``) is the
+    ``csrc/graph_noise.cu`` kernel of its mode, its k = 0 build the clean
+    one; the payload check adds that census's ``overhead`` and
+    ``body_ops``. The clean step has no such build (a CUDA graph of library
+    kernels), so ``sass("", 0)`` is None and |body| stays 0.
     """
     from repro_torch.core.controller import RegionTarget  # controller->here
 
@@ -238,21 +244,40 @@ def step_region(name: str, step_fn: Callable, args: tuple,
     def args_for_rt(mode: str):
         return (states[mode], *args)
 
+    def sass(mode: str, k: int):
+        from repro_torch.kernels._build import SassSite
+        from repro_torch.kernels.graph_noise.kernel import GRAPH_SITES
+
+        if mode not in GRAPH_SITES:
+            return None
+        kernel, mode_id = GRAPH_SITES[mode]
+        return SassSite("graph_noise", mode_id, k, kernels=((kernel, ""),),
+                        body=False)
+
     def payload_check(mode: str, k: int) -> payload_mod.InjectionReport:
         """Run the static-k noisy build once and hold its aux against the
-        mode's plain version on the same state."""
+        mode's plain version on the same state; on the card the SASS
+        census gives ``overhead`` and ``body_ops``."""
+        from repro_torch.core.controller import census_payload
+
         got = want = None
         if k:
             got = build(mode, k)(*args_for(mode, k))[1]
             want = registry[mode].apply(states[mode], k, plain=True)[0]
-        return payload_mod.analyze_aux(
+        rep = payload_mod.analyze_aux(
             got, want, mode=mode, target=registry[mode].target, expected=k,
             body_ops=body_size)
+        return payload_mod.with_census(rep, census_payload(
+            target, mode, k, expected=k))
 
-    return RegionTarget(name=name, build=build, args_for=args_for,
-                        body_size=body_size, build_rt=build_rt,
-                        args_for_rt=args_for_rt, payload_check=payload_check,
-                        audit_hint={"scoped": True, "in_loop": False})
+    target = RegionTarget(
+        name=name, build=build, args_for=args_for, body_size=body_size,
+        build_rt=build_rt, args_for_rt=args_for_rt,
+        payload_check=payload_check,
+        payload_target={m: registry[m].target for m in registry},
+        audit_hint={"scoped": True, "in_loop": False},
+        sass=sass if _device(args).type == "cuda" else None)
+    return target
 
 
 @dataclasses.dataclass

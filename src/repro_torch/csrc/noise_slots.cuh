@@ -182,12 +182,25 @@ __device__ __forceinline__ void repeat_k(int k, F&& body) {
   }
 }
 
+// REPRO_NOISE_SABOTAGE (static builds under REPRO_NOISE_SABOTAGE=const, the
+// static audit's fail-fast switch; never in a measuring run): the k adds run
+// on a copy that never reaches the partial, so nvcc removes them and the
+// audit must read the pair dead. A constant addend would not do: without
+// fast-math the __fadd_rn chain survives whatever the addend is.
 template <int SK>
 __device__ __forceinline__ void fp_noise(float (&acc)[4], const float (&c)[4], int k) {
+#ifdef REPRO_NOISE_SABOTAGE
+  float lost[4] = {acc[0], acc[1], acc[2], acc[3]};
+  repeat_k<SK>(k, [&](int) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) lost[r] = __fadd_rn(lost[r], c[r]);
+  });
+#else
   repeat_k<SK>(k, [&](int) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) acc[r] = __fadd_rn(acc[r], c[r]);
   });
+#endif
 }
 
 // src: `rows` x (>= w) floats in shared memory with row stride `stride`

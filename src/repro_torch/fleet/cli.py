@@ -21,6 +21,12 @@ budgets), and show fleet state.
 
     PYTHONPATH=src python -m repro_torch.fleet status --plan plan.json
 
+    # the static noise audit alone (no measurement): every planned pair's
+    # SASS at two static k; exit 1 on a dead pair (--expect-clean: on any
+    # pair not intact); `run` audits first by default (--audit gate)
+    PYTHONPATH=src python -m repro_torch.fleet audit --plan plan.json \
+        [--expect-clean] [--force]
+
     # fit per-hardware classification thresholds (synthetic clock), show
     # them, copy them into another store
     PYTHONPATH=src python -m repro_torch.fleet calibrate run
@@ -28,9 +34,10 @@ budgets), and show fleet state.
     PYTHONPATH=src python -m repro_torch.fleet calibrate apply --to S.jsonl
 
 ``--backend cuda`` (the default) measures the CUDA kernels on the card and
-fails without one; ``--backend cpu`` runs their plain PyTorch versions. The
-reference's ``audit``, ``doctor`` and ``watch`` subcommands and its ssh
-launcher are not ported.
+fails without one; ``--backend cpu`` runs their plain PyTorch versions
+(which carry no compiled noise: the audit reports every pair
+unauditable). The reference's ``doctor`` and ``watch`` subcommands and its
+ssh launcher are not ported.
 """
 from __future__ import annotations
 
@@ -202,6 +209,34 @@ def _cmd_run(args) -> int:
           f"classified, shard(s) launched this run: "
           f"{res.launched or 'none'}")
     return 0
+
+
+def _cmd_audit(args) -> int:
+    """Static noise audit of a plan, standalone: build every planned pair
+    at the audit's two k points, persist the verdicts into the plan's
+    canonical store, and exit 1 when any pair is statically dead
+    (``--expect-clean``: when any pair is not fully intact)."""
+    from repro_torch.fleet.executor import FleetError, audit_fleet_plan
+    from repro_torch.fleet.plan import PlanError, SweepPlan
+
+    try:
+        plan = SweepPlan.load(args.plan)
+        # gate="warn" so every pair is printed before the exit-code verdict
+        records = audit_fleet_plan(plan, gate="warn", force=args.force)
+    except (OSError, PlanError, FleetError) as e:
+        raise SystemExit(f"audit: {e}")
+    grid = plan.grid()
+    dead = [k for k in grid
+            if records.get(k, {}).get("verdict") == "dead"]
+    not_intact = [k for k in grid
+                  if records.get(k, {}).get("verdict") != "intact"]
+    print(f"== audit verdict: {len(grid) - len(not_intact)}/{len(grid)} "
+          f"pair(s) intact, {len(dead)} dead (records -> {plan.store})")
+    if args.expect_clean and not_intact:
+        print("--expect-clean: not intact: "
+              + ", ".join(f"{r}/{m}" for r, m in not_intact))
+        return 1
+    return 1 if dead else 0
 
 
 def _cmd_calibrate(args) -> int:
@@ -430,11 +465,11 @@ def build_parser() -> argparse.ArgumentParser:
     rp.add_argument("--in-process", action="store_true",
                     help="run shards sequentially in this process instead "
                          "of spawning subprocesses")
-    rp.add_argument("--audit", default="off",
+    rp.add_argument("--audit", default="gate",
                     choices=("gate", "warn", "off"),
-                    help="static noise-audit policy: off (the default) "
-                         "only; gate and warn are refused until the audit "
-                         "is ported")
+                    help="static noise-audit policy before launch: gate "
+                         "(default) refuses statically-dead pairs, warn "
+                         "measures anyway, off skips the audit")
     rp.add_argument("--quality", default="gate",
                     choices=("gate", "warn", "off"),
                     help="runtime measurement-quality policy after the "
@@ -443,6 +478,20 @@ def build_parser() -> argparse.ArgumentParser:
                          "attaches no quality evidence")
     _add_launcher_flags(rp, for_plan=False)
     rp.set_defaults(fn=_cmd_run)
+
+    audp = sub.add_parser("audit", help="statically verify every planned "
+                                        "(region, mode) pair against the "
+                                        "compiler — no measurements; exit 1 "
+                                        "on any dead pair")
+    audp.add_argument("--plan", required=True,
+                      help="the SweepPlan JSON to audit")
+    audp.add_argument("--expect-clean", action="store_true",
+                      help="exit 1 unless EVERY pair is fully intact "
+                           "(degraded and unauditable pairs also fail)")
+    audp.add_argument("--force", action="store_true",
+                      help="re-audit pairs that already carry audit records "
+                           "(fresh records supersede)")
+    audp.set_defaults(fn=_cmd_audit)
 
     cal = sub.add_parser("calibrate",
                          help="threshold calibration: run the known-regime "
@@ -485,7 +534,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    """CLI entry: dispatch to the plan/run/calibrate/status subcommand."""
+    """CLI entry: dispatch to the plan/run/audit/calibrate/status
+    subcommand."""
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

@@ -27,9 +27,11 @@ or lost ``fleet.json`` can never cause double measurement or a hole.
 status/attempts/attempt-log/stats, the merge manifest, and the final
 classification.
 
-The reference's static noise audit (``repro.analysis``, run before any
-measurement) is not ported: the audit policy takes "off" only, its default;
-"gate" and "warn" raise rather than skip the audit without saying so.
+The static noise audit (``repro_torch.analysis``) runs once, before any
+measurement: every planned pair's static builds are censused in SASS, and
+under the default ``audit="gate"`` a statically dead pair refuses the
+fleet. Shards never audit. Its records live in the canonical store (a
+resume audits nothing) and back per-mode evidence on every classification.
 A ``calib`` record in the store (``core.calibration``) swaps the
 classifier's paper-default thresholds for the fitted ones.
 """
@@ -103,11 +105,11 @@ def write_report(path: str, reports: dict) -> str:
 
 
 # ---------------------------------------------------------------------------
-# policies: the static audit (not ported) and the runtime quality gate
+# policies: the static audit gate (runs BEFORE any measurement) and the
+# runtime quality gate
 # ---------------------------------------------------------------------------
 
-AUDIT_CHOICES = ("off",)
-AUDIT_NOT_PORTED = "static audit not ported yet (ROADMAP queue 1 item 9)"
+AUDIT_CHOICES = ("gate", "warn", "off")
 
 # the runtime measurement-quality gate runs AFTER the merge: "gate" refuses
 # a fleet whose classification was refused (majority-quarantined curves),
@@ -116,8 +118,6 @@ QUALITY_CHOICES = ("gate", "warn", "off")
 
 
 def _check_audit_choice(audit: str) -> None:
-    if audit in ("gate", "warn"):
-        raise FleetError(AUDIT_NOT_PORTED)
     if audit not in AUDIT_CHOICES:
         raise FleetError(f"audit policy {audit!r}: one of {AUDIT_CHOICES}")
 
@@ -136,6 +136,20 @@ def _plan_quality(plan: SweepPlan):
     from repro_torch.core.quality import quality_from_dict
 
     return quality_from_dict(plan.quality)
+
+
+def _attach_audit_evidence(rep, store):
+    """Fold the store's audit records into one RegionReport's
+    classification. A no-op for regions without audit records, so a
+    non-audited run serializes byte-identically to a pre-audit one."""
+    from repro_torch.core.classifier import apply_audit_evidence
+
+    audits = {m: rec for (r, m), rec in store.audits.items()
+              if r == rep.region and m in rep.results}
+    if not audits:
+        return rep
+    return dataclasses.replace(
+        rep, bottleneck=apply_audit_evidence(rep.bottleneck, audits))
 
 
 def _attach_quality_evidence(rep, store):
@@ -228,11 +242,91 @@ def _classify_regions(plan: SweepPlan, camp, quality: str) -> dict:
     reports = {}
     for spec, regions in plan.resolve():
         for region in regions:
-            rep = camp.characterize(region, list(spec.modes))
+            rep = _attach_audit_evidence(
+                camp.characterize(region, list(spec.modes)), camp.store)
             if quality != "off":
                 rep = _attach_quality_evidence(rep, camp.store)
             reports[region.name] = rep
     return reports
+
+
+def audit_fleet_plan(plan: SweepPlan, store=None, *, gate: str = "gate",
+                     force: bool = False, echo: bool = True) -> dict:
+    """Statically audit every planned (region, mode) pair into the plan's
+    canonical store, BEFORE any measurement happens.
+
+    Each pair takes three static builds (clean / K_LO / K_HI, the clean one
+    shared across a region's modes), all compiled side by side, and the
+    two-point census delta of their SASS decides whether the noise payload
+    survived ``nvcc`` (``repro_torch.analysis``). Verdicts persist as
+    ``audit`` records in the canonical ``CampaignStore``; pairs that
+    already carry a record are not built again (``force`` re-audits them;
+    fresh records supersede), so resumed fleets and replays audit for free.
+
+    ``gate`` policy: ``"gate"`` raises ``FleetError`` when any pair is
+    statically DEAD (measuring it would time nothing); ``"warn"`` prints the
+    same explanation and proceeds. Callers handle ``"off"`` by not calling
+    this at all. A pair whose SASS cannot be read is UNAUDITABLE, reported
+    and never fatal: on the cpu backend every pair (the plain versions
+    carry no compiled noise; ``nvcc`` is never called and no record is
+    written, so a cpu store is byte-identical to an unaudited one).
+
+    Returns ``{(region, mode): audit record}`` for the plan's whole grid.
+    """
+    from repro_torch.analysis import AuditReport, audit_plan
+    from repro_torch.core.campaign import CampaignStore, store_exists
+
+    owned = store is None
+    if owned and store_exists(plan.store):
+        audits = CampaignStore(plan.store, readonly=True).audits
+    else:
+        audits = {} if owned else store.audits
+    try:
+        grid = plan.grid()
+        skip = frozenset() if force else frozenset(audits)
+        todo = [key for key in grid if key not in skip]
+        if todo and echo:
+            print(f"== audit: statically verifying {len(todo)} pair(s) "
+                  f"({len(grid) - len(todo)} already in store)", flush=True)
+        unauditable: list[tuple] = []
+        fresh = audit_plan(plan, skip=skip,
+                           on_error=lambda r, m, e:
+                               unauditable.append((r, m, e)))
+        if fresh and owned:
+            # opened only to write: an audit that wrote nothing (the cpu
+            # backend) leaves no store behind
+            store = CampaignStore(plan.store)
+        for rep in fresh:
+            store.append({"kind": "audit", **rep.to_dict()})
+        if store is not None:
+            audits = store.audits
+        records = {key: audits[key] for key in grid if key in audits}
+        if echo:
+            for key in grid:
+                rec = records.get(key)
+                if rec is not None:
+                    print("  " + AuditReport.from_dict(rec).explain())
+            for r, m, e in unauditable:
+                print(f"  {r} × {m}: UNAUDITABLE — {e}")
+        dead = [key for key in grid
+                if records.get(key, {}).get("verdict") == "dead"]
+        if dead:
+            lines = "\n".join(
+                "  " + AuditReport.from_dict(records[key]).explain()
+                for key in dead)
+            msg = (f"audit gate: {len(dead)} planned pair(s) carry "
+                   "statically DEAD noise — the compiler removed the "
+                   f"payload, so measuring them would time nothing:\n{lines}")
+            if gate == "gate":
+                raise FleetError(
+                    msg + "\nfix the noise body (`python -m repro_torch."
+                    "fleet audit --plan ...` repeats each explanation), or "
+                    "measure anyway with --audit warn")
+            print(f"!! {msg}\n!! --audit warn: measuring anyway")
+        return records
+    finally:
+        if owned and store is not None:
+            store.close()
 
 
 # ---------------------------------------------------------------------------
@@ -280,7 +374,7 @@ def _handshake(plan: SweepPlan) -> str:
 def run_worker(plan: SweepPlan, *, index: Optional[int] = None,
                count: Optional[int] = None, fresh: bool = False,
                expect_no_measure: bool = False,
-               header: Optional[str] = None, audit: str = "off",
+               header: Optional[str] = None, audit: str = "gate",
                quality: str = "gate"):
     """Execute a plan (or one shard of it) in THIS process.
 
@@ -289,11 +383,15 @@ def run_worker(plan: SweepPlan, *, index: Optional[int] = None,
     happens after the merge. Without a shard: run the whole grid into the
     canonical store, classify every region, and write the report file.
 
-    ``audit``: "off" only (the static audit is not ported). A plan that
-    declares a ``quality`` policy measures under the runtime integrity
-    guard on both paths; ``quality`` then governs the classification side
-    on the whole-plan path: "gate" refuses a majority-quarantined region,
-    "warn" reports it, "off" attaches no quality evidence.
+    ``audit`` applies to the whole-plan path only (a shard never audits —
+    the fleet audits once at the gate): the static noise audit runs before
+    any measurement, "gate" refusing statically dead pairs, "warn"
+    measuring them anyway, "off" skipping it; its records back the per-mode
+    evidence attached to every classification. A plan that declares a
+    ``quality`` policy measures under the runtime integrity guard on both
+    paths; ``quality`` then governs the classification side on the
+    whole-plan path: "gate" refuses a majority-quarantined region, "warn"
+    reports it, "off" attaches no quality evidence.
 
     Returns ``(results_or_reports, CampaignStats)``.
     """
@@ -343,6 +441,8 @@ def run_worker(plan: SweepPlan, *, index: Optional[int] = None,
             return res, camp.stats
 
         print(f"== {title} (campaign store: {store})")
+        if audit != "off":
+            audit_fleet_plan(plan, camp.store, gate=audit)
         prov = _use_thresholds(camp)
         if prov != "default":
             low, high = camp.thresholds
@@ -526,8 +626,15 @@ def run_fleet(plan_path: str, *, resume: bool = False, fresh: bool = False,
               expect_no_measure: bool = False,
               launcher: Optional[Launcher] = None,
               retry: Optional[RetryBudget] = None,
-              audit: str = "off", quality: str = "gate") -> FleetResult:
-    """Plan → spawn (with retries) → merge → classify, resumably.
+              audit: str = "gate", quality: str = "gate") -> FleetResult:
+    """Plan → audit → spawn (with retries) → merge → classify, resumably.
+
+    * the static noise audit runs FIRST, before anything launches
+      (``audit_fleet_plan``): under the default ``audit="gate"`` a
+      statically dead pair refuses the whole fleet, ``"warn"`` proceeds
+      anyway, ``"off"`` skips the audit. Its records live in the canonical
+      store, so resumes never build them again, and the classify step
+      attaches them as per-mode evidence;
 
     * first run: launches every shard whose slice is incomplete (all of
       them), merges, classifies;
@@ -548,7 +655,7 @@ def run_fleet(plan_path: str, *, resume: bool = False, fresh: bool = False,
     * ``fresh``: delete every store/state file of this plan first.
 
     ``launcher``: a ``Launcher``, or None to resolve from the plan's
-    ``launcher`` spec (default: local subprocesses). ``audit``: "off" only.
+    ``launcher`` spec (default: local subprocesses).
 
     Raises ``FleetError`` when fleet state exists for a different plan
     digest, when state exists and neither flag was given, when shards still
@@ -579,6 +686,11 @@ def run_fleet(plan_path: str, *, resume: bool = False, fresh: bool = False,
     budget = retry if retry is not None \
         else RetryBudget.from_dict(plan.retry)
     lch = launcher if launcher is not None else resolve_launcher(plan=plan)
+    if audit != "off":
+        # fail-fast: a statically dead pair refuses the fleet BEFORE any
+        # shard launches; records land in the canonical store (pre-merge,
+        # so the merge streams them through) and back the evidence below
+        audit_fleet_plan(plan, gate=audit)
 
     incomplete = sorted(_incomplete_shards(plan, grid, heal=resume))
     for i, ss in state.shards.items():

@@ -29,10 +29,18 @@ entered only for tensors off the current device. The ctypes route is kept
 (``torch.utils.cpp_extension`` builds take minutes), and no CUDA graph
 stands in for the call: a sweep times one dispatched call per point, as
 the reference does.
+
+The static noise audit (``repro_torch.analysis``) reads the SASS of static
+builds (``site_sass``: a ``SassSite`` names the build and the functions
+that carry a region's noise). ``REPRO_NOISE_SABOTAGE=const`` (the audit's
+fail-fast switch; never set in a measuring run) reaches every static build
+as ``-DREPRO_NOISE_SABOTAGE=1`` and tags its library's path, so a
+sabotaged library is never loaded in place of a clean one.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import glob
 import hashlib
@@ -192,34 +200,63 @@ def ptxas_usage(kernel: str) -> dict:
         return json.load(f)[kernel]
 
 
+SABOTAGE_VAR = "REPRO_NOISE_SABOTAGE"
+SABOTAGE_DEFINE = ("REPRO_NOISE_SABOTAGE", 1)
+
+
+def sabotaged() -> bool:
+    """True when ``REPRO_NOISE_SABOTAGE=const`` asks the static builds for a
+    payload nvcc removes (the audit's fail-fast switch)."""
+    return os.environ.get(SABOTAGE_VAR) == "const"
+
+
+def _with_sabotage(defines: tuple, sabotage: Optional[bool]) -> tuple:
+    if sabotaged() if sabotage is None else sabotage:
+        return (*defines, SABOTAGE_DEFINE)
+    return tuple(defines)
+
+
 def static_lib_path(kernel: str, mode_id: int, k: int,
-                    defines: tuple = ()) -> str:
+                    defines: tuple = (), *,
+                    sabotage: Optional[bool] = None) -> str:
     """Where the static-k library of one (kernel, mode, k[, variant
-    defines]) lives."""
+    defines]) lives; ``sabotage`` (default: the environment's switch) tags
+    the sabotaged build's path."""
+    defines = _with_sabotage(defines, sabotage)
     variant = "".join(f"_{name.lower()}{value}" for name, value in defines)
     return os.path.join(
         BUILD_DIR,
         f"librepro_{kernel}_m{mode_id}_k{k}{variant}_{source_hash()}.so")
 
 
-def static_lib(kernel: str, mode_id: int, k: int,
-               defines: tuple = ()) -> ctypes.CDLL:
-    """The static-k library of one (kernel, mode, k), built on first use;
-    ``defines``: ((name, value), ...) selecting the kernel's variant."""
+def static_build(kernel: str, mode_id: int, k: int, defines: tuple = (), *,
+                 sabotage: Optional[bool] = None) -> str:
+    """Build (if it is not there) the static-k library of one (kernel, mode,
+    k[, variant]) without loading it; returns its path."""
     if kernel not in KERNEL_SOURCES:
         raise ValueError(f"unknown kernel source {kernel!r}")
-    path = static_lib_path(kernel, mode_id, k, defines)
+    path = static_lib_path(kernel, mode_id, k, defines, sabotage=sabotage)
     with _lock_for(path):
-        if path in _LIBS:
-            return _LIBS[path]
         if not os.path.exists(path):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
             _run([[nvcc_path(), *NVCC_FLAGS, "-shared",
                    f"-DREPRO_STATIC_MODE={mode_id}", f"-DREPRO_STATIC_K={k}",
-                   *(f"-D{name}={value}" for name, value in defines),
+                   *(f"-D{name}={value}"
+                     for name, value in _with_sabotage(defines, sabotage)),
                    "-o", tmp, os.path.join(CSRC, f"{kernel}.cu")]])
             os.replace(tmp, path)   # atomic: no reader sees a partial file
+    return path
+
+
+def static_lib(kernel: str, mode_id: int, k: int,
+               defines: tuple = ()) -> ctypes.CDLL:
+    """The static-k library of one (kernel, mode, k), built on first use;
+    ``defines``: ((name, value), ...) selecting the kernel's variant."""
+    path = static_build(kernel, mode_id, k, defines)
+    with _lock_for(path):
+        if path in _LIBS:
+            return _LIBS[path]
         return _load(path)
 
 
@@ -242,8 +279,8 @@ _ENTRIES: dict = {}
 
 def _entry(kernel: str, entry: str, n_ptrs: int, n_ints: int, mode_id: int,
            k: int, static: bool, defines: tuple):
-    key = ((kernel, entry, True, mode_id, k, defines) if static
-           else (kernel, entry, False, -1, -1, ()))
+    key = ((kernel, entry, True, mode_id, k, defines, sabotaged())
+           if static else (kernel, entry, False, -1, -1, ()))
     fn = _ENTRIES.get(key)
     if fn is None:
         if static:
@@ -306,17 +343,74 @@ def on_card(t) -> bool:
     raise ValueError(f"tensors on {t.device} are not supported")
 
 
+def cuobjdump_path() -> Optional[str]:
+    """``cuobjdump`` beside ``nvcc``; None when the toolkit (or it) is
+    missing."""
+    try:
+        tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    except RuntimeError:
+        return None
+    return tool if os.path.isfile(tool) else None
+
+
+_DUMPS: dict[str, str] = {}
+
+
+def sass_dump(path: str) -> Optional[str]:
+    """``cuobjdump -sass`` of a built library (read once per process); None
+    when the toolkit has no ``cuobjdump``."""
+    if path in _DUMPS:
+        return _DUMPS[path]
+    tool = cuobjdump_path()
+    if tool is None:
+        return None
+    out = subprocess.run([tool, "-sass", path], capture_output=True,
+                         text=True, check=True).stdout
+    _DUMPS[path] = out
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class SassSite:
+    """Where a region's noise lives in SASS for one (mode, k): the static
+    build of ``source`` (``csrc/<source>.cu``) at ``mode_id`` and ``k``
+    with the variant ``defines``, the functions that carry the noise
+    (``kernels``) and the other functions one call launches (``aux``),
+    each as (base name, mangled-tail prefix; "" for any instance). ``body``:
+    whether the kernel is the region's own body (False for a step region,
+    whose body is a CUDA graph of library kernels)."""
+    source: str
+    mode_id: int
+    k: int
+    defines: tuple = ()
+    kernels: tuple = ()
+    aux: tuple = ()
+    body: bool = True
+    sabotage: Optional[bool] = None
+
+
+def site_sass(site: SassSite) -> Optional[str]:
+    """The SASS of a site's functions (``kernels`` and ``aux``), its static
+    library built first if needed; None without ``cuobjdump``."""
+    from repro_torch.sass.parse import select
+
+    path = static_build(site.source, site.mode_id, site.k, site.defines,
+                        sabotage=site.sabotage)
+    text = sass_dump(path)
+    if text is None:
+        return None
+    return select(text, site.kernels + site.aux)
+
+
 def sass_census(path: str, opcode: str) -> Optional[dict]:
     """{function: {opcode with its modifiers: count}} of the SASS
     instructions of ``opcode`` (e.g. ``LDG`` counts ``LDG.E`` and
     ``LDG.E.STRONG.SM`` apart) in each function of a built library, from
     ``cuobjdump -sass``; functions by their mangled names. None when the
     toolkit has no ``cuobjdump``."""
-    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
-    if not os.path.isfile(tool):
+    out = sass_dump(path)
+    if out is None:
         return None
-    out = subprocess.run([tool, "-sass", path], capture_output=True,
-                         text=True, check=True).stdout
     # e.g. "        /*0090*/   @P0 FADD R5, R5, R4 ;   /* 0x000... */"
     pat = re.compile(rf"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?"
                      rf"({re.escape(opcode)}(?:\.\S+)?)\s")

@@ -21,6 +21,15 @@ from repro_torch.kernels.loop_regions.kernel import _check, _k
 # the CUDA source's mode ids (csrc/graph_noise.cu GMODE_*)
 MODE_IDS = {"fp_add32": 1, "mxu_fma128": 2, "vmem_ld": 3, "hbm_stream": 4,
             "hbm_latency": 5}
+# mode -> the kernel its static builds launch: what a step region's noise
+# is in SASS (ici_allreduce's no-mesh branch runs fp_add32's kernel; the
+# other ICI modes' no-mesh branch is a library sum, no kernel of this file)
+GRAPH_SITES = {"fp_add32": ("gfp_kernel", MODE_IDS["fp_add32"]),
+               "mxu_fma128": ("gmxu_kernel", MODE_IDS["mxu_fma128"]),
+               "vmem_ld": ("gvmem_kernel", MODE_IDS["vmem_ld"]),
+               "hbm_stream": ("gstream_kernel", MODE_IDS["hbm_stream"]),
+               "hbm_latency": ("gchase_kernel", MODE_IDS["hbm_latency"]),
+               "ici_allreduce": ("gfp_kernel", MODE_IDS["fp_add32"])}
 MXU_DIM = 128            # the card's mxu kernel: 128 x 128 bf16
 MAX_VMEM_ROWS = 448      # vmem_ld's buffer staged in shared memory
 

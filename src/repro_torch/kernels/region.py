@@ -18,6 +18,13 @@ tensors on the CPU:
 ``device``: "cuda" (the default; raises when no card is present) or "cpu"
 (the plain versions — what the tests use).
 
+On the card each region names, for (mode, k), the static build and the
+kernel functions that carry its noise (``RegionTarget.sass``, a
+``_build.SassSite``): the static noise audit and the payload census read
+their SASS. ``audit_hint["steps"]`` is the loop a CTA runs over its grid
+steps (``steps_per_cta``): CTAs stand in for the reference's sequential
+grid steps, so a CTA of one step holds its noise outside any loop.
+
 ``pallas_family`` spans a kernel's size (× q for spmxv) family under one
 store namespace, and ``family_names`` enumerates its region names without
 building anything — what fleet plans and their status queries use.
@@ -34,15 +41,17 @@ from repro_torch.convert import to_torch
 from repro_torch.core.controller import RegionTarget
 from repro_torch.core.payload import InjectionReport
 from repro_torch.kernels import noise_slots as ns
-from repro_torch.kernels.flash_attention.kernel import (flash_attention,
+from repro_torch.kernels._build import SassSite
+from repro_torch.kernels.flash_attention.kernel import (WGMMA_HEAD_DIMS,
+                                                        flash_attention,
                                                         flash_attention_rt,
                                                         live_blocks)
 from repro_torch.kernels.noise_probes.kernel import probe, probe_rt
 from repro_torch.kernels.noise_probes.ref import probe_ref
 from repro_torch.kernels.noisy_matmul.kernel import matmul, matmul_rt
 from repro_torch.kernels.noisy_matmul.ref import default_noise_operand
-from repro_torch.kernels.spmv_ell.kernel import (blocks_per_cta, spmv_ell,
-                                                spmv_ell_rt)
+from repro_torch.kernels.spmv_ell.kernel import (RING_MAX_L, blocks_per_cta,
+                                                spmv_ell, spmv_ell_rt)
 from repro_torch.kernels.spmv_ell.ref import (fp_noise_ell_ref, make_band_ell,
                                               vmem_noise_ell_ref)
 
@@ -126,6 +135,10 @@ class _KernelSpec:
     body_size: int                              # |l1.l2| stand-in for Abs^rel
     steps_per_cta: int                          # most grid steps one partial holds
     n_cta: int = 0                              # partials (0: n_steps/steps_per_cta)
+    source: str = ""                            # csrc/<source>.cu
+    kernels: tuple = ()                         # functions carrying the noise
+    aux: tuple = ()                             # other kernels a call launches
+    defines: tuple = ()                         # the static build's variant
 
 
 def _chain(steps_per_cta: int, n_cta: int, k: int) -> int:
@@ -172,7 +185,9 @@ def _matmul_spec(device, *, n: int = 256, bm: int = 128, bn: int = 128,
 
     return _KernelSpec(_matmul_name(n=n), (a, b, noise), static_fn, rt_fn,
                        oracle, grid_steps, body_size=3,
-                       steps_per_cta=n // bk)
+                       steps_per_cta=n // bk, source="noisy_matmul",
+                       kernels=(("matmul_kernel", ""),),
+                       aux=(("transpose_tf32", ""), ("nacc_reduce", "")))
 
 
 def _spmxv_spec(device, *, n: int = 512, nnz_per_row: int = 16,
@@ -198,9 +213,11 @@ def _spmxv_spec(device, *, n: int = 512, nnz_per_row: int = 16,
             return vmem_noise_ell_ref(vals, k, br)
         return None
 
+    kernel = "spmv_ring_kernel" if nnz_per_row <= RING_MAX_L else "spmv_kernel"
     return _KernelSpec(_spmxv_name(n=n, nnz_per_row=nnz_per_row, q=q),
                        (vals, cols, x), static_fn, rt_fn, oracle, nb,
-                       body_size=4, steps_per_cta=blocks_per_cta(nb))
+                       body_size=4, steps_per_cta=blocks_per_cta(nb),
+                       source="spmv_ell", kernels=((kernel, ""),))
 
 
 def _attention_spec(device, *, batch: int = 1, heads: int = 2,
@@ -241,7 +258,13 @@ def _attention_spec(device, *, batch: int = 1, heads: int = 2,
                        (q, k, v, noise), static_fn, rt_fn, oracle,
                        grid_steps, body_size=12,
                        steps_per_cta=int(live.max()),
-                       n_cta=batch * heads * nq)
+                       n_cta=batch * heads * nq, source="flash_attention",
+                       kernels=(("fa_kernel_wgmma" if head_dim in
+                                 WGMMA_HEAD_DIMS else "fa_kernel_mma", ""),),
+                       aux=((("fa_prep", ""),) if head_dim in WGMMA_HEAD_DIMS
+                            else ()) + (("nacc_reduce", ""),),
+                       defines=(("REPRO_STATIC_HD", head_dim),
+                                ("REPRO_STATIC_BF16", 0)))
 
 
 def _probe_spec(device, *, n_steps: int = 64) -> _KernelSpec:
@@ -261,7 +284,9 @@ def _probe_spec(device, *, n_steps: int = 64) -> _KernelSpec:
                          tf32=noise.is_cuda)
 
     return _KernelSpec(_probe_name(n_steps=n_steps), (noise,), static_fn,
-                       rt_fn, oracle, n_steps, body_size=1, steps_per_cta=1)
+                       rt_fn, oracle, n_steps, body_size=1, steps_per_cta=1,
+                       source="noise_probes",
+                       kernels=(("probe_kernel", ""),))
 
 
 _SPECS = {
@@ -320,7 +345,8 @@ def pallas_region(kernel: str, *, device="cuda", name: str = "",
     if kernel not in _SPECS:
         raise ValueError(f"unknown pallas kernel {kernel!r}; "
                          f"one of {sorted(KERNEL_MODES)}")
-    spec = _SPECS[kernel](resolve_device(device), **sizes)
+    dev = resolve_device(device)
+    spec = _SPECS[kernel](dev, **sizes)
     modes = KERNEL_MODES[kernel]
 
     def _built(fn):
@@ -366,13 +392,24 @@ def pallas_region(kernel: str, *, device="cuda", name: str = "",
             payload=k if ok else 0, overhead=0,
             payload_dynamic=k * spec.n_steps, body_ops=spec.body_size)
 
+    def sass(mode: str, k: int) -> SassSite:
+        """The static build carrying k patterns of ``mode`` (the clean
+        build, mode 0, for ``("", 0)``) and the region's functions in it."""
+        mode_id = 0
+        if mode and k:
+            _check_mode(mode)
+            mode_id = ns.MODE_IDS[mode]
+        return SassSite(spec.source, mode_id, k if mode_id else 0,
+                        spec.defines, spec.kernels, spec.aux)
+
     return RegionTarget(name=name or spec.name, build=build,
                         args_for=args_for, body_size=spec.body_size,
                         payload_target=dict(MODE_TARGETS),
                         build_rt=build_rt, args_for_rt=args_for_rt,
                         payload_check=payload_check,
                         audit_hint={"scoped": False, "in_loop": True,
-                                    "steps": spec.n_steps})
+                                    "steps": spec.steps_per_cta},
+                        sass=sass if dev.type == "cuda" else None)
 
 
 def family_params(kernel: str) -> frozenset:

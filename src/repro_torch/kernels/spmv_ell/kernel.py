@@ -22,6 +22,10 @@ from repro_torch.kernels import noise_slots as ns
 # At L=16 the ring's 48 KiB of shared memory a CTA fits 4 CTAs on each of
 # the 132 SMs, so all 512 are resident at once (csrc/spmv_ell.cu).
 TARGET_CTAS = 512
+# rows up to this width take the bulk-copy ring kernel (two stages or more
+# fit its shared memory: csrc/spmv_ell.cu ring_stages), wider ones
+# spmv_kernel's register path
+RING_MAX_L = 112
 
 
 def _shapes(vals: torch.Tensor, x: torch.Tensor, br: int):

@@ -121,7 +121,7 @@ def _run_adhoc(spec, *, reps: int, store: Optional[str], fresh: bool,
                workers: int, compile_once: bool,
                shard: Optional[tuple[int, int]], expect_no_measure: bool,
                header: str, device: str, quality: str = "gate",
-               audit: str = "off"):
+               audit: str = "gate"):
     """Build a one-target SweepPlan from CLI flags and execute it through
     the fleet worker."""
     from repro_torch.fleet.executor import FleetError, run_worker
@@ -155,7 +155,7 @@ def measured_probe(arch: str, kind: str, modes: list[str], *, seq: int,
                    compile_once: bool = True,
                    shard: Optional[tuple[int, int]] = None,
                    expect_no_measure: bool = False, device: str = "cuda",
-                   quality: str = "gate", audit: str = "off"):
+                   quality: str = "gate", audit: str = "gate"):
     """Measured graph-level probe of one model step (smoke config): a
     one-target SweepPlan run through the fleet worker."""
     from repro_torch.fleet.plan import TargetSpec
@@ -177,7 +177,7 @@ def serve_probe(arch: str, modes: list[str], *, slots: int, prompt: int,
                 compile_once: bool = True,
                 shard: Optional[tuple[int, int]] = None,
                 expect_no_measure: bool = False, device: str = "cuda",
-                quality: str = "gate", audit: str = "off"):
+                quality: str = "gate", audit: str = "gate"):
     """Measured probe of the paged serving engine (smoke config): one plan,
     TWO regions — the batched prefill and the decode tick
     (``serve.load.build_serve_regions``) — classified separately."""
@@ -200,7 +200,7 @@ def pallas_probe(kernel: str, modes: Optional[list[str]], *, reps: int,
                  compile_once: bool = True,
                  shard: Optional[tuple[int, int]] = None,
                  expect_no_measure: bool = False, device: str = "cuda",
-                 quality: str = "gate", audit: str = "off"):
+                 quality: str = "gate", audit: str = "gate"):
     """Characterize one kernel region through the fleet worker; returns
     ``run_worker``'s ``(reports or shard results, CampaignStats)``."""
     from repro_torch.fleet.plan import TargetSpec
@@ -231,7 +231,7 @@ def pallas_probe(kernel: str, modes: Optional[list[str]], *, reps: int,
 
 def plan_probe(plan_path: str, *, shard: Optional[tuple[int, int]],
                fresh: bool, expect_no_measure: bool, quality: str = "gate",
-               audit: str = "off"):
+               audit: str = "gate"):
     """The fleet worker entry: execute (a shard of) a saved SweepPlan."""
     from repro_torch.fleet.executor import FleetError, run_worker
     from repro_torch.fleet.plan import PlanError, SweepPlan
@@ -328,10 +328,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "ad-hoc runs: gate (default) refuses a majority-"
                          "quarantined classification, warn reports it, off "
                          "attaches no quality evidence")
-    ap.add_argument("--audit", default="off", choices=("gate", "warn", "off"),
-                    help="static noise-audit policy: off (the default) "
-                         "only; gate and warn are refused until the audit "
-                         "is ported")
+    ap.add_argument("--audit", default="gate", choices=("gate", "warn", "off"),
+                    help="static noise-audit policy for whole-plan and "
+                         "ad-hoc runs (shards never audit): gate (default) "
+                         "refuses statically-dead pairs, warn measures "
+                         "anyway, off skips the audit")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the region computes (the plan's backend): "
                          "cuda (default; fails without a card) or cpu "

@@ -156,7 +156,8 @@ def test_attention_region_counts_live_blocks():
     spec = port_region._attention_spec("cpu", seq=256, heads=2, kv_heads=1)
     assert spec.n_steps == 2 * 10 and spec.steps_per_cta == 4
     assert spec.n_cta == 2 * 4
-    assert region.audit_hint["steps"] == 20
+    # the audit's loop: the most live blocks one CTA walks, not the grid
+    assert region.audit_hint["steps"] == spec.steps_per_cta == 4
     assert region.payload_check("fp", 3).ok()
 
 
@@ -211,15 +212,31 @@ def test_plan_refusals(tmp_path, change, match):
 
 
 @pytest.mark.parametrize("audit", ["gate", "warn"])
-def test_audit_policies_other_than_off_are_refused(tmp_path, audit):
+def test_audit_policies_other_than_off_are_refused(tmp_path, audit,
+                                                   synth_measure, capsys,
+                                                   monkeypatch):
+    """On the cpu backend gate and warn refuse to audit each pair: the plain
+    versions carry no compiled noise, so every pair is reported
+    unauditable, no build is attempted and no record is written, and the
+    fleet measures on (its store stays what an unaudited run writes). An
+    unknown policy is refused before anything runs."""
+    from repro_torch.kernels import _build
+
+    def no_build(*a, **kw):
+        raise AssertionError("the cpu backend must not build")
+
+    monkeypatch.setattr(_build, "static_build", no_build)
     plan, path = _plan(tmp_path)
-    msg = r"static audit not ported yet \(ROADMAP queue 1 item 9\)"
-    with pytest.raises(FleetError, match=msg):
-        run_fleet(path, audit=audit, launcher=IN_PROCESS)
-    with pytest.raises(FleetError, match=msg):
-        run_worker(plan, audit=audit)
-    assert not os.path.exists(plan.store)
-    assert not os.path.exists(plan.fleet_path())
+    res = run_fleet(path, audit=audit, launcher=IN_PROCESS)
+    out = capsys.readouterr().out
+    assert out.count("UNAUDITABLE") == len(plan.grid())
+    assert "cpu backend" in out and res.stats.measured == 0
+    assert not CampaignStore(plan.store, readonly=True).audits
+    for policy in ("sometimes", ""):
+        with pytest.raises(FleetError, match="audit policy"):
+            run_worker(plan, audit=policy)
+        with pytest.raises(FleetError, match="audit policy"):
+            run_fleet(path, resume=True, audit=policy, launcher=IN_PROCESS)
 
 
 # ---------------------------------------------------------------------------
@@ -344,8 +361,14 @@ def test_probe_plan_shard_and_expect_no_measure(tmp_path, synth_measure,
         probe.main(["--plan", path, "--device", "cpu"])
     with pytest.raises(SystemExit, match="shards"):
         probe.main(["--plan", path, "--shard", "0/3"])
-    with pytest.raises(SystemExit, match="static audit not ported"):
-        probe.main(["--plan", path, "--audit", "gate"])
+    capsys.readouterr()
+    reports, _ = probe.main(["--plan", path, "--audit", "gate"])
+    out = capsys.readouterr().out
+    assert sorted(reports) == ["pallas_probe_s16", "pallas_probe_s8"]
+    assert out.count("UNAUDITABLE") == 2 and "cpu backend" in out
+    assert not CampaignStore(plan.store, readonly=True).audits
+    with pytest.raises(SystemExit):
+        probe.main(["--plan", path, "--audit", "sometimes"])
 
 
 def test_probe_adhoc_attention_runs_through_the_worker(tmp_path,

@@ -52,6 +52,9 @@ def test_scan_sees_the_whole_package():
     assert "src/repro_torch/models/attention.py" in names
     assert "src/repro_torch/serve/engine.py" in names
     assert "src/repro_torch/launch/serve.py" in names
+    assert "src/repro_torch/analysis/audit.py" in names
+    assert "src/repro_torch/analysis/capture.py" in names
+    assert "src/repro_torch/sass/parse.py" in names
     assert len(PORT_FILES) >= 15
 
 
@@ -171,5 +174,27 @@ def test_training_imports_with_jax_and_reference_blocked():
             + "import repro_torch.data.pipeline, repro_torch.ckpt\n"
             + "import repro_torch.launch.train as t\n"
             + "t.build_parser().parse_args(['--arch', 'gemma-2b'])\n")
+    subprocess.run([sys.executable, "-c", code], env=_env(), check=True,
+                   timeout=120)
+
+
+AUDIT_MODULES = ("analysis/__init__.py", "analysis/audit.py",
+                 "analysis/graph.py", "analysis/resources.py",
+                 "analysis/capture.py", "sass/__init__.py", "sass/parse.py")
+
+
+@pytest.mark.parametrize("module", AUDIT_MODULES)
+def test_scan_covers_the_audit_modules(module):
+    path = os.path.join(ROOT, "src", "repro_torch", module)
+    assert path in PORT_FILES
+    assert not set(_imported_roots(path)) & FORBIDDEN
+
+
+def test_the_audit_imports_with_jax_and_reference_blocked():
+    code = (BLOCKED_IMPORT
+            + "import repro_torch.analysis, repro_torch.sass\n"
+            + "import repro_torch.analysis.capture as c\n"
+            + "from repro_torch.fleet.cli import build_parser\n"
+            + "build_parser().parse_args(['audit', '--plan', 'p.json'])\n")
     subprocess.run([sys.executable, "-c", code], env=_env(), check=True,
                    timeout=120)

@@ -15,12 +15,15 @@ own initialised state carried over by ``convert.train_state_to_torch``:
   each leaf's largest |g| (measured: 1.8e-6 dense, 1.3e-5 ssm), for the
   dense (blocked and flash), moe, vlm, ssm, hybrid and encdec families;
 * three ``make_train_step`` steps from the reference's state at M = 1 and
-  M = 4, parameters within 1e-5. Adam divides each gradient element by
-  its own magnitude, so an element whose gradient sums to ~eps moves by a
-  share of lr that the f32 order of its terms sets: at lr 1e-3 the two
-  packages part by up to 1.1e-5 (gemma) and 3.4e-5 (mamba2) after three
-  steps, at the reference's default lr 3e-4 by 3.4e-6 (gemma) and 3.9e-6
-  (qwen3-moe), measured on the CPU;
+  M = 4, parameters within 1e-5 (dense, moe, vlm). Adam divides each
+  gradient element by its own magnitude, so an element whose gradient
+  sums to ~eps moves by a share of lr that the f32 order of its terms
+  sets: at lr 1e-3 the two packages part by up to 1.1e-5 (gemma) and
+  3.4e-5 (mamba2) after three steps, at the reference's default lr 3e-4
+  by 3.4e-6 (gemma), 3.9e-6 (qwen3-moe) and 8.1e-6 (llava), measured on
+  the CPU; the ssm, hybrid and encdec families part past 1e-5 at 3e-4
+  (up to 2.4e-5, whisper at M = 4) and are held on three AdamW steps fed
+  the reference's gradients, within 1e-6 (measured 3e-8);
 * the remat policies give equal gradients, and the backward recomputes
   the more the less they keep; an unknown policy raises in every family;
 * the reference's trainer tests: microbatch equivalence, restart replays
@@ -411,7 +414,8 @@ def test_gradients_equal_jax_grad_of_the_reference_loss(arch, impl):
         assert err <= GRAD_SHARE * max(scale, 1e-30), (name, err, scale)
 
 
-@pytest.mark.parametrize("arch", ["gemma_2b", "qwen3_moe_30b_a3b"])
+@pytest.mark.parametrize("arch", ["gemma_2b", "qwen3_moe_30b_a3b",
+                                  "llava_next_34b"])
 @pytest.mark.parametrize("M", [1, 4])
 def test_three_train_steps_equal_the_reference(arch, M):
     rcfg, rapi, rp, cfg, api = _pair(arch)
@@ -432,6 +436,36 @@ def test_three_train_steps_equal_the_reference(arch, M):
     assert int(state.opt.step) == 3
     _named_close(cfg, dict(state.params.named_parameters()), rstate.params,
                  "param", atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["mamba2_780m", "zamba2_1p2b",
+                                  "whisper_large_v3"])
+def test_three_adamw_steps_on_the_same_gradients_equal_the_reference(arch):
+    """The ssm, hybrid and encdec families part from the reference past
+    1e-5 after three ``make_train_step`` steps at the default lr (measured
+    on the CPU, M = 1 / 4: mamba2 1.03e-5 / 9.3e-6, zamba2 1.65e-5 /
+    1.70e-5, whisper 1.54e-5 / 2.41e-5; llava 8.1e-6 / 6.1e-6 holds the
+    three-step test). Fed the reference's own gradients, both packages'
+    AdamW stay within 3e-8 of each other over the same three steps: the
+    parting is Adam amplifying the gradients' last-ulp differences (each
+    element divided by its own magnitude), not the port's update."""
+    rcfg, rapi, rp, cfg, api = _pair(arch)
+    kw = dict(warmup_steps=1, total_steps=10)
+    rstate = ropt.adamw_init(rp)
+    state = train_state_to_torch(cfg, _np(RefState(params=rp, opt=rstate)))
+    rpipe = RefPipe(rcfg, _shape(32, 8)[0])
+    for i in range(3):
+        rb = rpipe.batch(i)
+        rg = jax.grad(lambda p: rapi.loss(p, rb)[0])(rp)
+        rp, rstate, _ = ropt.adamw_update(RefTrain(**kw), rp, rg, rstate)
+        opt.adamw_update(TrainConfig(**kw), state.params,
+                         named_to_torch(cfg, _np(rg)), state.opt)
+    assert int(state.opt.step) == int(rstate.step) == 3
+    tol = dict(atol=1e-6, rtol=0)
+    _named_close(cfg, dict(state.params.named_parameters()), rp, "param",
+                 **tol)
+    _named_close(cfg, state.opt.mu, rstate.mu, "mu", **tol)
+    _named_close(cfg, state.opt.nu, rstate.nu, "nu", **tol)
 
 
 # ---------------------------------------------------------------------------
