@@ -135,15 +135,15 @@ JAX or of the reference package. Phases, each of which fails the run:
    gemma-2b --kind decode`` at the smoke config, each again with
    ``--expect-no-measure``;
 8. the MoE family, as phase 7 (phase 7's model freed first):
-   qwen3-moe-30b-a3b at full width and 16 of its 48 layers in bf16 (~10.6
-   B parameters, 21 GB, drawn on the card; its bytes and the card's free
+   qwen3-moe-30b-a3b at full width and 8 of its 48 layers in bf16 (~5.6
+   B parameters, 11 GB, drawn on the card; its bytes and the card's free
    memory printed; the depth cut keeps the script inside its limit with
-   phase 9) served paged, dense and paged (greedy tokens equal,
+   phases 9 and 12) served paged, dense and paged (greedy tokens equal,
    tok/s, the (token, choice) pairs its dispatch drops a prefill); its
    prefill and decode tick as CUDA-graph step regions with the same
    checks, each step's kernels a call and top device operations from a
    trace of its graph, beside the time to read every weight once; both
-   read once into a store at 5 reps a point (phase 7: 10) and replayed
+   read once into a store at 3 reps a point (phase 7: 10) and replayed
    with 0 measured; then ``python -m
    repro_torch.launch.probe --arch mixtral-8x22b --kind decode`` (the ring
    cache), ``--arch llava-next-34b`` (the image embeds) and ``--serve
@@ -160,7 +160,7 @@ JAX or of the reference package. Phases, each of which fails the run:
    equal to a greedy loop through ``decode_step`` for each request alone;
    its forward loss at batch 4 x 512 and its decode tick at batch 4 as
    CUDA-graph step regions with phase 7's checks, read once into a store
-   at 3 reps a point and replayed with 0 measured; zamba2-1.2b at full
+   at 2 reps a point and replayed with 0 measured; zamba2-1.2b at full
    width and depth checked in f32 as mamba2 and served as mamba2;
    whisper-large-v3 at full width and depth checked in f32 over 1,500
    frames and 32 decoder positions, then in bf16 ``decode_init`` with
@@ -191,11 +191,12 @@ JAX or of the reference package. Phases, each of which fails the run:
    printed), the peak memory each adds; mamba2-780m at full width and depth
    in bf16, 2 steps at 4 x 512 (the SSD's backward through autograd) and
    one more traced;
-   ``python -m repro_torch.launch.train`` at the smoke config for 20
-   steps with checkpoints every 10, rerun to 40 (it must resume from step
-   20 and end below the first run's first loss), and ``Trainer.run`` with
-   a failure injected at step 12 (checkpoints every 5): step 12 replayed
-   once, its loss within 1e-6 of the uninterrupted run's.
+   ``python -m repro_torch.launch.train`` at the smoke config for 10
+   steps with checkpoints every 5, rerun to 20 (it must resume from step
+   10 and end below the first run's first loss), and ``Trainer.run`` with
+   a failure injected at step 7 (checkpoints every 3): step 7 run once
+   after the replay from step 6, its loss within 1e-6 of the uninterrupted
+   run's.
 
 11. the static noise audit (no measurement but the sabotage's ``warn``
    run): phase 4's main plan (each pair intact; its verdict, survival a
@@ -210,6 +211,31 @@ JAX or of the reference package. Phases, each of which fails the run:
    ``python -m repro_torch.launch.probe --plan``: the audit reads it dead
    with its class and the gate refuses it with no point stored, ``--audit
    warn`` measures it.
+
+12. the parallel layer on W = min(4, cards) ranks, one process a card and
+   an NCCL group (a FileStore under the phase's directory; a 120 s group
+   timeout, every rank joined within 600 s or killed, W printed first and
+   beside every figure; at W = 1 NCCL's collectives are local copies):
+   gemma-2b at full width and 2 layers (bf16, f32 masters, 4 x 512
+   tokens, warmup 1) one ``Trainer(mesh=...)`` step on (W, 1) and, at W =
+   4, (2, 2), plain and ``compress="int8"``, against the one-rank step on
+   the same global batch (int8: ``compress_int8`` by reference leaf on its
+   gradients): bitwise at W = 1, else every f32 master within 2·lr, at
+   most 1% past lr / 10, the loss within 1e-3 and the grad norm within
+   1e-2; qwen3-moe-30b-a3b at full width and 2 layers on (W, 1), held the
+   same way against the one-rank step with n_groups = W, its balance loss
+   printed beside that one's; each rank's state bytes and peak memory;
+   gemma-2b's smoke config in f32 saved at W ranks after a mesh step and
+   restored on rank 0 alone, whose next step equals the mesh's (bitwise at
+   W = 1, within 1e-4 else); the three ICI modes at the default
+   ``NoiseScale`` over the mesh's "model" axis, static and run-time k in
+   {1, 3}, within 1e-6 of the reference's formula, and their µs a pattern
+   (run-time k in {0, 64}) beside ``pattern_cost(H100_SXM)``'s d_r;
+   gemma-2b's decode tick (2 layers, phase 7's probe engine) as a step
+   region under each ICI mode: payload = k at k in {1, 64}, one
+   characterization at 3 reps a point (rank 0's sensitivity reading picks
+   every rank's sweep, and no sweep stops early, so the ranks' collectives
+   match), rank 0's store replayed with 0 measured.
 
 The last lines are the card, one ``{"kernels": [...]}`` JSON object (when
 phase 6 ran), and ``{"ok": true, "device": {...}}``.
@@ -2325,19 +2351,20 @@ L2_NOTE = "(k tiles L2-resident below k~380)"
 # phase 8: qwen3-moe-30b-a3b at full width in bf16 (src/repro_torch/
 # configs/qwen3_moe_30b_a3b.py: d_model 2048, 32 / 4 heads of 128, 128
 # experts top-8 of d_ff 768, vocab 151,936), its depth cut from 48 layers
-# (61 GB) to MOE_LAYERS (~10.6 B parameters, 21 GB) so that the script with
-# phase 9 stays inside its limit (PERF.md §4), served and probed as phase
-# 7's model is, its regions read once and replayed; then the smoke configs
+# (61 GB) to MOE_LAYERS (~5.6 B parameters, 11 GB; 16 layers until PR 21,
+# cut again to pay for phase 12) so that the script stays inside its limit
+# (PERF.md §4), served and probed as phase 7's model is, its regions read
+# once and replayed; then the smoke configs
 # of the other MoE and VLM paths through the probe CLI: mixtral's ring
 # cache (a decode step at position 64 of a 16-slot ring), llava's image
 # embeds (the forward loss with 8 image tokens in front) and qwen3's
 # serving
 MOE_ARCH = "qwen3_moe_30b_a3b"
-MOE_LAYERS = 16
+MOE_LAYERS = 8
 MOE_READINGS = {"reading": "moe.jsonl", "replay": "moe.jsonl"}
-# reps of each sweep point of its one reading: 5, phase 7's 10 halved (the
-# same limit)
-MOE_REPS = 5
+# reps of each sweep point of its one reading: 3 (5 until PR 21, cut to pay
+# for phase 12)
+MOE_REPS = 3
 MOE_CLI = {
     "probe_mixtral_decode_smoke": ["--arch", "mixtral-8x22b", "--kind",
                                    "decode"],
@@ -2769,7 +2796,7 @@ F32_CHECK_SHARE = 1e-3
 SSM_REGION = {"batch": 4, "seq": 512}
 SSM_WARM_STEPS = 8
 SSM_READINGS = {"reading": "ssm.jsonl", "replay": "ssm.jsonl"}
-SSM_REPS = 3
+SSM_REPS = 2                # 3 until PR 21, cut to pay for phase 12
 # whisper's greedy decode in bf16: slots, steps, self cache length
 WHISPER_DECODE = {"batch": 4, "steps": 16, "max_seq": 64}
 SSM_CLI = {
@@ -2920,8 +2947,6 @@ def _greedy_alone(api, params, prompt: list, max_new: int, slots: int,
     row's result does not depend on the other rows)."""
     import torch
 
-    from repro_torch.serve.engine import CACHE_BATCH_AXIS
-
     dev = "cuda"
     p = torch.tensor(prompt, dtype=torch.int32, device=dev)[None]
     cache = api.decode_init(params, {"tokens": p[:, :1], "max_seq": max_seq})
@@ -2930,9 +2955,10 @@ def _greedy_alone(api, params, prompt: list, max_new: int, slots: int,
             params, cache, p[:, i:i + 1],
             torch.tensor(i, dtype=torch.int32, device=dev))
     out = [int(torch.argmax(logits[0, -1]))]
-    cache = {group: {name: cache[group][name].repeat_interleave(slots, ax)
-                     for name, ax in axes.items()}
-             for group, axes in CACHE_BATCH_AXIS[api.cfg.family].items()}
+    cache = {group: {name: cache[group][name].repeat_interleave(
+                         slots, logical.index("cache_batch"))
+                     for name, logical in axes.items()}
+             for group, axes in api.cache_spec().items()}
     pos = torch.full((slots,), len(prompt), dtype=torch.int32, device=dev)
     cur = torch.full((slots, 1), out[0], dtype=torch.int32, device=dev)
     while len(out) < max_new and int(pos[0]) < max_seq - 1:
@@ -3153,11 +3179,14 @@ REMAT_CHECK = {"layers": 2, "batch": 1, "seq": 1024}
 REMAT_SHARE = 1e-5
 # mamba2-780m at full width and depth in bf16, remat "nothing"
 SSM_TRAIN = {"batch": 4, "seq": 512, "steps": 2}
-# the CLI at the smoke config, then a rerun that resumes; the restart
-# replay of Trainer.run (fail at step 12, checkpoints every 5 steps)
+# the CLI at the smoke config for CLI_STEPS[0] steps, then a rerun to
+# CLI_STEPS[1] that resumes; the restart replay of Trainer.run (fail at step
+# 7, checkpoints every 3 steps); cut to pay for phase 12 from 20 and 40
+# steps with checkpoints every 10, and a 15-step replay failing at 12
 TRAIN_CLI = ["--arch", "gemma-2b", "--smoke", "--seq", "128", "--batch",
-             "16", "--ckpt-every", "10"]
-RESTART = {"steps": 15, "fail_at": 12, "ckpt_every": 5, "seq": 128,
+             "16", "--ckpt-every", "5"]
+CLI_STEPS = (10, 20)
+RESTART = {"steps": 9, "fail_at": 7, "ckpt_every": 3, "seq": 128,
            "batch": 16}
 RESTART_TOL = 1e-6
 
@@ -3423,7 +3452,7 @@ def _train_cli(tmp: str) -> dict:
     env = dict(os.environ, PYTHONPATH=SRC)
     ckpt_dir = os.path.join(tmp, "train_ckpt")
     runs = []
-    for steps in (20, 40):
+    for steps in CLI_STEPS:
         argv = [sys.executable, "-m", "repro_torch.launch.train",
                 *TRAIN_CLI, "--steps", str(steps), "--ckpt-dir", ckpt_dir]
         out = subprocess.run(argv, env=env, capture_output=True, text=True,
@@ -3433,8 +3462,9 @@ def _train_cli(tmp: str) -> dict:
             raise RuntimeError(f"launch.train --steps {steps} failed: "
                                f"{out.stderr[-2000:]}")
         runs.append(out.stdout)
-    if "resumed from checkpoint step 20" not in runs[1]:
-        raise RuntimeError("the rerun did not resume from step 20")
+    if f"resumed from checkpoint step {CLI_STEPS[0]}" not in runs[1]:
+        raise RuntimeError(f"the rerun did not resume from step "
+                           f"{CLI_STEPS[0]}")
     first_final, first_first = _final_losses(runs[0])
     second_final, _ = _final_losses(runs[1])
     if not second_final < first_first:
@@ -3758,7 +3788,524 @@ def phase_audit(tmp: str) -> dict:
     return result
 
 
-PHASES = (1, 2, 3, 4, 6, 7, 8, 9, 10, 11)   # 4 runs 4 and 5
+# ---------------------------------------------------------------------------
+# phase 12: the parallel layer on W = min(4, cards) NCCL ranks
+# ---------------------------------------------------------------------------
+
+MESH_MAX_RANKS = 4
+# the process group's timeout: a collective two ranks disagree on fails the
+# phase instead of hanging to the script's limit
+MESH_GROUP_TIMEOUT_S = 120
+MESH_JOIN_TIMEOUT_S = 600
+# gemma-2b and qwen3-moe-30b-a3b at full width, depth cut to 2 layers (the
+# phase's budget; gemma-2b's 18 train in phase 10), bf16 with f32 masters,
+# TrainConfig's defaults with warmup 1 (lr 3e-4 at the first update), one
+# step of 4 x 512 tokens (the lcg pipeline's step 0)
+MESH_TRAIN = {"arch": "gemma_2b", "moe_arch": "qwen3_moe_30b_a3b",
+              "layers": 2, "batch": 4, "seq": 512}
+# W > 1 against the one-rank step on the same global batch: the gradients
+# are bf16 (the mean of W shard gradients in f32 against one full-batch
+# bf16 gradient parts at ~2^-8 of each), and Adam's first update is about
+# g / |g| · lr, so an element whose gradient is near 0 may move either way:
+# every f32 master within 2·lr, all but MESH_FLIP_SHARE of them within
+# lr / 10; the loss within MESH_LOSS_RTOL, the grad norm within
+# MESH_GNORM_RTOL
+MESH_FLIP_SHARE = 1e-2
+MESH_LOSS_RTOL = 1e-3
+MESH_GNORM_RTOL = 1e-2
+# the checkpoint check: gemma-2b's smoke config in f32 (TF32 off), lr 1e-3:
+# saved after one mesh step, restored on rank 0 alone into a one-device
+# state; the next step against the mesh's within MESH_CKPT_TOL (bitwise at
+# W = 1; the CPU tests measure 1.6e-5 between two f32 reductions at lr
+# 1e-3, tests/test_torch_mesh_train.py)
+MESH_CKPT_TOL = 1e-4
+# the ICI modes at the default NoiseScale (ici_kib 256) over the mesh's
+# "model" axis of a (1, W) (data, model) mesh; their µs a pattern from
+# run-time k in {0, ICI_TIMED_K} (CUDA events, median of TIMING_REPS)
+ICI_MODES = ("ici_allreduce", "ici_allgather", "ici_a2a")
+ICI_CHECK_KS = (1, 3)
+ICI_TIMED_K = 64
+ICI_RTOL = 1e-6
+# gemma-2b's decode tick (MESH_TRAIN's 2 layers; phase 7's probe engine:
+# 4 slots, prompt 128, max_new 8, page 16) as a step region under each ICI
+# mode: payload = k at k in {1, 64}; one characterization at 3 reps a
+# point into a store, then replayed with 0 measured
+ICI_REGION_KS = (1, 64)
+ICI_REGION_REPS = 3
+
+
+def _mesh_setup(rank: int, world: int, tmp: str):
+    """This rank's card and its NCCL process group (a FileStore under
+    ``tmp``: no port, no network)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_GROUP_TIMEOUT_S))
+    return torch.device("cuda", rank)
+
+
+def _say(rank: int, text: str) -> None:
+    print(f"[rank {rank}] {text}", flush=True)
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                    b.view(torch.int16) if b.dtype == torch.bfloat16 else b))
+
+
+def _int8_by_leaf(grads: dict, residuals: dict) -> tuple:
+    """``compress_int8`` applied to one-rank gradients as the reference's
+    leaves hold them: the port's per-layer tensors of one reference leaf
+    stacked (one scale), compressed with their residuals, decompressed and
+    split again; (gradients in their dtype, new residuals)."""
+    import torch
+
+    from repro_torch.convert import reference_leaf
+    from repro_torch.train.grad_compression import (compress_int8,
+                                                    decompress_int8)
+
+    groups: dict = {}
+    for name in grads:
+        groups.setdefault(reference_leaf(name), []).append(name)
+    out, res = {}, {}
+    for names in groups.values():
+        g = torch.stack([grads[n].to(torch.float32) for n in names])
+        r = torch.stack([residuals[n] for n in names])
+        q, scale, new_r = compress_int8(g, r)
+        dq = decompress_int8(q, scale)
+        for i, n in enumerate(names):
+            out[n] = dq[i].to(grads[n].dtype)
+            res[n] = new_r[i]
+    # in the gradients' order: the clip's norm sums them in it
+    return {n: out[n] for n in grads}, res
+
+
+def _one_rank_step(api, tcfg, batch, dev, *, compress=None, n_groups=None):
+    """The one-rank step on the global batch: ``make_train_step`` without a
+    mesh; with ``compress`` its gradients through ``_int8_by_leaf``, and
+    with ``n_groups`` (a MoE on W > 1 ranks) the MoE's dispatch groups set
+    as the mesh step sets them. (state, metrics)."""
+    from repro_torch.train import (Trainer, adamw_update, loss_and_grads,
+                                   make_train_step)
+
+    state = Trainer(api, tcfg, compress=compress, device=dev).init_state()
+    if compress is None and n_groups is None:
+        return make_train_step(api, tcfg)(state, batch)
+    kw = {"remat": tcfg.remat}
+    if n_groups is not None:
+        kw["n_groups"] = n_groups
+    loss, aux, grads = loss_and_grads(api, state.params, batch, **kw)
+    if compress:
+        grads, new_r = _int8_by_leaf(grads, state.residuals)
+        for n, r in state.residuals.items():
+            r.copy_(new_r[n])
+    _, _, stats = adamw_update(tcfg, state.params, grads, state.opt)
+    return state, {"loss": loss, **stats, **aux}
+
+
+def _held(rank, world, label, mesh_state, want, metrics, want_metrics, lr):
+    """The mesh step's state (gathered) against the one-rank ``want``:
+    bitwise at W = 1, else within the tolerances above. Every rank gathers;
+    rank 0 compares and returns the record."""
+    import torch
+
+    # W = 1: every tensor (a gather of one rank is the tensor itself); else
+    # the f32 masters
+    gathered = {n: mesh_state.layout.gather(n, t)
+                for n, t in mesh_state.tensors().items()
+                if world == 1 or n.startswith("opt/master/")}
+    if rank != 0:
+        return None
+    wanted = want.tensors()
+    rec = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "one_rank_metrics": {k: float(v) for k, v in want_metrics.items()}}
+    if world == 1:
+        bad = [n for n in wanted if not _bits_equal(gathered[n], wanted[n])]
+        bad += [k for k in want_metrics
+                if not _bits_equal(metrics[k].float().reshape(()),
+                                   want_metrics[k].float().reshape(()))]
+        rec["bitwise"] = not bad
+        if bad:
+            raise RuntimeError(f"{label}: W = 1 not bitwise equal to the "
+                               f"one-rank step in {bad[:8]}")
+    else:
+        errs, shares = [], []
+        for n, t in wanted.items():
+            if n not in gathered:
+                continue
+            err = (gathered[n] - t).abs()
+            errs.append(float(err.max()))
+            shares.append(float((err > lr / 10).float().mean()))
+        rec.update(master_max_err=max(errs), master_share_past_lr_10=max(
+            shares))
+        rel = {k: abs(rec["metrics"][k] - rec["one_rank_metrics"][k])
+               / max(abs(rec["one_rank_metrics"][k]), 1e-30)
+               for k in ("loss", "grad_norm")}
+        rec["metric_rel_err"] = rel
+        if not (rec["master_max_err"] <= 2 * lr * (1 + 1e-3)
+                and rec["master_share_past_lr_10"] <= MESH_FLIP_SHARE
+                and rel["loss"] <= MESH_LOSS_RTOL
+                and rel["grad_norm"] <= MESH_GNORM_RTOL):
+            raise RuntimeError(f"{label}: the mesh step parts from the "
+                               f"one-rank step: {json.dumps(rec)}")
+    del gathered
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _state_bytes_local(state) -> int:
+    return sum(t.numel() * t.element_size() for t in state.tensors().values())
+
+
+def _mesh_train(rank: int, world: int, dev) -> dict:
+    """(a) gemma-2b's mesh step, plain and int8, on (W, 1) and, at W = 4,
+    (2, 2); (b) qwen3-moe-30b-a3b's plain step on (W, 1)."""
+    import torch
+
+    from repro_torch.configs import (MeshConfig, ShapeConfig, TrainConfig,
+                                     get_config)
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.models.model import build
+    from repro_torch.parallel.sharding import make_mesh_from_config
+    from repro_torch.train import Trainer
+
+    c = MESH_TRAIN
+    tcfg = TrainConfig(warmup_steps=1)
+    shapes = [(world, 1)] + ([(2, 2)] if world == 4 else [])
+    out = {}
+    for arch, cases in ((c["arch"], [(s, comp) for s in shapes
+                                     for comp in (None, "int8")]),
+                        (c["moe_arch"], [((world, 1), None)])):
+        cfg = dataclasses.replace(get_config(arch), n_layers=c["layers"])
+        api = build(cfg)
+        batch = SyntheticPipeline(cfg, ShapeConfig(
+            "mesh", "train", c["seq"], c["batch"]), task="lcg",
+            device=dev).batch(0)
+        for shape, compress in cases:
+            label = f"{cfg.name} x{c['layers']} {shape} {compress or 'plain'}"
+            want = want_m = None
+            if rank == 0:
+                groups = world if cfg.n_experts and world > 1 else None
+                want, want_m = _one_rank_step(api, tcfg, batch, dev,
+                                              compress=compress,
+                                              n_groups=groups)
+            mesh = make_mesh_from_config(MeshConfig(shape,
+                                                    ("data", "model")))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tr = Trainer(api, tcfg, mesh=mesh, compress=compress, device=dev)
+            state = tr.init_state()
+            t0 = time.perf_counter()
+            state, metrics = tr._step(state, batch)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            nbytes = _state_bytes_local(state)
+            peak = torch.cuda.max_memory_allocated()
+            full = sum(math.prod(s) * state.tensors()[n].element_size()
+                       for n, s in state.layout.shapes.items())
+            _say(rank, f"{label}: state {nbytes} of {full} bytes "
+                       f"({nbytes / full:.4f}), peak {peak} bytes, step "
+                       f"{step_s:.3f} s; W = {world}")
+            rec = _held(rank, world, label, state, want, metrics, want_m,
+                        tcfg.lr)
+            if rank == 0:
+                rec.update(state_bytes=nbytes, full_state_bytes=full,
+                           peak_bytes=peak, step_s=step_s, world=world)
+                if cfg.n_experts:
+                    print(f"{label}: balance loss {rec['metrics']['moe_lb_loss']!r}"
+                          f" on the mesh, {rec['one_rank_metrics']['moe_lb_loss']!r}"
+                          f" one rank with n_groups = {world}; W = {world}",
+                          flush=True)
+                print(f"{label}: {json.dumps(rec)}; W = {world}", flush=True)
+                out[label] = rec
+            del state, tr, want
+            torch.cuda.empty_cache()
+        del api, batch
+    return out
+
+
+def _mesh_ckpt(rank: int, world: int, dev, tmp: str) -> dict:
+    """(c) gemma-2b's smoke config in f32: one mesh step on (W, 1), a
+    checkpoint, a second mesh step; rank 0 restores the checkpoint into a
+    one-device state and takes the second step alone."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import (MeshConfig, ShapeConfig, TrainConfig,
+                                     get_smoke_config)
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.models.model import build
+    from repro_torch.parallel.sharding import make_mesh_from_config
+    from repro_torch.train import Trainer, make_train_step
+
+    cfg = dataclasses.replace(get_smoke_config(MESH_TRAIN["arch"]),
+                              param_dtype="float32", compute_dtype="float32")
+    api = build(cfg)
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=1)
+    pipe = SyntheticPipeline(cfg, ShapeConfig("ckpt", "train", 64, 8),
+                             task="lcg", device=dev)
+    mesh = make_mesh_from_config(MeshConfig((world, 1), ("data", "model")))
+    tr = Trainer(api, tcfg, mesh=mesh, device=dev)
+    state, _ = tr._step(tr.init_state(), pipe.batch(0))
+    mgr = CheckpointManager(os.path.join(tmp, "ckpt"))
+    mgr.save(1, state)
+    state, metrics = tr._step(state, pipe.batch(1))
+    gathered = {n: state.layout.gather(n, t)
+                for n, t in state.tensors().items()}
+    if rank != 0:
+        dist.barrier()
+        return {}
+    one = Trainer(api, tcfg, device=dev).init_state(seed=1)
+    mgr.restore(1, like=one)
+    one, one_m = make_train_step(api, tcfg)(one, pipe.batch(1))
+    err = max(float((gathered[n].double() - t.double()).abs().max())
+              for n, t in one.tensors().items())
+    rec = {"saved_at": world, "restored_at": 1, "max_err": err,
+           "loss": [float(metrics["loss"]), float(one_m["loss"])]}
+    _say(rank, f"checkpoint saved at W = {world}, restored at W = 1: the "
+               f"next step's largest difference {err!r} "
+               f"(limit {0.0 if world == 1 else MESH_CKPT_TOL})")
+    dist.barrier()
+    if err > (0.0 if world == 1 else MESH_CKPT_TOL):
+        raise RuntimeError(f"checkpoint: the restored step parts by {err}")
+    return rec
+
+
+def _ici_plain(name: str, v, world: int, k: int):
+    """The reference's formula on the full v (every rank's input known: the
+    same generator), in f64: the output of rank r and the aux."""
+    import torch
+
+    x = v.double()
+    n = x.numel()
+    if name == "ici_allreduce":
+        for _ in range(k):
+            x = (x * world) * (1.0 / world)
+        return (lambda r: x), float(x.sum())
+    shards = x.view(world, n // world)
+    if name == "ici_allgather":
+        for _ in range(k):
+            shards = shards.mean(0, keepdim=True).expand(world, -1)
+        return (lambda r: shards[r]), float(shards.sum())
+    chunk = (n // world) // world
+    head = shards[:, :world * chunk].reshape(world, world, chunk)
+    for _ in range(k):
+        head = head.transpose(0, 1)
+    out = torch.cat([head.reshape(world, -1), shards[:, world * chunk:]], 1)
+    return (lambda r: out[r]), float(out.sum())
+
+
+def _mesh_ici(rank: int, world: int, dev) -> dict:
+    """(d) the three ICI modes over the "model" axis, static and run-time
+    k, against the reference's formula; their µs a pattern beside the
+    analytic model's d_r."""
+    import torch
+
+    from repro_torch.configs import MeshConfig
+    from repro_torch.configs.base import H100_SXM
+    from repro_torch.core import noise
+    from repro_torch.parallel.sharding import make_mesh_from_config
+
+    mesh = make_mesh_from_config(MeshConfig((1, world), ("data", "model")))
+    modes = noise.make_modes(mesh=mesh, ici_axis="model", device=dev)
+    out = {}
+    for name in ICI_MODES:
+        m = modes[name]
+        state = m.make_state(torch.Generator().manual_seed(0))
+        full = noise.make_modes(device=dev)[name].make_state(
+            torch.Generator().manual_seed(0))["v"]
+        for k in ICI_CHECK_KS:
+            want_v, want_aux = _ici_plain(name, full, world, k)
+            for form, apply in (("static", m.apply), ("rt", m.apply_rt)):
+                aux, new = apply(state, k)
+                got = new["v"].double()
+                err = float((got - want_v(rank)).abs().max()
+                            / want_v(rank).abs().max())
+                aux_err = abs(float(aux) - want_aux) / max(
+                    float(full.double().abs().sum()), 1e-30)
+                if not (err <= ICI_RTOL and aux_err <= ICI_RTOL):
+                    raise RuntimeError(f"{name} {form} k={k}: output "
+                                       f"{err!r}, aux {aux_err!r} from the "
+                                       f"formula (W = {world})")
+        t0 = time_ms(lambda: m.apply_rt(state, 0))
+        tk = time_ms(lambda: m.apply_rt(state, ICI_TIMED_K))
+        us = (tk - t0) / ICI_TIMED_K * 1e3
+        d_r = m.pattern_cost(H100_SXM).time_on(H100_SXM)["ici"] * 1e6
+        out[name] = {"us_a_pattern": us, "analytic_d_r_us": d_r,
+                     "t0_ms": t0, f"t{ICI_TIMED_K}_ms": tk, "world": world}
+        if rank == 0:
+            over = ("NCCL's collective is a local copy at W = 1, not "
+                    "NVLink" if world == 1 else "NCCL over NVLink")
+            print(f"{name}: {us!r} µs a pattern over W = {world} rank(s) "
+                  f"({over}), analytic "
+                  f"d_r {d_r!r} µs (H100_SXM.ici_bw); outputs and aux "
+                  f"within {ICI_RTOL} of the formula at k in "
+                  f"{ICI_CHECK_KS}, static and run-time k; {card_line()}",
+                  flush=True)
+    return out
+
+
+def _rank_zero_controller(reps: int):
+    """A Controller whose choices every rank shares: each rank measures the
+    sensitivity probe, rank 0's reading is broadcast (it picks the k
+    sweep), and no sweep stops early (that would be a timing too), so every
+    rank runs the same collectives in the same order."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.controller import Controller
+
+    class RankZero(Controller):
+        def probe_sensitivity(self, target, mode, deadline=None):
+            s = torch.tensor([super().probe_sensitivity(target, mode,
+                                                        deadline)],
+                             dtype=torch.float64, device="cuda")
+            dist.broadcast(s, src=0)
+            return float(s)
+
+    return RankZero(reps=reps, stop_ratio=float("inf"))
+
+
+def _mesh_ici_regions(rank: int, world: int, dev, tmp: str) -> dict:
+    """(e) gemma-2b's decode tick as a step region under each ICI mode on
+    every rank: payload = k at k in ICI_REGION_KS, then one
+    characterization into a store (rank 0's is the store; the other ranks
+    keep a throwaway one) and a replay with 0 measured."""
+    import torch
+
+    from repro_torch.configs import MeshConfig, get_config
+    from repro_torch.core import noise
+    from repro_torch.core.campaign import Campaign, CampaignStore
+    from repro_torch.core.injector import step_region
+    from repro_torch.models.model import build
+    from repro_torch.parallel.sharding import make_mesh_from_config
+    from repro_torch.serve.load import engine_for_probe
+
+    cfg = dataclasses.replace(get_config(MESH_TRAIN["arch"]),
+                              n_layers=MESH_TRAIN["layers"])
+    api = build(cfg)
+    eng = engine_for_probe(api, api.init(0, dev), **SERVE_PROBE)
+    _, _, tick, tick_args = eng.probe_cells()
+    mesh = make_mesh_from_config(MeshConfig((1, world), ("data", "model")))
+    registry = {m: mode for m, mode in noise.make_modes(
+        mesh=mesh, ici_axis="model", device=dev).items() if m in ICI_MODES}
+    region = step_region(f"gemma2b_x{MESH_TRAIN['layers']}_tick_ici_w{world}",
+                         tick, tick_args, registry)
+    payloads = {}
+    for mode in ICI_MODES:
+        for k in ICI_REGION_KS:
+            rep = region.payload_check(mode, k)
+            payloads[f"{mode}@{k}"] = rep.payload
+            if rep.payload != k:
+                raise RuntimeError(f"{region.name} {mode} k={k}: payload "
+                                   f"{rep.payload}")
+    store_dir = tmp if rank == 0 else os.path.join(tmp, f"rank{rank}_store")
+    os.makedirs(store_dir, exist_ok=True)
+    path = os.path.join(store_dir, f"{region.name}.jsonl")
+    stats = []
+    for reading in ("fresh", "replay"):
+        camp = Campaign(CampaignStore(path),
+                        _rank_zero_controller(ICI_REGION_REPS))
+        try:
+            rep = camp.characterize(region, ICI_MODES)
+        finally:
+            camp.store.close()
+        stats.append({"measured": camp.stats.measured,
+                      "replayed": camp.stats.cached})
+        if rank == 0:
+            print(f"{region.name} ({reading}, W = {world}): "
+                  + ", ".join(f"{m} Abs^raw={r.fit.k1!r} max t(k)/t(0)="
+                              f"{float(max(r.curve.ratios()))!r}"
+                              for m, r in rep.results.items())
+                  + f" => {rep.bottleneck.label}; {camp.stats}", flush=True)
+    if stats[1]["measured"]:
+        raise RuntimeError(f"{region.name}: the replay measured "
+                           f"{stats[1]['measured']}")
+    torch.cuda.synchronize()
+    return {"payloads": payloads, "stats": stats, "world": world}
+
+
+def _mesh_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of phase 12; its results in ``tmp/rank<r>.json``."""
+    sys.path.insert(0, SRC)
+    import torch.distributed as dist
+
+    dev = _mesh_setup(rank, world, tmp)
+    seconds, res = {}, {}
+    for name, fn in (("train", partial(_mesh_train, rank, world, dev)),
+                     ("checkpoint", partial(_mesh_ckpt, rank, world, dev,
+                                            tmp)),
+                     ("ici", partial(_mesh_ici, rank, world, dev)),
+                     ("ici_regions", partial(_mesh_ici_regions, rank, world,
+                                             dev, tmp))):
+        t0 = time.perf_counter()
+        res[name] = fn()
+        seconds[name] = round(time.perf_counter() - t0, 1)
+    res["seconds"] = seconds
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_mesh(tmp: str) -> dict:
+    """Phase 12: the parallel layer on W = min(4, cards) ranks, one process
+    a card, an NCCL group; every rank must finish within the join timeout
+    (a rank still running is killed and the phase fails)."""
+    import multiprocessing as mp
+
+    import torch
+
+    world = min(MESH_MAX_RANKS, torch.cuda.device_count())
+    banner(f"12. the parallel layer: W = {world} NCCL rank(s) (one a card): "
+           "the mesh training step (gemma-2b, qwen3-moe-30b-a3b at full "
+           "width, 2 layers), the sharded checkpoint, the ICI modes and "
+           "gemma-2b's decode tick under them")
+    print(f"W = {world}", flush=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_mesh_rank, args=(r, world, tmp))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = t0 + MESH_JOIN_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.perf_counter()))
+    finally:
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if hung:
+        raise RuntimeError(f"phase 12: ranks {hung} still ran after "
+                           f"{MESH_JOIN_TIMEOUT_S} s and were killed")
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise RuntimeError(f"phase 12: rank exit codes {codes}")
+    with open(os.path.join(tmp, "rank0.json")) as f:
+        res = json.load(f)
+    res["world"] = world
+    res["wall_s"] = round(time.perf_counter() - t0, 1)
+    print(f"phase 12 (W = {world}): {json.dumps(res)}; {card_line()}",
+          flush=True)
+    return res
+
+
+PHASES = (1, 2, 3, 4, 6, 7, 8, 9, 10, 11, 12)   # 4 runs 4 and 5
 
 
 def parse_phases(text: Optional[str]) -> list:
@@ -3846,6 +4393,10 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_audit_") as tmp:
             phase_audit(tmp)
         lap("11")
+    if 12 in phases:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+            phase_mesh(tmp)
+        lap("12")
     print(f"\nwall time per phase (s): {json.dumps(elapsed)}")
     for row in rows:        # the serving paths are main paths too
         row["launches"] += sum(n[row["name"]] for n in serve_launches)

@@ -14,9 +14,10 @@ resource. The reference's families, read on the H100:
              modifier (``.64``, ``.128``, ``.U8``, ...)
   latency    serial def-use chain growth through the load family (chain
              depth delta per pattern)
-  ici        empty: one card's kernels issue no interconnect instruction
-             (the ICI noise modes run their no-mesh branch, ROADMAP queue
-             1 item 1)
+  ici        empty: a kernel of the port issues no interconnect
+             instruction (the ICI noise modes' collectives are NCCL's
+             kernels over the mesh's process group, ``core/noise.py``, and
+             their SASS is not censused)
 
 The direction rule is the reference's: any load-family payload dominates
 the direction, and a load chain that grows as fast as the patterns is a

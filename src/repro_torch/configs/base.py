@@ -177,8 +177,8 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """A device mesh's shape and axis names (the reference's; no mesh runs
-    in the port yet: ROADMAP queue 1)."""
+    """A device mesh's shape and axis names (the reference's); a live mesh
+    is ``parallel.sharding.make_mesh_from_config``'s."""
     shape: tuple[int, ...]
     axes: tuple[str, ...]
 
@@ -192,6 +192,10 @@ class MeshConfig:
     @property
     def batch_axes(self) -> tuple[str, ...]:
         return tuple(a for a in self.axes if a in ("pod", "data"))
+
+
+SINGLE_POD = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD = MeshConfig((2, 16, 16), ("pod", "data", "model"))
 
 
 @dataclass(frozen=True)

@@ -78,6 +78,16 @@ def noise_state_to_torch(name: str, state: dict, device="cpu") -> dict:
 STACKED_TREES = ("layers", "blocks", "mamba", "enc_layers", "dec_layers")
 
 
+def reference_leaf(name: str) -> str:
+    """The reference's leaf of the port's parameter ``name``: a stacked
+    tree's layer index dropped (``layers.3.attn.wq`` and ``layers.0.attn.wq``
+    are slices of the reference's one ``layers.attn.wq``)."""
+    head, _, rest = name.partition(".")
+    if head in STACKED_TREES:
+        return f"{head}.{rest.partition('.')[2]}"
+    return name
+
+
 def reference_ndim(name: str, t: torch.Tensor) -> int:
     """The rank of the reference's leaf for the port's parameter ``name``
     (a ``named_parameters`` key): ``layers.3.ln1.scale`` (d,) is a slice of

@@ -33,11 +33,28 @@ table (``CARD_SCALE``): the reference's 64 MiB and 16 MiB would sit in or
 near the H100's 50 MB L2, and a "memory" pattern would not reach device
 memory.
 
-The ICI modes keep the reference's no-mesh branch (one device):
+The ICI modes run over one axis of a device mesh (``make_modes(mesh=,
+ici_axis=)``, or the active mesh of ``parallel.sharding.use_mesh``), one
+process a rank, through the mesh's ``torch.distributed`` process group for
+that axis (NCCL on the card, gloo on the CPU; a CUDA tensor never falls
+back to gloo). Each rank draws the same global ``v`` from the same
+generator and keeps its ``P(axis)`` shard for the all-gather and the
+all-to-all:
+
+  ici_allreduce  k chained all-reduces of the replicated v, each times
+                 1/size (the reference's psum(x) * (1/size))
+  ici_allgather  k chained all-gathers of the shard, each averaged over
+                 the gathered copies
+  ici_a2a        k chained all-to-alls of the shard's (size, chunk) head,
+                 the tail left alone
+
+Each has the reference's static and run-time k forms (both a loop of k
+collectives here). ``aux`` is the sum of the global output: for the two
+sharded modes one all-reduce of the local sums, made once a call after the
+k patterns (no pattern's cost counts it). Without a mesh, or on a mesh
+without the axis, they take the reference's no-mesh branch:
 ``ici_allreduce`` runs fp_add32's patterns on the (1,128) fallback state,
-``ici_allgather`` and ``ici_a2a`` return sum(v). A mesh is refused: NCCL
-collectives are ROADMAP's later work, and nothing here gives way to
-another noise silently.
+``ici_allgather`` and ``ici_a2a`` return sum(v).
 """
 from __future__ import annotations
 
@@ -46,9 +63,11 @@ from functools import partial
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.loopnoise import chase_table
 from repro_torch.kernels.graph_noise import kernel as gk
+from repro_torch.parallel import sharding as sh
 
 NOISE_SCOPE = "noise_pattern"
 
@@ -62,7 +81,9 @@ class PatternCost:
     """Per-pattern resource footprint on the target hardware."""
     flops: float = 0.0          # FLOPs issued per pattern
     hbm_bytes: float = 0.0      # HBM traffic per pattern
-    ici_bytes: float = 0.0      # per-chip ICI traffic per pattern
+    ici_bytes: float = 0.0      # per-chip ICI traffic per pattern (an ICI
+    #                             mode's aux all-reduce, once a call, is not
+    #                             a pattern's)
     serial_s: float = 0.0       # unavoidable serial latency per pattern
     vmem_bytes: float = 0.0     # VMEM-local traffic (not an HBM cost)
 
@@ -216,21 +237,72 @@ def _chase_apply(state, k: int, static: bool = True, plain: bool = False):
 
 
 # ---------------------------------------------------------------------------
-# ICI collective noise (per mesh axis): the no-mesh branch only
+# ICI collective noise (per mesh axis)
 # ---------------------------------------------------------------------------
 
-def _ici_state(generator=None, *, sc: NoiseScale, device):
+def _ici_state(generator=None, *, sc: NoiseScale, device, mesh=None,
+               axis: str = "", sharded: bool = False):
+    """The global v (the same on every rank: the same generator); a
+    sharded mode on a mesh keeps this rank's ``P(axis)`` shard of it."""
     n = sc.ici_kib * 1024 // 4
-    return {"v": _randn(generator, (n,), device)}
+    v = _randn(generator, (n,), device)
+    if mesh is not None and sharded:
+        v = sh.local_shard(v, sh.P(axis), mesh).clone()
+    return {"v": v}
 
 
-def _no_mesh(mesh, name: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{name} over a device mesh needs NCCL collectives, which the "
-            "port does not have yet (ROADMAP: the ICI modes over "
-            "torch.distributed); without a mesh it runs the reference's "
-            "no-mesh branch")
+def _mesh_for_collectives(mesh, axis: str):
+    """The mesh the ICI modes reduce over (``mesh``, else the active one),
+    or None for the no-mesh branch (no mesh, or one without ``axis``)."""
+    m = mesh if mesh is not None else sh.active_mesh()
+    if m is None or axis not in sh.axis_names(m):
+        return None
+    if not hasattr(m, "get_group"):
+        raise ValueError(f"the ICI modes over axis {axis!r} need a "
+                         f"DeviceMesh over a process group; a "
+                         f"{type(m).__name__} has none")
+    return m
+
+
+def _ici_allreduce_mesh(state, k: int, *, group, size: int, **_):
+    """k chained all-reduces (mean) of the replicated v; aux sum(out)."""
+    x = state["v"].clone()
+    for _ in range(k):
+        dist.all_reduce(x, group=group)
+        x.mul_(1.0 / size)
+    return torch.sum(x), dict(state, v=x)
+
+
+def _global_sum(x: torch.Tensor, group) -> torch.Tensor:
+    s = torch.sum(x)
+    dist.all_reduce(s, group=group)
+    return s
+
+
+def _ici_allgather_mesh(state, k: int, *, group, size: int, **_):
+    """k chained all-gathers of the shard, each averaged over the gathered
+    (size, n/size) copies; aux the global sum."""
+    gather = getattr(dist, "all_gather_single", None)         or dist.all_gather_into_tensor
+    x = state["v"]
+    for _ in range(k):
+        g = torch.empty((size * x.numel(),), dtype=x.dtype, device=x.device)
+        gather(g, x, group=group)
+        x = torch.mean(g.view(size, -1), dim=0)
+    return _global_sum(x, group), dict(state, v=x)
+
+
+def _ici_a2a_mesh(state, k: int, *, group, size: int, **_):
+    """k chained all-to-alls of the shard's (size, chunk) head (block j to
+    rank j), the tail left alone; aux the global sum."""
+    x = state["v"]
+    chunk = x.shape[0] // size
+    y = x[:size * chunk].reshape(size, chunk)
+    for _ in range(k):
+        out = torch.empty_like(y)
+        dist.all_to_all_single(out, y, group=group)
+        y = out
+    x = torch.cat([y.reshape(-1), x[size * chunk:]])
+    return _global_sum(x, group), dict(state, v=x)
 
 
 _FALLBACK_ACCS: dict = {}
@@ -269,10 +341,16 @@ def make_modes(scale: Optional[NoiseScale] = None, *, mesh=None,
                ici_axis: str = "model", device="cuda") -> dict[str, NoiseMode]:
     """The standard noise-mode registry at a given scale (default:
     ``default_scale(device)``), its states made on ``device`` (the card
-    unless the caller asks for the CPU). ``mesh``: refused by the ICI modes
-    (one device: their no-mesh branch)."""
+    unless the caller asks for the CPU: this rank's card under a mesh).
+    ``mesh`` (default: the active mesh): the ICI modes' collectives run
+    over its ``ici_axis``; without it they take the no-mesh branch."""
     sc = scale if scale is not None else default_scale(device)
     dev = torch.device(device)
+    m = _mesh_for_collectives(mesh, ici_axis)
+    on_mesh = {}
+    if m is not None:
+        on_mesh = {"group": m.get_group(ici_axis),
+                   "size": sh.mesh_axis_sizes(m)[ici_axis]}
 
     def _c(**kw):
         return lambda hw: PatternCost(**kw)
@@ -280,11 +358,14 @@ def make_modes(scale: Optional[NoiseScale] = None, *, mesh=None,
     def state(fn):
         return partial(fn, sc=sc, device=dev)
 
-    def ici(fn, name, static=True):
-        def apply(s, k, plain=False):
-            _no_mesh(mesh, name)
-            return fn(s, k, static=static, plain=plain)
-        return apply
+    def ici_state(sharded):
+        return partial(_ici_state, sc=sc, device=dev, mesh=m, axis=ici_axis,
+                       sharded=sharded)
+
+    def ici(fn, on_mesh_fn, static=True):
+        if m is not None:
+            return partial(on_mesh_fn, **on_mesh)
+        return partial(fn, static=static)
 
     vpu_flops = sc.vpu_rows * 128
     mxu_flops = 2 * sc.mxu_dim ** 3
@@ -324,22 +405,26 @@ def make_modes(scale: Optional[NoiseScale] = None, *, mesh=None,
             apply_rt=partial(_chase_apply, static=False),
             description="serially dependent pointer chase (paper: "
                         "memory_ld64 chaotic)"),
+        # the ICI costs are a pattern's; the aux all-reduce of the two
+        # sharded modes (one scalar, once a call) is not counted
         "ici_allreduce": NoiseMode(
-            "ici_allreduce", "ici", state(_ici_state),
-            ici(_ici_allreduce_apply, "ici_allreduce"),
+            "ici_allreduce", "ici", ici_state(False),
+            ici(_ici_allreduce_apply, _ici_allreduce_mesh),
             _c(ici_bytes=2 * ici_bytes),   # ring all-reduce ≈ 2(n-1)/n·B
-            apply_rt=ici(_ici_allreduce_apply, "ici_allreduce", static=False),
+            apply_rt=ici(_ici_allreduce_apply, _ici_allreduce_mesh,
+                         static=False),
             description=f"chained psum over mesh axis {ici_axis!r} on a "
                         "disjoint buffer"),
         "ici_allgather": NoiseMode(
-            "ici_allgather", "ici", state(_ici_state),
-            ici(_ici_sum_apply, "ici_allgather"), _c(ici_bytes=ici_bytes),
-            apply_rt=ici(_ici_sum_apply, "ici_allgather", static=False),
+            "ici_allgather", "ici", ici_state(True),
+            ici(_ici_sum_apply, _ici_allgather_mesh),
+            _c(ici_bytes=ici_bytes),
+            apply_rt=ici(_ici_sum_apply, _ici_allgather_mesh, static=False),
             description=f"chained all-gather over mesh axis {ici_axis!r}"),
         "ici_a2a": NoiseMode(
-            "ici_a2a", "ici", state(_ici_state),
-            ici(_ici_sum_apply, "ici_a2a"), _c(ici_bytes=ici_bytes),
-            apply_rt=ici(_ici_sum_apply, "ici_a2a", static=False),
+            "ici_a2a", "ici", ici_state(True),
+            ici(_ici_sum_apply, _ici_a2a_mesh), _c(ici_bytes=ici_bytes),
+            apply_rt=ici(_ici_sum_apply, _ici_a2a_mesh, static=False),
             description=f"chained all-to-all over mesh axis {ici_axis!r}"),
     }
     return modes

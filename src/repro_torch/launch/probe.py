@@ -41,7 +41,7 @@ Region names are the reference's, letter for letter, so stores carry over.
 ``--device cpu`` (the plan's ``backend``) runs the plain PyTorch versions
 (tests, a card-less box); the default ``cuda`` refuses to run without a
 card. The reference's analytic probe (it reads dry-run artifacts, ROADMAP
-queue 1 item 11) is not ported.
+queue 1 item 2, the dry-run surfaces) is not ported.
 """
 from __future__ import annotations
 

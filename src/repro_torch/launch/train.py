@@ -9,9 +9,14 @@ one) or on the CPU when asked. ``--smoke`` takes the reduced same-family
 config; without it the full config trains on one card, from random weights
 drawn on the device from the seed. Fault tolerance: checkpoints land in
 ``--ckpt-dir`` every ``--ckpt-every`` steps, and a rerun with the same
-flags resumes from the latest one. ``--mesh single|multi`` waits for the
-parallel layer (ROADMAP queue 1) and is refused; ``--compress int8``
-without a mesh runs as the reference's does (no axis to reduce over).
+flags resumes from the latest one. ``--compress int8`` without a mesh runs
+as the reference's does (no axis to reduce over).
+
+``--mesh single|multi`` trains on the production mesh (16×16 or 2×16×16,
+``launch/mesh.py``), one process a device, started e.g. by ``torchrun
+--nproc-per-node``: the process group is made from torchrun's environment
+(NCCL on the card, gloo on the CPU). With fewer ranks than the mesh needs
+it exits with the reference's ``ValueError`` message.
 
 Reference fault: rerun after the last step (a checkpoint at or past
 ``--steps``), the reference's ``hist[-1]`` raises ``IndexError``; here the
@@ -21,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import math
 import os
 import tempfile
 from typing import Optional, Sequence
@@ -28,8 +34,6 @@ from typing import Optional, Sequence
 NOTHING_TO_RUN = ("nothing to train: resumed at step {start} of --steps "
                   "{steps} (the reference fails here with IndexError on "
                   "hist[-1]; ROADMAP queue 3)")
-MESH_REFUSED = ("--mesh {mesh}: a mesh waits for the parallel layer "
-                "(ROADMAP queue 1, item 11); run with --mesh none")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -57,8 +61,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> list[dict]:
     args = build_parser().parse_args(argv)
-    if args.mesh != "none":
-        raise SystemExit(MESH_REFUSED.format(mesh=args.mesh))
 
     from repro_torch.ckpt import CheckpointManager
     from repro_torch.configs import (ShapeConfig, TrainConfig, get_config,
@@ -72,6 +74,15 @@ def main(argv: Optional[Sequence[str]] = None) -> list[dict]:
         dev = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(str(e))
+    mesh = None
+    if args.mesh != "none":
+        try:
+            mesh = _production_mesh(args.mesh == "multi", dev)
+        except ValueError as e:
+            raise SystemExit(str(e))
+        if dev.type == "cuda":      # this rank's card
+            import torch
+            dev = torch.device("cuda", torch.cuda.current_device())
     logging.basicConfig(level=logging.INFO)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     api = build(cfg)
@@ -84,13 +95,17 @@ def main(argv: Optional[Sequence[str]] = None) -> list[dict]:
                        ckpt_every=args.ckpt_every, ckpt_dir=ckpt_dir)
     pipe = SyntheticPipeline(cfg, shape, task=args.task, device=dev)
     ckpt = CheckpointManager(tcfg.ckpt_dir) if args.ckpt_every else None
-    trainer = Trainer(api, tcfg, compress=args.compress, ckpt_manager=ckpt,
-                      device=dev)
+    trainer = Trainer(api, tcfg, mesh=mesh, compress=args.compress,
+                      ckpt_manager=ckpt, device=dev)
 
     state = trainer.init_state()
-    n_params = sum(p.numel() for p in state.params.parameters())
+    shapes = [s for n, s in state.layout.shapes.items()
+              if n.startswith("params/")] if mesh is not None else \
+        [p.shape for p in state.params.parameters()]
+    n_params = sum(math.prod(s) for s in shapes)
+    where = "" if mesh is None else f" mesh={tuple(mesh.shape)}"
     print(f"arch={cfg.name} params={n_params/1e6:.1f}M "
-          f"tokens/step={args.batch * args.seq} device={dev}")
+          f"tokens/step={args.batch * args.seq} device={dev}{where}")
     start = 0
     if ckpt is not None and ckpt.steps():
         state, start = ckpt.restore_latest(like=state)
@@ -109,6 +124,22 @@ def main(argv: Optional[Sequence[str]] = None) -> list[dict]:
     print(f"final loss: {hist[-1]['loss']:.4f} "
           f"(first: {hist[0]['loss']:.4f})")
     return hist
+
+
+def _production_mesh(multi_pod: bool, dev):
+    """The production mesh over this process's world: the default process
+    group is made from torchrun's environment when it is set (NCCL on the
+    card, gloo on the CPU); a lone process is a world of one."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_production_mesh
+
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        if dev.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    return make_production_mesh(multi_pod=multi_pod, device_type=dev.type)
 
 
 if __name__ == "__main__":

@@ -71,6 +71,11 @@ def init_attention(gen: torch.Generator, cfg) -> Attention:
                      _normal(gen, (h, hd, d), (h * hd) ** -0.5, dt))
 
 
+def spec_attention() -> dict:
+    return {"wq": ("fsdp", "heads", None), "wk": ("fsdp", "kv_heads", None),
+            "wv": ("fsdp", "kv_heads", None), "wo": ("heads", None, "fsdp")}
+
+
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matmul."""
     d, h, k = w.shape
@@ -327,6 +332,14 @@ def init_cache(cfg, batch: int, max_seq: int, device) -> dict:
         cache["kpos"] = torch.full((S,), -1, dtype=torch.int32,
                                    device=device)
     return cache
+
+
+def cache_logical(*, paged: bool = False) -> dict:
+    if paged:
+        return {"kp": ("cache_pages", "cache_kv_heads", None, None),
+                "vp": ("cache_pages", "cache_kv_heads", None, None)}
+    return {"k": ("cache_batch", "cache_kv_heads", "cache_seq", None),
+            "v": ("cache_batch", "cache_kv_heads", "cache_seq", None)}
 
 
 def init_paged_cache(cfg, n_pages: int, page_size: int, device) -> dict:

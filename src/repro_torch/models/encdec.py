@@ -72,6 +72,36 @@ def init_dec_layer(gen: torch.Generator, cfg) -> DecLayer:
                     L.init_mlp(gen, cfg))
 
 
+def spec_enc_layer() -> dict:
+    return {"ln1": L.spec_rmsnorm(), "attn": attn.spec_attention(),
+            "ln2": L.spec_rmsnorm(), "mlp": L.spec_mlp()}
+
+
+def spec_dec_layer() -> dict:
+    return {"ln1": L.spec_rmsnorm(), "attn": attn.spec_attention(),
+            "lnx": L.spec_rmsnorm(), "xattn": attn.spec_attention(),
+            "ln2": L.spec_rmsnorm(), "mlp": L.spec_mlp()}
+
+
+def spec_encdec(cfg) -> dict:
+    """{parameter name: logical axes} of ``init_encdec``'s module."""
+    return {**L.named_specs({"embed": L.spec_embedding(cfg)}),
+            **L.per_layer_specs("enc_layers", cfg.enc_layers,
+                                spec_enc_layer()),
+            **L.named_specs({"enc_norm": L.spec_rmsnorm()}),
+            **L.per_layer_specs("dec_layers", cfg.n_layers,
+                                spec_dec_layer()),
+            **L.named_specs({"final_norm": L.spec_rmsnorm()})}
+
+
+def encdec_cache_logical(cfg) -> dict:
+    del cfg
+    return {"kv": L.stack_spec(attn.cache_logical()),
+            "cross": L.stack_spec(
+                {"ck": ("cache_batch", "cache_kv_heads", None, None),
+                 "cv": ("cache_batch", "cache_kv_heads", None, None)})}
+
+
 def init_encdec(gen: torch.Generator, cfg) -> EncDec:
     """Every parameter drawn from ``gen`` on its device: the embedding, the
     encoder layers, then the decoder layers."""

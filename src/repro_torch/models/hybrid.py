@@ -63,6 +63,22 @@ def init_hybrid(gen: torch.Generator, cfg) -> Hybrid:
     return Hybrid(emb, mamba, shared, L.init_rmsnorm(cfg.d_model, cfg, dev))
 
 
+def spec_hybrid(cfg) -> dict:
+    """{parameter name: logical axes} of ``init_hybrid``'s module."""
+    shared = {"ln1": L.spec_rmsnorm(), "attn": attn.spec_attention(),
+              "ln2": L.spec_rmsnorm(), "mlp": L.spec_mlp()}
+    return {**L.named_specs({"embed": L.spec_embedding(cfg)}),
+            **L.per_layer_specs("mamba", cfg.n_layers, ssm.spec_block()),
+            **L.named_specs({"shared": shared,
+                             "final_norm": L.spec_rmsnorm()})}
+
+
+def hybrid_cache_logical(cfg) -> dict:
+    del cfg
+    return {"ssm": L.stack_spec(ssm.ssm_cache_logical()),
+            "kv": L.stack_spec(attn.cache_logical())}
+
+
 def _shared_block(sp: Shared, cfg, h, positions):
     a = attn.attn_train(sp.attn, cfg, L.rmsnorm(sp.ln1, h, cfg.norm_eps),
                         positions, causal=True)

@@ -10,13 +10,19 @@ The functions take those modules where the reference takes dicts.
 ``param_dtype``; norms ones) from a ``torch.Generator`` on the module's
 device: the draws are not JAX's bits, so the tests hand both packages the
 reference's own initialised params. ``constrain`` (a sharding hint in the
-reference) has no counterpart on one device.
+reference) is not called: the port's mesh step runs each rank's batch
+shard with gathered weights (``train/trainer.py``). Under a mesh step a
+masked NLL sums its numerator and denominator over the batch axes
+(``parallel.sharding.batch_sum``). ``spec_*`` give each module's logical
+axes, the reference's, for ``parallel.sharding.resolve``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.parallel import sharding as sh
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -58,6 +64,10 @@ class RMSNorm(nn.Module):
 
 def init_rmsnorm(dim: int, cfg, device) -> RMSNorm:
     return RMSNorm(torch.ones((dim,), dtype=dtype_of(cfg), device=device))
+
+
+def spec_rmsnorm() -> dict:
+    return {"scale": (None,)}
 
 
 def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -127,6 +137,13 @@ def init_embedding(gen: torch.Generator, cfg) -> Embedding:
     return Embedding(table, head)
 
 
+def spec_embedding(cfg) -> dict:
+    s = {"table": ("vocab", "fsdp")}
+    if not cfg.tie_embeddings:
+        s["head"] = ("fsdp", "vocab")
+    return s
+
+
 def embed(p: Embedding, tokens: torch.Tensor, cfg) -> torch.Tensor:
     return p.table[tokens].to(cdtype_of(cfg))
 
@@ -159,6 +176,45 @@ def init_mlp(gen: torch.Generator, cfg, d_ff=None) -> MLP:
                _normal(gen, (f, d), f ** -0.5, dt))
 
 
+def spec_mlp() -> dict:
+    return {"w_gate": ("fsdp", "ff"), "w_up": ("fsdp", "ff"),
+            "w_down": ("ff", "fsdp")}
+
+
+# ----------------------------------------------------------------------------
+# Spec trees
+# ----------------------------------------------------------------------------
+
+def named_specs(tree: dict, prefix: str = "") -> dict:
+    """A nested spec dict (the reference's tree of logical-axis tuples) ->
+    {``named_parameters`` name: logical tuple}."""
+    out = {}
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, dict):
+            out.update(named_specs(value, name + "."))
+        else:
+            out[name] = value
+    return out
+
+
+def per_layer_specs(name: str, n: int, layer: dict) -> dict:
+    """The specs of ``n`` layer modules ``name.0`` .. ``name.{n-1}``, each
+    ``layer``: the reference stacks the leaves on a leading (L, ...) axis
+    named None, and the port holds one module a layer, so the port's spec
+    of ``name.i.<leaf>`` is the reference's without that entry."""
+    one = named_specs(layer)
+    return {f"{name}.{i}.{leaf}": spec for i in range(n)
+            for leaf, spec in one.items()}
+
+
+def stack_spec(tree: dict) -> dict:
+    """A cache spec tree with every leaf stacked on a leading layer (or
+    invocation) axis, as the caches are (``stacked``)."""
+    return {k: stack_spec(v) if isinstance(v, dict) else (None,) + v
+            for k, v in tree.items()}
+
+
 def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     if name == "geglu":
         # jax.nn.gelu's default is the tanh approximation; torch's is erf
@@ -187,4 +243,7 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask=None):
     if mask is None:
         return torch.mean(nll)
     m = mask.float()
-    return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+    num, den = torch.sum(nll * m), torch.sum(m)
+    if sh.batch_ranks():    # a mesh step: the sums of the global batch
+        num, den = sh.batch_sum(num), sh.batch_sum(den)
+    return num / torch.clamp(den, min=1.0)

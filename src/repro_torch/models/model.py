@@ -11,14 +11,22 @@ returns a :class:`ModelApi` with
   decode_step(params, cache, tokens, pos) -> (logits, cache)
   input_specs(shape)             -> {name: TensorSpec} (no allocation)
   dummy_batch(shape, generator)  -> {name: tensor}
+  param_spec()                   -> {parameter name: logical axes}
+  cache_spec()                   -> the cache's tree of logical axes
 
 ``build`` serves every family: the decoder-only LMs (dense, moe, and vlm,
 whose precomputed patch embeddings ``img_embeds`` go in front of the
 tokens), the Mamba2 LM (ssm), the zamba2 hybrid and whisper's
-encoder-decoder (whose ``frames`` are precomputed frame embeddings). The
-sharding specs (``param_spec``, ``cache_spec``) wait for the parallel layer
-(ROADMAP queue 1, item 11); the serving engine keeps its own table of each
-family's cache batch axis (``serve/engine.py``).
+encoder-decoder (whose ``frames`` are precomputed frame embeddings).
+
+The sharding specs name each axis logically, for ``parallel.sharding`` to
+resolve on a mesh. ``param_spec`` is keyed by ``named_parameters`` name:
+the reference stacks each per-layer leaf on a leading (L, ...) axis named
+None and the port holds one module a layer, so the port's spec of
+``layers.i.<leaf>`` is the reference's without that entry (no other axis
+moves: the port's weights are laid out as the reference's).
+``cache_spec`` is the reference's tree as it is, since the caches keep its
+stacked layout.
 """
 from __future__ import annotations
 
@@ -53,6 +61,8 @@ class ModelApi:
     forward: Callable             # (params, batch, **kw) -> (logits, aux)
     decode_init: Callable         # (params, batch | B) -> cache
     decode_step: Callable         # (params, cache, tokens, pos) -> (logits, cache)
+    param_spec: Callable          # () -> {parameter name: logical axes}
+    cache_spec: Callable          # () -> cache tree of logical axes
 
     # ------------------------------------------------------------------
     def loss(self, params, batch, **kw):
@@ -140,6 +150,8 @@ def _build_lm(cfg: ModelConfig) -> ModelApi:       # dense / moe / vlm
         forward=lambda p, b, **kw: tf.lm_forward(p, cfg, b, **kw),
         decode_init=decode_init,
         decode_step=lambda p, c, t, pos: tf.lm_decode_step(p, cfg, c, t, pos),
+        param_spec=lambda: tf.spec_lm(cfg),
+        cache_spec=lambda: tf.lm_cache_logical(cfg),
     )
 
 
@@ -179,7 +191,10 @@ def _build_ssm(cfg: ModelConfig) -> ModelApi:
 
     return ModelApi(cfg=cfg, init=_seeded(ssm_mod.init_ssm_lm, cfg),
                     forward=forward, decode_init=decode_init,
-                    decode_step=decode_step)
+                    decode_step=decode_step,
+                    param_spec=lambda: ssm_mod.spec_ssm_lm(cfg),
+                    cache_spec=lambda: {"ssm": L.stack_spec(
+                        ssm_mod.ssm_cache_logical())})
 
 
 def _build_hybrid(cfg: ModelConfig) -> ModelApi:
@@ -195,7 +210,9 @@ def _build_hybrid(cfg: ModelConfig) -> ModelApi:
         forward=lambda p, b, **kw: hybrid_mod.hybrid_forward(p, cfg, b, **kw),
         decode_init=decode_init,
         decode_step=lambda p, c, t, pos: hybrid_mod.hybrid_decode_step(
-            p, cfg, c, t, pos))
+            p, cfg, c, t, pos),
+        param_spec=lambda: hybrid_mod.spec_hybrid(cfg),
+        cache_spec=lambda: hybrid_mod.hybrid_cache_logical(cfg))
 
 
 def _build_encdec(cfg: ModelConfig) -> ModelApi:
@@ -205,7 +222,9 @@ def _build_encdec(cfg: ModelConfig) -> ModelApi:
         forward=lambda p, b, **kw: encdec_mod.encdec_forward(p, cfg, b, **kw),
         decode_init=lambda p, b: encdec_mod.encdec_decode_init(p, cfg, b),
         decode_step=lambda p, c, t, pos: encdec_mod.encdec_decode_step(
-            p, cfg, c, t, pos))
+            p, cfg, c, t, pos),
+        param_spec=lambda: encdec_mod.spec_encdec(cfg),
+        cache_spec=lambda: encdec_mod.encdec_cache_logical(cfg))
 
 
 LM_FAMILIES = ("dense", "moe", "vlm")

@@ -17,6 +17,13 @@ dropped pairs of jnp's ``mode="drop"`` scatter land in a trash row C of an
 
 The router product stays IEEE f32 on the card (``_ieee_f32``): a TF32 router
 moves the routing, and with it the tokens.
+
+Under a mesh (``train/trainer.py``) each rank routes its own batch shard,
+whose groups are the reference's (its groups are contiguous token blocks,
+one a data-parallel shard). The load-balance loss is not linear in the
+shards, so its two terms, ``me`` and ``ce``, are summed over the mesh's
+batch axes before their product (``parallel.sharding.batch_sum``, an
+all-reduce whose gradient reaches every rank's ``me``).
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.layers import _act, _normal, cdtype_of, dtype_of, param
+from repro_torch.parallel import sharding as sh
 
 
 class MoE(nn.Module):
@@ -50,6 +58,13 @@ def init_moe(gen: torch.Generator, cfg) -> MoE:
     w_up = _normal(gen, (e, d, f), d ** -0.5, dt)
     w_down = _normal(gen, (e, f, d), f ** -0.5, dt)
     return MoE(router, w_gate, w_up, w_down)
+
+
+def spec_moe() -> dict:
+    return {"router": (None, None),
+            "w_gate": ("experts", "fsdp", "expert_ff"),
+            "w_up": ("experts", "fsdp", "expert_ff"),
+            "w_down": ("experts", "expert_ff", "fsdp")}
 
 
 def _capacity(tokens_per_group: int, cfg) -> int:
@@ -123,7 +138,12 @@ def moe_block(p: MoE, cfg, x, n_groups: int = 1):
     me = torch.mean(probs, dim=0)
     ce = torch.zeros((E,), dtype=torch.float32, device=x.device)
     ce.index_add_(0, eidx.reshape(-1), torch.ones_like(gates).reshape(-1))
-    ce = ce / (T * k)
+    ranks = sh.batch_ranks()
+    if ranks:       # a mesh step: the terms of the global batch
+        me = sh.batch_sum(me) / ranks
+        ce = sh.batch_sum(ce) / (T * ranks * k)
+    else:
+        ce = ce / (T * k)
     lb_loss = E * torch.sum(me * ce)
     z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
 

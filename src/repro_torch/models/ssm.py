@@ -28,7 +28,9 @@ from torch import nn
 
 from repro_torch.models.layers import (RMSNorm, _normal, cdtype_of,
                                        dtype_of, init_embedding,
-                                       init_rmsnorm, param, rms_scale)
+                                       init_rmsnorm, named_specs, param,
+                                       per_layer_specs, rms_scale,
+                                       spec_embedding, spec_rmsnorm)
 
 
 class SSM(nn.Module):
@@ -98,6 +100,26 @@ def init_ssm(gen: torch.Generator, cfg) -> SSM:
         conv_b=torch.zeros((conv_ch,), dtype=dt, device=dev),
         norm=torch.ones((di,), dtype=dt, device=dev),
         w_out=_normal(gen, (di, d), di ** -0.5, dt))
+
+
+def spec_ssm() -> dict:
+    return {"w_x": ("fsdp", "ssm_inner"), "w_z": ("fsdp", "ssm_inner"),
+            "w_B": ("fsdp", None), "w_C": ("fsdp", None),
+            "w_dt": ("fsdp", "ssm_heads"), "dt_bias": ("ssm_heads",),
+            "A_log": ("ssm_heads",), "D_skip": ("ssm_heads",),
+            "conv_w": (None, None), "conv_b": (None,),
+            "norm": ("ssm_inner",), "w_out": ("ssm_inner", "fsdp")}
+
+
+def spec_block() -> dict:
+    return {"ln": spec_rmsnorm(), "ssm": spec_ssm()}
+
+
+def spec_ssm_lm(cfg) -> dict:
+    """{parameter name: logical axes} of ``init_ssm_lm``'s module."""
+    return {**named_specs({"embed": spec_embedding(cfg)}),
+            **per_layer_specs("blocks", cfg.n_layers, spec_block()),
+            **named_specs({"final_norm": spec_rmsnorm()})}
 
 
 def init_block(gen: torch.Generator, cfg) -> Block:
@@ -258,6 +280,11 @@ def ssm_block(p: SSM, cfg, h, init_state=None, return_state=False):
     if return_state:
         return out, state
     return out
+
+
+def ssm_cache_logical() -> dict:
+    return {"state": ("cache_batch", "ssm_heads", None, None),
+            "conv": ("cache_batch", None, None)}
 
 
 def init_ssm_cache(cfg, batch: int, device) -> dict:

@@ -123,6 +123,36 @@ def init_lm(gen: torch.Generator, cfg) -> LM:
     return LM(emb, layers, L.init_rmsnorm(cfg.d_model, cfg, gen.device))
 
 
+def spec_layer(cfg) -> dict:
+    s = {"ln1": L.spec_rmsnorm(), "attn": attn.spec_attention(),
+         "ln2": L.spec_rmsnorm()}
+    if _is_moe(cfg):
+        s["moe"] = moe_mod.spec_moe()
+    else:
+        s["mlp"] = L.spec_mlp()
+    return s
+
+
+def spec_lm(cfg) -> dict:
+    """{parameter name: logical axes} of ``init_lm``'s module."""
+    return {**L.named_specs({"embed": L.spec_embedding(cfg)}),
+            **L.per_layer_specs("layers", cfg.n_layers, spec_layer(cfg)),
+            **L.named_specs({"final_norm": L.spec_rmsnorm()})}
+
+
+def lm_cache_logical(cfg) -> dict:
+    kv = L.stack_spec(attn.cache_logical())
+    if cfg.window:  # a ring cache has kpos (S,) a layer
+        kv = dict(kv, kpos=(None, "cache_seq"))
+    return {"kv": kv}
+
+
+def lm_paged_cache_logical(cfg) -> dict:
+    if cfg.window:
+        raise NotImplementedError("paged KV cache needs window=0")
+    return {"kv": L.stack_spec(attn.cache_logical(paged=True))}
+
+
 def layer_fwd(p: Layer, cfg, h, positions, *, n_groups=1,
               return_cache=False):
     """One transformer block (train/prefill). Returns (h, aux), with

@@ -28,7 +28,7 @@ Two cache layouts:
   SEQUENTIALLY, as the reference's: each request alone, its prompt
   replayed one token at a time through ``decode_step`` on a fresh
   single-slot cache, which is then scattered into the batched cache along
-  each leaf's batch axis (``CACHE_BATCH_AXIS``).
+  each leaf's declared batch axis (``cache_spec``'s "cache_batch").
 
 Dense and paged layouts are numerically identical; tests pin it. The
 programs run eagerly: PyTorch has no ``jit`` to call, and the probe's serve
@@ -62,13 +62,8 @@ import torch
 from repro_torch.models import transformer as tf
 from repro_torch.models.model import LM_FAMILIES, ModelApi
 
-# the families whose dense layout prefills sequentially, and the batch axis
-# of each of their cache leaves (the reference reads it from cache_spec();
-# every leaf is stacked on a leading layer or invocation axis)
-CACHE_BATCH_AXIS = {
-    "ssm": {"ssm": {"state": 1, "conv": 1}},
-    "hybrid": {"ssm": {"state": 1, "conv": 1}, "kv": {"k": 1, "v": 1}},
-}
+# the families whose dense layout prefills sequentially
+SEQUENTIAL_FAMILIES = ("ssm", "hybrid")
 
 
 ENCDEC_REFUSED = (
@@ -138,7 +133,7 @@ class ServeEngine:
                 "makes a ring of window slots, and the first admission "
                 "fails on the shapes; ROADMAP queue 3)")
         self.paged = pageable if paged is None else paged
-        self._sequential = self.cfg.family in CACHE_BATCH_AXIS
+        self._sequential = self.cfg.family in SEQUENTIAL_FAMILIES
 
         dev = self.device
         self.pos = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
@@ -343,6 +338,19 @@ class ServeEngine:
         return float(self.active.mean())
 
     # -- dense path ----------------------------------------------------
+    def _scatter_slot(self, big: dict, small: dict, spec: dict,
+                      slot: int) -> None:
+        """Copy a single-request cache into ``slot`` of the batched cache
+        along each leaf's DECLARED batch axis (``cache_spec``'s
+        "cache_batch"), in place; a leaf without one (a ring cache's shared
+        ``kpos``) is left alone, as the reference's ``_scatter_slot``."""
+        for name, axes in spec.items():
+            if isinstance(axes, dict):
+                self._scatter_slot(big[name], small[name], axes, slot)
+            elif "cache_batch" in axes:
+                ax = axes.index("cache_batch")
+                big[name].select(ax, slot).copy_(small[name].select(ax, 0))
+
     def _admit(self, slot: int, req: Request) -> None:
         """Sequential prefill of ``req`` into ``slot`` (ssm, hybrid): the
         prompt replayed through ``decode_step`` one token at a time on a
@@ -357,10 +365,7 @@ class ServeEngine:
             logits, c1 = self.api.decode_step(
                 self.params, c1, prompt[:, i:i + 1],
                 torch.tensor(i, dtype=torch.int32, device=dev))
-        for group, axes in CACHE_BATCH_AXIS[self.cfg.family].items():
-            for name, ax in axes.items():
-                self.cache[group][name].select(ax, slot).copy_(
-                    c1[group][name].select(ax, 0))
+        self._scatter_slot(self.cache, c1, self.api.cache_spec(), slot)
         next_tok = torch.argmax(logits[0, -1]).to(torch.int32)
         self.pos[slot] = sp
         self.cur[slot, 0] = next_tok

@@ -66,13 +66,24 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
+def opt_spec_like(param_spec: dict, *, use_master: bool = True) -> dict:
+    """The logical-axis specs of an ``AdamWState`` beside ``param_spec``:
+    the moments (and master copies) are laid out as their parameters."""
+    return {"step": (), "mu": param_spec, "nu": param_spec,
+            "master": param_spec if use_master else None}
+
+
 @torch.no_grad()
-def adamw_update(cfg: TrainConfig, params, grads: dict, state: AdamWState):
+def adamw_update(cfg: TrainConfig, params, grads: dict, state: AdamWState,
+                 *, gnorm: Optional[torch.Tensor] = None):
     """One AdamW step with global-norm clipping, in place on ``params``
-    and ``state`` (grads: name -> tensor, any float dtype). Returns
-    (params, state, {"grad_norm", "lr"}) as 0-d f32 tensors."""
+    and ``state`` (grads: name -> tensor, any float dtype). ``gnorm``: the
+    gradients' global norm when ``grads`` are shards of them (the mesh
+    step); by default the norm of ``grads``. Returns (params, state,
+    {"grad_norm", "lr"}) as 0-d f32 tensors."""
     state.step += 1
-    gnorm = global_norm(grads.values())
+    if gnorm is None:
+        gnorm = global_norm(grads.values())
     clip = (torch.clamp(torch.div(cfg.grad_clip,
                                   torch.clamp(gnorm, min=1e-12)), max=1.0)
             if cfg.grad_clip else torch.ones((), device=gnorm.device))

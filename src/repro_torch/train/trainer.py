@@ -1,15 +1,39 @@
 """The trainer: a step with microbatched gradient accumulation and mixed
 precision, checkpoint / restart fault tolerance, and a straggler flag.
 
-PyTorch port of the reference's ``repro.train.trainer`` on one device
-(``mesh=None``). The step is eager: the loss and its gradients come from
-autograd (``torch.autograd.grad`` over the parameters, whose
-``requires_grad`` is on for the step only), the update is AdamW in place
+PyTorch port of the reference's ``repro.train.trainer``. The step is
+eager: the loss and its gradients come from autograd
+(``torch.autograd.grad`` over the parameters, whose ``requires_grad`` is
+on for the step only), the update is AdamW in place
 (``train/optimizer.py``), and the state object that goes in comes back.
-A mesh, and the int8-compressed all-reduce over its batch axes, wait for
-the parallel layer (ROADMAP queue 1, item 11); without a mesh the
-reference's compression has no axis to reduce over and the residuals
-ride along unchanged, as here.
+Without a mesh the reference's int8 compression has no axis to reduce over
+and the residuals ride along unchanged, as there.
+
+Under a mesh (a ``torch.distributed`` ``DeviceMesh`` with the axis names of
+``parallel.sharding``; one process a rank) each rank holds plain local
+shards of the params, the AdamW moments and masters and the residuals, as
+``state_shardings`` (the logical rules) places them; ``TrainState.layout``
+records each tensor's spec and logical shape. A step (ZeRO-3 style):
+
+  1. the global batch is split into the microbatches, and each rank takes
+     its shard of each (``batch_shardings``; the reference's microbatches
+     are cut from the global batch, then sharded);
+  2. the weights are all-gathered at use (a leaf that no mesh axis splits
+     is used as it is);
+  3. the forward and backward run on the rank's shard; a MoE's dispatch
+     groups are the reference's (``n_groups`` = the data-parallel size,
+     whose groups are the batch shards), and its load-balance terms and a
+     masked NLL's sums are reduced over the batch axes inside the model
+     (``parallel.sharding.batch_reduction``);
+  4. the gradients are averaged over the batch axes (in f32), so every
+     rank holds the reference's replica mean; with ``compress="int8"`` the
+     compressed all-reduce then runs on those identical means with the
+     full residuals, Q(mean + r), as the reference's single-program form;
+  5. the clip's norm is that of the full averaged gradients, and each
+     rank updates its own shard.
+
+Over ``model`` the compute is replicated where GSPMD would split it (a
+declared deviation, ROADMAP queue 3): the results are the same.
 
 The loop (``Trainer.run``) keeps the reference's contract: the data are a
 pure function of the step, a checkpoint is saved every ``ckpt_every``
@@ -19,22 +43,27 @@ and a failed step restores the latest checkpoint and replays from it.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import logging
+import math
 import time
 from typing import Callable, Iterator, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.models.layers import param
+from repro_torch.parallel import sharding as sh
 from repro_torch.train import grad_compression as gc
-from repro_torch.train.optimizer import AdamWState, adamw_init, adamw_update
+from repro_torch.train.optimizer import (AdamWState, adamw_init,
+                                         adamw_update, global_norm,
+                                         opt_spec_like)
 
 log = logging.getLogger("repro_torch.train")
 
-MESH_REFUSED = ("a mesh (and the int8-compressed all-reduce over its batch "
-                "axes) waits for the parallel layer (ROADMAP queue 1, item "
-                "11); pass mesh=None")
+BATCH_AXES = ("pod", "data")
 
 
 @dataclasses.dataclass
@@ -42,6 +71,9 @@ class TrainState:
     params: torch.nn.Module
     opt: AdamWState
     residuals: Optional[dict] = None     # error-feedback state (compression)
+    # under a mesh: each tensor's spec and logical shape (the tensors are
+    # this rank's shards); None on one device
+    layout: Optional[sh.Layout] = None
 
     def tensors(self) -> dict:
         """Every tensor of the state by a stable name (the checkpoint's
@@ -95,45 +127,231 @@ def loss_and_grads(api, params: torch.nn.Module, batch: dict, **fwd_kw):
     return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
 
 
+def _compute_grads(api, params, mbs: list, fwd_kw: dict):
+    """(loss, aux, grads) over the microbatches ``mbs``: one microbatch
+    through ``loss_and_grads`` as it is; several summed into f32 zeros,
+    then divided by their number (the aux losses averaged)."""
+    if len(mbs) == 1:
+        return loss_and_grads(api, params, mbs[0], **fwd_kw)
+    acc = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           for n, p in params.named_parameters()}
+    loss_sum = torch.zeros((), dtype=torch.float32,
+                           device=next(iter(acc.values())).device)
+    auxs = []
+    for mb in mbs:
+        loss, aux, g = loss_and_grads(api, params, mb, **fwd_kw)
+        for n, gn in g.items():
+            acc[n].add_(gn)
+        del g
+        loss_sum += loss
+        auxs.append(aux)
+    for a in acc.values():
+        a.div_(len(mbs))
+    aux = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+    return loss_sum / len(mbs), aux, acc
+
+
 def make_train_step(api, tcfg: TrainConfig, *, mesh=None,
                     compress: Optional[str] = None) -> Callable:
     """Returns ``step(state, batch) -> (state, metrics)``: the loss and its
     gradients over ``tcfg.microbatches`` microbatches (summed into f32
     zeros, then divided by M; the aux losses averaged), then AdamW in
-    place. metrics: loss, grad_norm, lr and the aux, as 0-d tensors."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_REFUSED)
+    place. metrics: loss, grad_norm, lr and the aux, as 0-d tensors.
+
+    ``mesh``: a ``DeviceMesh`` (the module docstring's step; the state is
+    the one ``Trainer(mesh=...).init_state`` or ``shard_state`` made).
+    ``compress``: None | "int8", the compressed all-reduce over the mesh's
+    batch axes (without a mesh there is none to reduce over)."""
     M = tcfg.microbatches
     fwd_kw: dict = {"remat": tcfg.remat}
     if tcfg.scan_group > 1:
         fwd_kw["scan_group"] = tcfg.scan_group
-    del compress  # without a mesh there is no batch axis to reduce over
-
-    def compute_grads(params, batch):
-        if M <= 1:
-            return loss_and_grads(api, params, batch, **fwd_kw)
-        acc = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for n, p in params.named_parameters()}
-        loss_sum = torch.zeros((), dtype=torch.float32,
-                               device=next(iter(acc.values())).device)
-        auxs = []
-        for mb in _split_microbatches(batch, M):
-            loss, aux, g = loss_and_grads(api, params, mb, **fwd_kw)
-            for n, gn in g.items():
-                acc[n].add_(gn)
-            del g
-            loss_sum += loss
-            auxs.append(aux)
-        for a in acc.values():
-            a.div_(M)
-        aux = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
-        return loss_sum / M, aux, acc
+    if mesh is not None:
+        return _make_mesh_step(api, tcfg, mesh, compress, fwd_kw)
 
     def step(state: TrainState, batch: dict):
-        loss, aux, grads = compute_grads(state.params, batch)
+        mbs = [batch] if M <= 1 else _split_microbatches(batch, M)
+        loss, aux, grads = _compute_grads(api, state.params, mbs, fwd_kw)
         _, _, stats = adamw_update(tcfg, state.params, grads, state.opt)
         del grads
         return state, {"loss": loss, **stats, **aux}
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# The mesh path
+# ---------------------------------------------------------------------------
+
+def _check_mesh(mesh) -> None:
+    if not hasattr(mesh, "get_group"):
+        raise TypeError(f"a mesh step needs a DeviceMesh over a process "
+                        f"group (make_mesh_from_config); got "
+                        f"{type(mesh).__name__}, which resolves specs but "
+                        f"runs no collective")
+
+
+def _param_specs(api, mesh, shapes: dict) -> dict:
+    """{parameter name: P} on ``mesh`` for logical ``shapes``."""
+    logical = api.param_spec()
+    return {n: sh.resolve(logical[n], shapes[n], mesh) for n in shapes}
+
+
+def state_shardings(api, mesh, state: TrainState) -> TrainState:
+    """The specs of ``state``'s tensors on ``mesh`` by the logical rules, as
+    a TrainState of {name: P} dicts (the reference's NamedSharding tree):
+    params by ``api.param_spec()``, the AdamW moments and masters and the
+    residuals as their parameters (``opt_spec_like``), the step
+    replicated. Resolved on the logical shapes (``state.layout``'s for a
+    sharded state)."""
+    shapes = (state.layout.shapes if state.layout is not None else
+              {n: tuple(t.shape) for n, t in state.tensors().items()})
+    pspec = _param_specs(api, mesh, {
+        n: shapes[f"params/{n}"] for n, _ in state.params.named_parameters()})
+    ospec = opt_spec_like(pspec, use_master=state.opt.master is not None)
+    return TrainState(
+        params=pspec,
+        opt=AdamWState(step=sh.P(), mu=ospec["mu"], nu=ospec["nu"],
+                       master=ospec["master"]),
+        residuals=pspec if state.residuals is not None else None)
+
+
+def _flat_specs(specs: TrainState) -> dict:
+    """A ``state_shardings`` tree -> {``TrainState.tensors`` name: P}."""
+    out = {f"params/{n}": s for n, s in specs.params.items()}
+    out["opt/step"] = specs.opt.step
+    for prefix, group in (("opt/mu", specs.opt.mu), ("opt/nu", specs.opt.nu),
+                          ("opt/master", specs.opt.master),
+                          ("residuals", specs.residuals)):
+        for n, s in (group or {}).items():
+            out[f"{prefix}/{n}"] = s
+    return out
+
+
+def batch_shardings(mesh, batch_like: dict) -> dict:
+    """{name: P} of a batch on ``mesh``: the leading axis over the batch
+    axes (as far as it divides), the rest replicated."""
+    return {name: sh.resolve(("batch",) + (None,) * (x.ndim - 1),
+                             tuple(x.shape), mesh)
+            for name, x in batch_like.items()}
+
+
+def _own(full: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
+    """A shard in its own storage (the full tensor itself when the shard
+    is all of it)."""
+    return full if local.shape == full.shape else local.clone()
+
+
+def _set_param(module: torch.nn.Module, name: str, t: torch.Tensor):
+    owner, _, leaf = name.rpartition(".")
+    module.get_submodule(owner)._parameters[leaf] = param(t)
+
+
+def shard_state(api, state: TrainState, mesh) -> TrainState:
+    """A full (one-device) ``state`` -> this rank's shards of it on
+    ``mesh``, with its ``layout`` (the tensors of ``state`` are replaced,
+    so the full ones can be freed)."""
+    _check_mesh(mesh)
+    specs = _flat_specs(state_shardings(api, mesh, state))
+    tensors = state.tensors()
+    layout = sh.Layout(mesh, specs,
+                       {n: tuple(t.shape) for n, t in tensors.items()})
+    local = {n: _own(t, layout.local(n, t)) for n, t in tensors.items()}
+    for n, _ in list(state.params.named_parameters()):
+        _set_param(state.params, n, local[f"params/{n}"])
+
+    def group(prefix, d):
+        return None if d is None else {n: local[f"{prefix}/{n}"] for n in d}
+
+    opt = AdamWState(step=local["opt/step"], mu=group("opt/mu", state.opt.mu),
+                     nu=group("opt/nu", state.opt.nu),
+                     master=group("opt/master", state.opt.master))
+    return TrainState(params=state.params, opt=opt,
+                      residuals=group("residuals", state.residuals),
+                      layout=layout)
+
+
+def gather_params(params: torch.nn.Module, layout: sh.Layout):
+    """A module of the full parameters from this rank's shards (ZeRO-3's
+    gather at use): a parameter that no mesh axis splits is shared, not
+    copied."""
+    memo: dict = {}
+    for n, p in params.named_parameters():
+        full = layout.gather(f"params/{n}", p)
+        memo[id(p)] = p if full is p else param(full)
+    return copy.deepcopy(params, memo)
+
+
+def _make_mesh_step(api, tcfg: TrainConfig, mesh, compress, fwd_kw):
+    _check_mesh(mesh)
+    M = tcfg.microbatches
+    sizes = sh.mesh_axis_sizes(mesh)
+    batch_axes = tuple(a for a in BATCH_AXES if a in sizes)
+    dp = math.prod(sizes[a] for a in batch_axes)
+    group = sh.axis_group(mesh, batch_axes) if batch_axes else None
+    cpsum = (gc.make_compressed_psum(batch_axes, mesh=mesh)
+             if compress == "int8" and batch_axes else None)
+
+    def shard_batch(batch: dict) -> tuple:
+        mbs = [batch] if M <= 1 else _split_microbatches(batch, M)
+        bspecs = batch_shardings(mesh, mbs[0])
+        kw = dict(fwd_kw)
+        if api.cfg.n_experts:
+            # the reference's dispatch groups are the dp batch shards; a
+            # rank whose shard holds dp / split of them routes those
+            split = math.prod(sizes[a] for a in sh.entry_axes(
+                (bspecs["tokens"] + (None,))[0]))
+            rows = mbs[0]["tokens"].shape[0]
+            seq = mbs[0]["tokens"].shape[1] + (
+                mbs[0]["img_embeds"].shape[1] if "img_embeds" in mbs[0]
+                else 0)
+            if split > 1 and (dp % split or rows * seq % dp):
+                raise ValueError(f"a MoE microbatch of {rows} x {seq} "
+                                 f"tokens split {split} ways does not hold "
+                                 f"the reference's {dp} dispatch groups")
+            kw["n_groups"] = dp // split
+        return [{k: sh.local_shard(v, bspecs[k], mesh) for k, v in mb.items()}
+                for mb in mbs], kw
+
+    def mean_over_batch(t: torch.Tensor) -> torch.Tensor:
+        if group is None:
+            return t
+        t32 = t.to(torch.float32)
+        dist.all_reduce(t32, group=group)
+        return t32.div_(dp)
+
+    def step(state: TrainState, batch: dict):
+        layout = state.layout
+        if layout is None or layout.mesh is not mesh:
+            raise ValueError("a mesh step takes a state sharded on its mesh "
+                             "(Trainer(mesh=...).init_state or shard_state)")
+        mbs, kw = shard_batch(batch)
+        full = gather_params(state.params, layout)
+        ctx = (sh.batch_reduction(group, dp) if group is not None
+               else contextlib.nullcontext())
+        with ctx:
+            loss, aux, grads = _compute_grads(api, full, mbs, kw)
+        del full
+        for n, g in grads.items():
+            g.copy_(mean_over_batch(g))
+        names = ["loss", *aux]
+        stacked = mean_over_batch(torch.stack([loss.float(), *(
+            a.float() for a in aux.values())]))
+        metrics = dict(zip(names, stacked.unbind()))
+        if cpsum is not None:
+            full_r = {n: layout.gather(f"residuals/{n}", r)
+                      for n, r in state.residuals.items()}
+            grads, new_r = cpsum(grads, full_r)
+            del full_r
+            for n, r in state.residuals.items():
+                r.copy_(layout.local(f"residuals/{n}", new_r[n]))
+            del new_r
+        gnorm = global_norm(grads.values())
+        local = {n: layout.local(f"params/{n}", g) for n, g in grads.items()}
+        _, _, stats = adamw_update(tcfg, state.params, local, state.opt,
+                                   gnorm=gnorm)
+        del grads, local
+        return state, {**metrics, **stats}
 
     return step
 
@@ -144,6 +362,7 @@ class Trainer:
                  device="cuda"):
         self.api = api
         self.tcfg = tcfg
+        self.mesh = mesh
         self.compress = compress
         self.ckpt = ckpt_manager
         self.device = device
@@ -151,11 +370,33 @@ class Trainer:
 
     # -- state ---------------------------------------------------------------
     def init_state(self, seed: Optional[int] = None) -> TrainState:
+        """The state from the seed; under a mesh each rank draws the full
+        params and keeps its shards, and its AdamW state and residuals are
+        made on the shards (a full-width state is never held whole)."""
         params = self.api.init(self.tcfg.seed if seed is None else seed,
                                self.device)
-        res = gc.init_residuals(params) if self.compress else None
-        return TrainState(params=params, opt=adamw_init(params),
-                          residuals=res)
+        if self.mesh is None:
+            res = gc.init_residuals(params) if self.compress else None
+            return TrainState(params=params, opt=adamw_init(params),
+                              residuals=res)
+        _check_mesh(self.mesh)
+        shapes = {n: tuple(p.shape) for n, p in params.named_parameters()}
+        specs = _param_specs(self.api, self.mesh, shapes)
+        for n, p in list(params.named_parameters()):
+            _set_param(params, n, _own(p, sh.local_shard(p, specs[n],
+                                                         self.mesh)))
+        state = TrainState(params=params, opt=adamw_init(params),
+                           residuals=(gc.init_residuals(params)
+                                      if self.compress else None))
+        # every tensor is laid out as its parameter (opt_spec_like); the
+        # step is replicated
+        param_of = {name: name.rsplit("/", 1)[1] if name != "opt/step"
+                    else None for name in state.tensors()}
+        state.layout = sh.Layout(
+            self.mesh,
+            {t: sh.P() if p is None else specs[p] for t, p in param_of.items()},
+            {t: () if p is None else shapes[p] for t, p in param_of.items()})
+        return state
 
     # -- fault-tolerant loop ---------------------------------------------------
     def run(self, state: TrainState, data: Iterator, *, steps: int,

@@ -225,13 +225,23 @@ def test_card_scale_takes_buffers_beyond_the_l2():
 @pytest.mark.parametrize("name", ("ici_allreduce", "ici_allgather",
                                   "ici_a2a"))
 def test_ici_modes_refuse_a_mesh(name):
-    """A mesh needs NCCL collectives: refused, not degraded silently."""
-    port = port_noise.make_modes(port_noise.NoiseScale(**SCALE), device="cpu",
-                                 mesh=object())[name]
+    """The collectives run over a DeviceMesh's process group
+    (``tests/test_torch_ici_mesh.py``); a mesh with the axis but no process
+    group (an ``AbstractMesh``) is refused, not degraded silently, while a
+    mesh without the axis takes the no-mesh branch, as the reference's."""
+    from repro_torch.parallel.sharding import AbstractMesh
+
+    scale = port_noise.NoiseScale(**SCALE)
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        port_noise.make_modes(scale, device="cpu",
+                              mesh=AbstractMesh((2,), ("model",)))
+    port = port_noise.make_modes(scale, device="cpu",
+                                 mesh=AbstractMesh((2,), ("data",)))[name]
+    plain = port_noise.make_modes(scale, device="cpu")[name]
     state = port.make_state(torch.Generator().manual_seed(0))
-    for apply in (port.apply, port.apply_rt):
-        with pytest.raises(NotImplementedError, match="NCCL"):
-            apply(state, 2)
+    for apply, want in ((port.apply, plain.apply),
+                        (port.apply_rt, plain.apply_rt)):
+        assert torch.equal(apply(state, 2)[0], want(state, 2)[0])
 
 
 def test_states_are_made_on_the_cpu_from_a_generator():

@@ -198,3 +198,24 @@ def test_the_audit_imports_with_jax_and_reference_blocked():
             + "build_parser().parse_args(['audit', '--plan', 'p.json'])\n")
     subprocess.run([sys.executable, "-c", code], env=_env(), check=True,
                    timeout=120)
+
+
+PARALLEL_MODULES = ("parallel/__init__.py", "parallel/sharding.py",
+                    "launch/mesh.py")
+
+
+@pytest.mark.parametrize("module", PARALLEL_MODULES)
+def test_scan_covers_the_parallel_modules(module):
+    path = os.path.join(ROOT, "src", "repro_torch", module)
+    assert path in PORT_FILES
+    assert not set(_imported_roots(path)) & FORBIDDEN
+
+
+def test_the_parallel_layer_imports_with_jax_and_reference_blocked():
+    code = (BLOCKED_IMPORT
+            + "import repro_torch.parallel as p, repro_torch.launch.mesh\n"
+            + "m = p.AbstractMesh((2, 2), ('data', 'model'))\n"
+            + "assert p.resolve(('batch', 'ff'), (4, 8), m) == "
+              "p.P('data', 'model')\n")
+    subprocess.run([sys.executable, "-c", code], env=_env(), check=True,
+                   timeout=120)

@@ -668,19 +668,21 @@ def test_launch_serve_cli_serves_the_ssm_families_on_cpu(arch, capsys):
 
 
 def test_sequential_prefill_scatters_one_slot_only():
-    """An admission writes its own slot of every stacked leaf (axis 1) and
-    leaves the other slots' state alone."""
-    from repro_torch.serve.engine import CACHE_BATCH_AXIS
-
+    """An admission writes its own slot of every stacked leaf (along its
+    "cache_batch" axis, 1 in every leaf, from ``cache_spec``) and leaves
+    the other slots' state alone."""
     api = build(configs.get_smoke_config("zamba2_1p2b"))
     eng = ServeEngine(api, api.init(0, "cpu"), n_slots=3, max_seq=16)
-    assert set(CACHE_BATCH_AXIS["hybrid"]) == set(eng.cache)
+    spec = api.cache_spec()
+    assert set(spec) == set(eng.cache)
     before = {g: {n: t.clone() for n, t in leaves.items()}
               for g, leaves in eng.cache.items()}
     eng._admit(1, eng.submit([5, 6, 7], max_new=2))
     eng.queue.clear()
-    for group, axes in CACHE_BATCH_AXIS["hybrid"].items():
-        for name, ax in axes.items():
+    for group, axes in spec.items():
+        for name, logical in axes.items():
+            ax = logical.index("cache_batch")
+            assert ax == 1
             new, old = eng.cache[group][name], before[group][name]
             assert not torch.equal(new.select(ax, 1), old.select(ax, 1))
             for slot in (0, 2):

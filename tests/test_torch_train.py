@@ -32,7 +32,9 @@ own initialised state carried over by ``convert.train_state_to_torch``:
   round trip, error feedback and the compressed psum (``gloo``, world
   size 1);
 * the CLI on ``--device cpu``: a rerun resumes, a rerun after the last
-  step exits non-zero with its message, ``--mesh single`` is refused.
+  step exits non-zero with its message, ``--mesh single`` in one process
+  exits with the reference's message (the mesh path itself:
+  ``tests/test_torch_mesh_train.py``).
 """
 import dataclasses
 import os
@@ -689,9 +691,16 @@ def test_checkpoint_refuses_another_structure_and_reraises(tmp_path):
 
 
 def test_trainer_refuses_a_mesh_and_carries_residuals_without_one(setup):
+    """The mesh step runs on a DeviceMesh (``tests/test_torch_mesh_train.py``);
+    a mesh without a process group is refused, and the trainer keeps the
+    mesh it was given. Without a mesh the residuals ride along unchanged."""
+    from repro_torch.parallel.sharding import AbstractMesh
+
     api, _, pipe = setup
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        make_train_step(api, TrainConfig(), mesh=object())
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        make_train_step(api, TrainConfig(),
+                        mesh=AbstractMesh((2, 1), ("data", "model")))
+    assert Trainer(api, TrainConfig(), device="cpu").mesh is None
     tr = Trainer(api, TrainConfig(lr=1e-3), compress="int8", device="cpu")
     state = tr.init_state()
     assert state.residuals is not None
@@ -796,9 +805,19 @@ def test_cli_resumes_and_refuses_a_rerun_past_the_last_step(tmp_path,
 
 
 def test_cli_refuses_a_mesh():
+    """``--mesh single`` needs 256 ranks; one process exits with the
+    reference launcher's ValueError message."""
+    from repro.launch.mesh import make_production_mesh
+
     with pytest.raises(SystemExit) as e:
         _cli("--steps", "2", "--mesh", "single")
-    assert "queue 1" in str(e.value.code)
+    with pytest.raises(ValueError) as want:
+        make_production_mesh()
+    n = jax.device_count()
+    assert str(e.value.code) == str(want.value).replace(
+        f"devices {n} ", "devices 1 ")
+    assert str(e.value.code) == ("Number of devices 1 must be >= the "
+                                 "product of mesh_shape (16, 16)")
 
 
 def test_cli_runs_on_the_cpu_as_a_module(tmp_path):
