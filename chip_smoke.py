@@ -129,21 +129,22 @@ JAX or of the reference package. Phases, each of which fails the run:
    static and run-time; a profiler trace of a noisy tick (mxu_fma128, k =
    512) with the noise kernel under ``NOISE_SCOPE`` on a stream of its
    own, overlapping the tick's kernels; t(0) of both regions from the
-   graph and eagerly; both characterized over the four modes into a store
-   and replayed with 0 measured; then ``python -m
+   graph and eagerly (CUDA events, median of 10); both characterized
+   over the four modes into a store once at 5 reps a point and replayed
+   with 0 measured; then ``python -m
    repro_torch.launch.probe --serve --arch gemma-2b`` and ``--arch
    gemma-2b --kind decode`` at the smoke config, each again with
    ``--expect-no-measure``;
 8. the MoE family, as phase 7 (phase 7's model freed first):
-   qwen3-moe-30b-a3b at full width and 8 of its 48 layers in bf16 (~5.6
-   B parameters, 11 GB, drawn on the card; its bytes and the card's free
+   qwen3-moe-30b-a3b at full width and 4 of its 48 layers in bf16 (~3.1
+   B parameters, 6 GB, drawn on the card; its bytes and the card's free
    memory printed; the depth cut keeps the script inside its limit with
-   phases 9 and 12) served paged, dense and paged (greedy tokens equal,
+   phases 9, 12 and 13) served paged, dense and paged (greedy tokens equal,
    tok/s, the (token, choice) pairs its dispatch drops a prefill); its
    prefill and decode tick as CUDA-graph step regions with the same
    checks, each step's kernels a call and top device operations from a
    trace of its graph, beside the time to read every weight once; both
-   read once into a store at 3 reps a point (phase 7: 10) and replayed
+   read once into a store at 2 reps a point (phase 7: 5) and replayed
    with 0 measured; then ``python -m
    repro_torch.launch.probe --arch mixtral-8x22b --kind decode`` (the ring
    cache), ``--arch llava-next-34b`` (the image embeds) and ``--serve
@@ -155,13 +156,14 @@ JAX or of the reference package. Phases, each of which fails the run:
    forward's logits at every position of 2 x 256 tokens (two chunks and
    the inter-chunk recurrence) against 256 ``decode_step`` calls on the
    same tokens (replayed from a CUDA graph), within ``F32_CHECK_SHARE``
-   of the largest |logit|; in
-   bf16 served as phase 7 (dense, sequential prefill), its greedy tokens
+   of the largest |logit|; in bf16 at 24 of its 48 layers served as
+   phase 7 (dense, sequential prefill; max_new 8), its greedy tokens
    equal to a greedy loop through ``decode_step`` for each request alone;
    its forward loss at batch 4 x 512 and its decode tick at batch 4 as
    CUDA-graph step regions with phase 7's checks, read once into a store
-   at 2 reps a point and replayed with 0 measured; zamba2-1.2b at full
-   width and depth checked in f32 as mamba2 and served as mamba2;
+   at 1 rep a point and replayed with 0 measured; zamba2-1.2b at full
+   width and depth checked in f32 as mamba2 and, at 19 of its 38 layers,
+   served as mamba2;
    whisper-large-v3 at full width and depth checked in f32 over 1,500
    frames and 32 decoder positions, then in bf16 ``decode_init`` with
    frames and 16 greedy decode steps; then ``python -m
@@ -236,6 +238,25 @@ JAX or of the reference package. Phases, each of which fails the run:
    characterization at 3 reps a point (rank 0's sensitivity reading picks
    every rank's sweep, and no sweep stops early, so the ranks' collectives
    match), rank 0's store replayed with 0 measured.
+
+13. the dry-run surfaces (no hand-written kernel on this path, as the
+   reference's dry-run reaches no Pallas call): the production-mesh cells
+   of gemma-2b traced on the host by ``python -m
+   repro_torch.launch.dryrun`` (``decode_32k`` and ``train_4k`` on 16 x
+   16, ``decode_32k`` on 2 x 16 x 16; one process each, started first so
+   they overlap the card's cells), each ``OK`` with argument bytes inside
+   80 GiB; beside them gemma-2b at full width and 2 of 18 layers, a
+   training step (4 x 512 tokens, M = 1) and a decode tick (4 sequences,
+   a cache of 4,096 positions) traced on meta over a one-rank fake group
+   and then run on the card over a one-rank NCCL group (FileStore): the
+   card's tensors' bytes equal the traced argument bytes exactly, the
+   card runs the traced ops (name, shapes, dtypes, in order, collectives
+   included), its CUDA-event time (median of ``DRYRUN_REPS``) is at or
+   above the traced bound max(Tc, Tm, Ti), and its peak memory lies
+   within ``DRYRUN_MEM_SHARE`` of the traced argument + temp; then the
+   16 x 16 records' report and ``launch.probe --analytic`` on train_4k's
+   record through the probe's entry point twice, the second replaying 0
+   measured.
 
 The last lines are the card, one ``{"kernels": [...]}`` JSON object (when
 phase 6 ran), and ``{"ok": true, "device": {...}}``.
@@ -2336,23 +2357,26 @@ SERVE_KS = (1, 64)
 # the traced noisy tick: mxu_fma128 at the run-time cap (~2.4 us a pattern,
 # PERF.md, PR 16), long enough to overlap the step's kernels
 TRACE_MODE, TRACE_K = "mxu_fma128", 512
-# reps of every sweep point (min of reps, the host clock): a 5% tolerance
-# of a 5-9 ms step is 0.25-0.45 ms, about the step's own spread from run to
-# run, so each region is read twice to show how far its values hold
-SERVE_REPS = 10
-# reading -> its store: two fresh readings, then the second one replayed
-SERVE_READINGS = {"reading 1": "serve_1.jsonl", "reading 2": "serve_2.jsonl",
-                  "replay": "serve_2.jsonl"}
+# reps of every sweep point (min of reps, the host clock): 5, in one
+# reading (two readings at 10 reps, to show how far a region's values
+# hold, until phase 13 was added; cut to pay for it)
+SERVE_REPS = 5
+# reading -> its store: one fresh reading, then replayed
+SERVE_READINGS = {"reading": "serve.jsonl", "replay": "serve.jsonl"}
 # graph replays in the trace that counts a step's kernels (device_ms)
 STEP_TRACE_REPS = 5
+# CUDA-event timings of a step region's t(0), graph and eager: the median
+# of 10 (TIMING_REPS, 25, until phase 13 was added; cut to pay for it)
+STEP_EVENT_REPS = 10
 L2_NOTE = "(k tiles L2-resident below k~380)"
 
 
 # phase 8: qwen3-moe-30b-a3b at full width in bf16 (src/repro_torch/
 # configs/qwen3_moe_30b_a3b.py: d_model 2048, 32 / 4 heads of 128, 128
 # experts top-8 of d_ff 768, vocab 151,936), its depth cut from 48 layers
-# (61 GB) to MOE_LAYERS (~5.6 B parameters, 11 GB; 16 layers until PR 21,
-# cut again to pay for phase 12) so that the script stays inside its limit
+# (61 GB) to MOE_LAYERS (~3.1 B parameters, 6 GB; 16 layers before phase
+# 12, 8 before phase 13, cut to pay for each) so that the script stays
+# inside its limit
 # (PERF.md §4), served and probed as phase 7's model is, its regions read
 # once and replayed; then the smoke configs
 # of the other MoE and VLM paths through the probe CLI: mixtral's ring
@@ -2360,11 +2384,11 @@ L2_NOTE = "(k tiles L2-resident below k~380)"
 # embeds (the forward loss with 8 image tokens in front) and qwen3's
 # serving
 MOE_ARCH = "qwen3_moe_30b_a3b"
-MOE_LAYERS = 8
+MOE_LAYERS = 4
 MOE_READINGS = {"reading": "moe.jsonl", "replay": "moe.jsonl"}
-# reps of each sweep point of its one reading: 3 (5 until PR 21, cut to pay
-# for phase 12)
-MOE_REPS = 3
+# reps of each sweep point of its one reading: 2 (5 before phase 12, 3
+# before phase 13, cut to pay for each)
+MOE_REPS = 2
 MOE_CLI = {
     "probe_mixtral_decode_smoke": ["--arch", "mixtral-8x22b", "--kind",
                                    "decode"],
@@ -2522,8 +2546,9 @@ def _check_and_time(regions, eager: dict, weights_ms: float) -> dict:
         fn, args = eager[region.name]
         t_graph = measure(clean, region.args_for("", 0), reps=10)
         t_eager = measure(fn, args, reps=10)
-        ev_graph = time_ms(partial(clean, *region.args_for("", 0)))
-        ev_eager = time_ms(partial(fn, *args))
+        ev_graph = time_ms(partial(clean, *region.args_for("", 0)),
+                           reps=STEP_EVENT_REPS)
+        ev_eager = time_ms(partial(fn, *args), reps=STEP_EVENT_REPS)
         dev_ms, per_kernel, n_kernels, whole = device_ms(
             partial(clean, *region.args_for("", 0)), reps=STEP_TRACE_REPS)
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
@@ -2537,7 +2562,7 @@ def _check_and_time(regions, eager: dict, weights_ms: float) -> dict:
                             "weights_read_ms": weights_ms}
         print(f"{region.name}: t(0) host clock with synchronize, min of "
               f"10: graph {t_graph * 1e3!r} ms, eager {t_eager * 1e3!r} "
-              f"ms; CUDA events, median of {TIMING_REPS}: graph "
+              f"ms; CUDA events, median of {STEP_EVENT_REPS}: graph "
               f"{ev_graph!r} ms, eager {ev_eager!r} ms; device "
               f"{dev_ms!r} ms in {n_kernels} kernels a call (trace of "
               f"{STEP_TRACE_REPS} graph replays, whole: {whole}); every "
@@ -2796,7 +2821,16 @@ F32_CHECK_SHARE = 1e-3
 SSM_REGION = {"batch": 4, "seq": 512}
 SSM_WARM_STEPS = 8
 SSM_READINGS = {"reading": "ssm.jsonl", "replay": "ssm.jsonl"}
-SSM_REPS = 2                # 3 until PR 21, cut to pay for phase 12
+SSM_REPS = 1                # 3, then 2, cut to pay for phases 12 and 13
+# mamba2 and zamba2 served as phase 7's model at a decode budget of 8 (16,
+# launch/serve.py's default, before phase 13; cut to pay for it): the
+# greedy loops that hold each request alone are most of the path's time
+SSM_SERVE_ARGS = dict(SERVE_ARGS, max_new=8)
+# the bf16 models served and probed as step regions at half their depth
+# (mamba2: 24 of 48 layers; zamba2: 19 of 38, the shared block at 4 of its
+# 7 places; full depth before phase 13, cut to pay for it); the f32
+# checks stay at full depth
+SSM_SERVED_LAYERS = {"mamba2_780m": 24, "zamba2_1p2b": 19}
 # whisper's greedy decode in bf16: slots, steps, self cache length
 WHISPER_DECODE = {"batch": 4, "steps": 16, "max_seq": 64}
 SSM_CLI = {
@@ -2827,9 +2861,10 @@ def _free(label: str) -> None:
     print(f"free memory {label}: {free} of {total} bytes", flush=True)
 
 
-def _draw(arch: str, f32: bool = False):
-    """(api, params) of ``arch`` at full width and depth, drawn on the card
-    from seed 0 (in f32 with ``f32``); prints its size."""
+def _draw(arch: str, f32: bool = False, n_layers: Optional[int] = None):
+    """(api, params) of ``arch`` at full width and depth (``n_layers`` of
+    its layers when given), drawn on the card from seed 0 (in f32 with
+    ``f32``); prints its size."""
     import dataclasses
 
     import torch
@@ -2838,6 +2873,8 @@ def _draw(arch: str, f32: bool = False):
     from repro_torch.models.model import build
 
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     if f32:
         cfg = dataclasses.replace(cfg, param_dtype="float32",
                                   compute_dtype="float32")
@@ -2976,13 +3013,14 @@ def _serve_sequential(api, params) -> dict:
     ``_greedy_alone``."""
     from repro_torch.launch.serve import report, serve
 
-    eng, reqs, dt = serve(api, params, **SERVE_ARGS)
+    eng, reqs, dt = serve(api, params, **SSM_SERVE_ARGS)
     print(report(eng, reqs, dt), flush=True)
     if eng.paged:
         raise RuntimeError(f"{api.cfg.name}: served paged, want dense")
     for r in reqs:
         alone = _greedy_alone(api, params, r.prompt, r.max_new,
-                              SERVE_ARGS["slots"], SERVE_ARGS["max_seq"])
+                              SSM_SERVE_ARGS["slots"],
+                              SSM_SERVE_ARGS["max_seq"])
         if alone != r.out:
             raise RuntimeError(f"{api.cfg.name}: request {r.uid} served "
                                f"{r.out}, alone {alone}")
@@ -3107,9 +3145,10 @@ def _refused(tmp: str) -> None:
 
 def phase_ssm(tmp: str, kernels: Kernels) -> dict:
     """Phase 9: mamba2-780m, zamba2-1.2b and whisper-large-v3 at full width
-    and depth, then the smoke probes of the three families and the refused
-    routes. Phase 8's model is freed first, and each model before the
-    next."""
+    (the f32 checks and whisper at full depth, mamba2's and zamba2's bf16
+    paths at ``SSM_SERVED_LAYERS``), then the smoke probes of the three
+    families and the refused routes. Phase 8's model is freed first, and
+    each model before the next."""
     from repro_torch.launch.probe import DEFAULT_GRAPH_MODES
 
     banner("9. the SSM, hybrid and encoder-decoder families: mamba2-780m, "
@@ -3124,7 +3163,8 @@ def phase_ssm(tmp: str, kernels: Kernels) -> dict:
                                    f"f32_check_{arch}", (),
                                    partial(_f32_check, arch))
         _free(f"after the f32 check of {arch}")
-        api, params, nbytes = _draw(arch)
+        api, params, nbytes = _draw(arch, n_layers=SSM_SERVED_LAYERS.get(
+            arch))
         weights_ms = nbytes / HBM_BYTES_PER_S * 1e3
         if arch in SSM_SERVED:
             res[f"{arch}_serve"] = drive(
@@ -4305,7 +4345,304 @@ def phase_mesh(tmp: str) -> dict:
     return res
 
 
-PHASES = (1, 2, 3, 4, 6, 7, 8, 9, 10, 11, 12)   # 4 runs 4 and 5
+# ---------------------------------------------------------------------------
+# phase 13: the dry-run surfaces
+# ---------------------------------------------------------------------------
+
+# the one-rank cells: gemma-2b at full width, its depth cut to 2 of 18
+# layers as phase 12 cuts it (bf16, f32 masters); a training step of 4 x
+# 512 tokens (M = 1) and a decode tick of 4 sequences against a cache of
+# 4,096 positions, each traced on meta over a one-rank fake group, then the
+# same ``CellProgram.fn`` run on the card over a one-rank NCCL group
+DRYRUN_ARCH = "gemma_2b"
+DRYRUN_LAYERS = 2
+DRYRUN_TRAIN = {"batch": 4, "seq": 512}
+DRYRUN_DECODE = {"batch": 4, "seq": 4096}
+DRYRUN_REPS = 10
+# the card's peak (max_memory_allocated over what the cell's arguments
+# found allocated) against the trace's argument + temp bytes: within this
+# share of them (the prediction in PERF.md, written before the first
+# card run of this phase)
+DRYRUN_MEM_SHARE = 0.05
+# the production-mesh cells, traced on the host in a subprocess while the
+# card runs the one-rank cells: (shape, multi-pod)
+DRYRUN_HOST_CELLS = (("decode_32k", False), ("train_4k", False),
+                     ("decode_32k", True))
+
+
+def _card_tensor_bytes(tree) -> int:
+    """The bytes of every tensor of ``tree`` on the card (modules'
+    parameters, dicts, lists, dataclasses), each storage once."""
+    import torch
+
+    seen, total = set(), 0
+    stack = [tree]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            key = x.untyped_storage().data_ptr()
+            if key not in seen:
+                seen.add(key)
+                total += x.numel() * x.element_size()
+        elif isinstance(x, torch.nn.Module):
+            stack.extend(x.parameters())
+        elif isinstance(x, dict):
+            stack.extend(x.values())
+        elif isinstance(x, (list, tuple)):
+            stack.extend(x)
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            stack.extend(getattr(x, f.name) for f in dataclasses.fields(x))
+    return total
+
+
+def _dryrun_cell(kind: str, mesh, device):
+    """(CellProgram, ShapeConfig, ModelConfig) of one one-rank cell."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import steps
+    from repro_torch.models.model import build
+
+    cfg = dataclasses.replace(get_config(DRYRUN_ARCH),
+                              n_layers=DRYRUN_LAYERS)
+    api = build(cfg)
+    if kind == "train":
+        shape = ShapeConfig("train_4x512", "train", DRYRUN_TRAIN["seq"],
+                            DRYRUN_TRAIN["batch"])
+        prog = steps.train_cell(api, shape, mesh, microbatches=1,
+                                scan_group=1, device=device)
+    else:
+        shape = ShapeConfig("decode_4x4096", "decode", DRYRUN_DECODE["seq"],
+                            DRYRUN_DECODE["batch"])
+        prog = steps.decode_cell(api, shape, mesh, device=device)
+    return prog, shape, cfg
+
+
+def _start_host_cells(tmp: str) -> dict:
+    """The production-mesh cells through ``python -m
+    repro_torch.launch.dryrun`` (16 x 16 and 2 x 16 x 16 fake ranks, on the
+    host), one process each, all started at once: {(shape, multi-pod):
+    (start time, process)}."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (SRC, env.get("PYTHONPATH")) if p)
+    return {(shape, multi): (time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "gemma-2b", "--shape", shape, "--out", os.path.join(tmp, "dryrun"),
+         *(["--multi-pod"] if multi else [])], env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        for shape, multi in DRYRUN_HOST_CELLS}
+
+
+def _host_cells(tmp: str, started: dict) -> dict:
+    """Each production-mesh cell's process joined (within 900 s, else
+    killed) and its record read: it must print the ``OK`` line and its
+    argument bytes must fit the card's memory."""
+    from repro_torch.configs.base import H100_SXM
+
+    out_dir = os.path.join(tmp, "dryrun")
+    cells = {}
+    for (shape, multi), (t0, proc) in started.items():
+        mesh = "2x16x16" if multi else "16x16"
+        try:
+            text, _ = proc.communicate(timeout=900)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        if proc.returncode or not text.startswith(
+                f"OK   gemma_2b_{shape} [{mesh}]"):
+            raise RuntimeError(f"dry-run {shape} [{mesh}] (exit "
+                               f"{proc.returncode}): {text[-3000:]}")
+        with open(os.path.join(out_dir, mesh, f"gemma_2b_{shape}.json")) as f:
+            rec = json.load(f)
+        args = rec["memory"]["argument_size_in_bytes"]
+        if args > H100_SXM.hbm_bytes:
+            raise RuntimeError(f"{shape} [{mesh}]: argument bytes {args} "
+                               f"exceed {H100_SXM.hbm_bytes}")
+        cells[f"{shape} [{mesh}]"] = {
+            "roofline": text.splitlines()[1].strip(),
+            "memory": rec["memory"], "trace_s": rec["compile_s"],
+            "n_ops": rec["n_ops"],
+            "wall_s": round(time.perf_counter() - t0, 1)}
+    return cells
+
+
+def _analytic_route(tmp: str) -> list:
+    """The report of the 16 x 16 records and ``launch.probe --analytic``
+    on train_4k's record through the probe's entry point, twice: the
+    second must replay every prediction (``--expect-no-measure``)."""
+    import io
+
+    from repro_torch.launch import probe
+    from repro_torch.roofline import report
+
+    print(report.render(os.path.join(tmp, "dryrun", "16x16")), flush=True)
+    args = ["--analytic", "--arch", "gemma-2b", "--shape", "train_4k",
+            "--dryrun-dir", os.path.join(tmp, "dryrun", "16x16"), "--store",
+            os.path.join(tmp, "pred.jsonl")]
+    _, first = probe.main(args)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, again = probe.main(args + ["--expect-no-measure"])
+    print(buf.getvalue(), end="", flush=True)
+    if not first.measured or again.measured or \
+            again.cached != first.measured:
+        raise RuntimeError(f"the analytic probe: {first} then {again}")
+    return [ln.strip() for ln in buf.getvalue().splitlines()
+            if ln.strip().startswith(("=>", "["))]
+
+
+def phase_dryrun(tmp: str) -> dict:
+    """Phase 13: the dry-run held against the card, and the production
+    meshes traced on the host beside it (started first, so they overlap
+    the card's cells)."""
+    from repro_torch.parallel import fake
+
+    banner("13. the dry-run surfaces: gemma-2b (full width, 2 layers) "
+           "one-rank training step and decode tick traced on meta and run "
+           "on the card; the 16x16 and 2x16x16 cells on the host; the "
+           "analytic probe")
+    t_phase = time.perf_counter()
+    print(f"FakeProcessGroup available: {fake.available()}", flush=True)
+    started = _start_host_cells(tmp)
+    try:
+        return _dryrun_phase(tmp, started, t_phase)
+    finally:        # a failure leaves no trace process behind
+        for _, proc in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def _dryrun_phase(tmp: str, started: dict, t_phase: float) -> dict:
+    """The one-rank cells traced on meta, then run on the card over a
+    one-rank NCCL group and held to the trace; then the host cells
+    (``started``) joined and the analytic route run on their records."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import MeshConfig
+    from repro_torch.configs.base import H100_SXM
+    from repro_torch.launch.dryrun import trace_program
+    from repro_torch.parallel import fake
+    from repro_torch.parallel.sharding import make_mesh_from_config
+    from repro_torch.roofline.terms import analyze_trace
+    from repro_torch.roofline.trace import OpTrace
+
+    one = MeshConfig((1, 1), ("data", "model"))
+    traced, seconds = {}, {}
+    t0 = time.perf_counter()
+    with fake.fake_world(1):
+        mesh = make_mesh_from_config(one, "cpu")
+        for kind in ("train", "decode"):
+            prog, shape, cfg = _dryrun_cell(kind, mesh, "meta")
+            trace, mem, _ = trace_program(prog)
+            rep = analyze_trace(trace.ops, arch=DRYRUN_ARCH, shape=shape,
+                                mesh_name="1x1", n_chips=1, hw=H100_SXM,
+                                cfg=cfg, memory_stats=mem)
+            traced[kind] = {"sigs": trace.signatures(), "memory": mem,
+                            "report": rep}
+            print(f"traced {kind}: {len(trace.ops)} ops; "
+                  f"{rep.summary()}; args {mem['argument_size_in_bytes']} "
+                  f"temp {mem['temp_size_in_bytes']}", flush=True)
+            del prog, trace
+    seconds["trace"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+        rank=0, world_size=1, timeout=datetime.timedelta(
+            seconds=MESH_GROUP_TIMEOUT_S))
+    results, failures = {}, []
+    try:
+        mesh = make_mesh_from_config(one, "cuda")
+        for kind in ("train", "decode"):
+            want = traced[kind]
+            mem = want["memory"]
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            prog, shape, cfg = _dryrun_cell(kind, mesh, "cuda")
+            torch.cuda.synchronize()
+            arg_card = _card_tensor_bytes(prog.args)
+            arg_alloc = torch.cuda.memory_allocated() - base
+            with OpTrace() as card_trace:
+                out = prog.fn(*prog.args)
+                torch.cuda.synchronize()
+            del out
+            sigs = card_trace.signatures()
+            same_ops = sigs == want["sigs"]
+            if not same_ops:
+                first = next((i for i, (a, b) in enumerate(
+                    zip(sigs, want["sigs"])) if a != b),
+                    min(len(sigs), len(want["sigs"])))
+                failures.append(
+                    f"{kind}: the card ran {len(sigs)} ops, the trace "
+                    f"{len(want['sigs'])}; first difference at {first}: "
+                    f"{sigs[first] if first < len(sigs) else None} against "
+                    f"{want['sigs'][first] if first < len(want['sigs']) else None}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = prog.fn(*prog.args)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            del out
+            ms = time_ms(lambda: prog.fn(*prog.args), reps=DRYRUN_REPS,
+                         warmup=2)
+            rep = want["report"]
+            bound_ms = rep.bound_time * 1e3
+            predicted = mem["argument_size_in_bytes"] + \
+                mem["temp_size_in_bytes"]
+            results[kind] = {
+                "ops": len(sigs), "same_ops": same_ops,
+                "argument_bytes_trace": mem["argument_size_in_bytes"],
+                "argument_bytes_card": arg_card,
+                "argument_allocated_card": arg_alloc,
+                "temp_bytes_trace": mem["temp_size_in_bytes"],
+                "peak_bytes_card": peak,
+                "peak_over_argument_plus_temp": peak / predicted,
+                "ms": ms, "bound_ms": bound_ms,
+                "t_compute_ms": rep.t_compute * 1e3,
+                "t_memory_ms": rep.t_memory * 1e3,
+                "t_ici_ms": rep.t_ici * 1e3, "dominant": rep.dominant,
+                "ms_over_bound": ms / bound_ms}
+            print(f"{kind} on the card: {json.dumps(results[kind])}; "
+                  f"{card_line()}", flush=True)
+            if arg_card != mem["argument_size_in_bytes"]:
+                failures.append(f"{kind}: argument bytes {arg_card} on the "
+                                f"card, {mem['argument_size_in_bytes']} "
+                                "traced")
+            if ms < bound_ms:
+                failures.append(f"{kind}: {ms} ms on the card beats the "
+                                f"dry-run's bound {bound_ms} ms")
+            if abs(peak - predicted) > DRYRUN_MEM_SHARE * predicted:
+                failures.append(f"{kind}: peak {peak} bytes on the card, "
+                                f"argument + temp {predicted} traced")
+            del prog
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    seconds["card"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    host = _host_cells(tmp, started)
+    seconds["host_wait"] = round(time.perf_counter() - t0, 1)
+    for name, cell in host.items():
+        print(f"dry-run {name}: {cell['roofline']}; memory "
+              f"{json.dumps(cell['memory'])}; {cell['n_ops']} ops traced in "
+              f"{cell['trace_s']:.1f} s, {cell['wall_s']} s with the "
+              "process (host)", flush=True)
+    t0 = time.perf_counter()
+    for line in _analytic_route(tmp):
+        print(f"analytic probe (replay): {line}", flush=True)
+    seconds["analytic"] = round(time.perf_counter() - t0, 1)
+    seconds["phase"] = round(time.perf_counter() - t_phase, 1)
+    print(f"phase 13 seconds: {json.dumps(seconds)}; {card_line()}",
+          flush=True)
+    if failures:
+        raise RuntimeError("phase 13: " + "; ".join(failures))
+    return {"cells": results, "host": host, "seconds": seconds}
+
+
+PHASES = (1, 2, 3, 4, 6, 7, 8, 9, 10, 11, 12, 13)   # 4 runs 4 and 5
 
 
 def parse_phases(text: Optional[str]) -> list:
@@ -4397,6 +4734,10 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
             phase_mesh(tmp)
         lap("12")
+    if 13 in phases:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+            phase_dryrun(tmp)
+        lap("13")
     print(f"\nwall time per phase (s): {json.dumps(elapsed)}")
     for row in rows:        # the serving paths are main paths too
         row["launches"] += sum(n[row["name"]] for n in serve_launches)

@@ -124,6 +124,16 @@ class ModelConfig:
             n += self._attn_params() + self._mlp_params()  # one shared block
         return n
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k of n_experts)."""
+        if self.family != "moe" or self.n_experts == 0:
+            return self.param_count()
+        d = self.d_model
+        n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        moe_active = 3 * d * self.moe_d_ff * self.top_k
+        n += self.n_layers * (self._attn_params() + moe_active)
+        return n
+
     def _attn_params(self) -> int:
         d = self.d_model
         return d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d

@@ -38,14 +38,24 @@ prefill and the decode tick — under one campaign:
 
 Region names are the reference's, letter for letter, so stores carry over.
 
+Analytic mode (full config, the H100 SXM's data-sheet peaks, reads the
+port's dry-run record of the cell, ``launch/dryrun.py``) runs through the
+same campaign machinery: predictions persist as ``pred`` records (curve +
+fit + HardwareConfig/terms/settings) and replay on re-run; nothing runs on
+any device:
+
+    PYTHONPATH=src python -m repro_torch.launch.probe --arch gemma-2b \
+        --shape train_4k --analytic \
+        [--dryrun-dir experiments/dryrun_torch/16x16] [--store PATH] [--fresh]
+
 ``--device cpu`` (the plan's ``backend``) runs the plain PyTorch versions
 (tests, a card-less box); the default ``cuda`` refuses to run without a
-card. The reference's analytic probe (it reads dry-run artifacts, ROADMAP
-queue 1 item 2, the dry-run surfaces) is not ported.
+card.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 from typing import Optional, Sequence
 
@@ -249,6 +259,70 @@ def plan_probe(plan_path: str, *, shard: Optional[tuple[int, int]],
         raise SystemExit(str(e))
 
 
+def analytic_probe(arch: str, shape_name: str, dryrun_dir: str,
+                   modes: list[str], *, tol: float,
+                   store: Optional[str] = None, fresh: bool = False,
+                   expect_no_measure: bool = False, hw=None):
+    """Analytic probe of one (arch, shape) dry-run cell: push its roofline
+    terms through the saturation model as a resumable prediction campaign
+    (``pred`` records replay byte-identically on re-run). ``hw``: the
+    hardware the predictions are for (default ``H100_SXM``). Returns the
+    RegionReport and the CampaignStats."""
+    from repro_torch.configs import canonical
+    from repro_torch.configs.base import H100_SXM
+    from repro_torch.core.analytic import StepTerms, pattern_deltas
+    from repro_torch.core.campaign import AnalyticCampaign
+    from repro_torch.core.classifier import classify
+    from repro_torch.core.noise import make_modes
+    from repro_torch.fleet.executor import finish_stats
+
+    hw = H100_SXM if hw is None else hw
+    cell = os.path.join(dryrun_dir, f"{canonical(arch)}_{shape_name}.json")
+    with open(cell) as f:
+        rec = json.load(f)
+    if rec.get("status") != "ok":
+        raise SystemExit(f"dry-run cell {cell} status={rec.get('status')}")
+    r = rec["roofline"]
+    terms = StepTerms(compute=r["t_compute"], memory=r["t_memory"],
+                      ici=r["t_ici"])
+    registry = make_modes(device="cpu")
+    unknown = [m for m in modes if m not in registry]
+    if unknown:
+        raise SystemExit(f"unknown mode(s) {unknown}; available: "
+                         f"{', '.join(sorted(registry))}")
+    region_name = f"{canonical(arch)}_{shape_name}"
+    store = store or os.path.join(CAMPAIGN_DIR, f"{region_name}_pred.jsonl")
+    if fresh and os.path.exists(store):
+        os.unlink(store)
+    camp = AnalyticCampaign(store, hw=hw, tol=tol, k_max=1 << 44)
+    print(f"== analytic probe: {arch} {shape_name} [{rec['mesh']}] "
+          f"(terms from dry-run: Tc={terms.compute*1e3:.2f}ms "
+          f"Tm={terms.memory*1e3:.2f}ms Ti={terms.ici*1e3:.2f}ms, "
+          f"dominant={r['dominant']}; campaign store: {store})")
+    t0 = terms.bound()
+
+    def absorbed(m, res) -> float:
+        # absorbed-work fraction: what share of the step time each mode's
+        # noise occupies before detection — the step-scale-free absorption
+        # (bound resource ~= tol; slack resources >> tol)
+        delta = max(pattern_deltas(registry[m], hw).values())
+        return 100.0 * res.fit.k1 * delta / t0
+
+    def classify_fracs(results):
+        return classify({m: absorbed(m, res) for m, res in results.items()},
+                        low=2.0 * 100 * tol, high=6.0 * 100 * tol)
+
+    rep = camp.characterize(region_name, terms,
+                            {m: registry[m] for m in modes},
+                            classify_fn=classify_fracs)
+    for m, res in rep.results.items():
+        print(f"  {m:14s} Abs^raw={res.fit.k1:14.0f} patterns "
+              f"(~{absorbed(m, res):6.1f}% of step absorbable)")
+    print(f"  => {rep.bottleneck}")
+    finish_stats(camp.stats, expect_no_measure)
+    return rep, camp.stats
+
+
 def _parse_shard(text: str) -> tuple[int, int]:
     try:
         idx, cnt = (int(p) for p in text.split("/"))
@@ -276,6 +350,15 @@ def build_parser() -> argparse.ArgumentParser:
                          "explicitness)")
     ap.add_argument("--kind", default="train", choices=("train", "decode"),
                     help="which model step to probe")
+    ap.add_argument("--shape", default="train_4k",
+                    help="dry-run shape cell to read under --analytic")
+    ap.add_argument("--analytic", action="store_true",
+                    help="predict absorption from the dry-run roofline "
+                         "terms instead of measuring")
+    ap.add_argument("--dryrun-dir", default="experiments/dryrun_torch/16x16",
+                    help="where the dry-run records live (--analytic)")
+    ap.add_argument("--tol", type=float, default=0.05,
+                    help="absorption-fit detection tolerance (--analytic)")
     ap.add_argument("--serve", action="store_true",
                     help="probe the paged serving engine instead of a bare "
                          "model step: two regions (batched prefill + decode "
@@ -352,6 +435,7 @@ def main(argv: Optional[Sequence[str]] = None):
         # user believe they changed the measurement settings
         overridden = [flag for flag, given in (
             ("--arch", args.arch), ("--serve", args.serve),
+            ("--analytic", args.analytic),
             ("--kind", args.kind != "train"), ("--seq", args.seq != 128),
             ("--batch", args.batch != 4), ("--max-new", args.max_new != 8),
             ("--pallas", args.pallas), ("--pallas-n", args.pallas_n),
@@ -372,16 +456,27 @@ def main(argv: Optional[Sequence[str]] = None):
                   expect_no_measure=args.expect_no_measure,
                   device=args.device, quality=args.quality, audit=args.audit)
     if args.pallas is not None:
-        if args.serve:
-            raise SystemExit("--pallas excludes --serve")
+        if args.analytic or args.serve:
+            raise SystemExit("--pallas excludes --serve and --analytic")
         return pallas_probe(args.pallas, modes, n=args.pallas_n, **common)
     if args.arch is None:
         raise SystemExit("--arch is required unless --pallas or --plan "
                          "is given")
     if args.serve:
+        if args.analytic:
+            raise SystemExit("--serve and --analytic are mutually exclusive")
         return serve_probe(args.arch, modes or list(DEFAULT_GRAPH_MODES),
                            slots=args.batch, prompt=args.seq,
                            max_new=args.max_new, **common)
+    if args.analytic:
+        if shard is not None:
+            raise SystemExit("--shard applies to measured mode only "
+                             "(predictions are too cheap to fan out)")
+        return analytic_probe(args.arch, args.shape, args.dryrun_dir,
+                              modes or list(DEFAULT_GRAPH_MODES),
+                              tol=args.tol, store=args.store,
+                              fresh=args.fresh,
+                              expect_no_measure=args.expect_no_measure)
     return measured_probe(args.arch, args.kind,
                           modes or list(DEFAULT_GRAPH_MODES), seq=args.seq,
                           batch=args.batch, **common)

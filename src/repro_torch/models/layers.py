@@ -44,9 +44,18 @@ def param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the meta device, where none
+    can be made: ``_normal`` draws nothing from it and makes an empty meta
+    tensor of the shape and dtype it would draw."""
+    device = torch.device("meta")
+
+
 def _normal(gen: torch.Generator, shape, scale, dtype) -> torch.Tensor:
     """N(0, 1)·scale drawn in f32 on the generator's device, cast to
-    ``dtype``."""
+    ``dtype`` (shape and dtype only on the meta device)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
     return (x * scale).to(dtype)

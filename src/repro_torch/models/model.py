@@ -125,9 +125,15 @@ class ModelApi:
 
 def _seeded(init_fn: Callable, cfg: ModelConfig) -> Callable:
     """``init(seed, device)``: ``init_fn(generator, cfg)`` with a generator
-    on ``device`` seeded ``seed``."""
+    on ``device`` seeded ``seed``. On the meta device (the dry-run), where
+    no generator can be made, the same module tree is built of
+    uninitialized meta tensors: every name, shape and dtype as on the
+    card (``layers.MetaGenerator``)."""
     def init(seed: int = 0, device="cuda"):
-        gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
+        device = torch.device(device)
+        if device.type == "meta":
+            return init_fn(L.MetaGenerator(), cfg)
+        gen = torch.Generator(device=device).manual_seed(seed)
         return init_fn(gen, cfg)
     return init
 

@@ -119,7 +119,10 @@ def _group_combine(out_buf, eg, slots, gates, capacity: int):
 
 
 def moe_block(p: MoE, cfg, x, n_groups: int = 1):
-    """x (B,S,D) -> (y (B,S,D), {"moe_lb_loss", "moe_z_loss"})."""
+    """x (B,S,D) -> (y (B,S,D), {"moe_lb_loss", "moe_z_loss"}). Under
+    ``parallel.sharding.global_routing`` (a per-rank decode) x is this
+    rank's rows, and the global batch's rows are routed."""
+    x = sh.routed(x)
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
@@ -151,7 +154,8 @@ def moe_block(p: MoE, cfg, x, n_groups: int = 1):
     buf, slots = _group_dispatch(xf.reshape(G, Tg, D), eg, E, C)
     out = _experts(p, cfg, buf)
     y = _group_combine(out, eg, slots, gates.reshape(G, Tg, k), C)
-    return y.reshape(B, S, D), {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss}
+    return sh.own_rows(y.reshape(B, S, D)), {"moe_lb_loss": lb_loss,
+                                             "moe_z_loss": z_loss}
 
 
 def _experts(p: MoE, cfg, buf):

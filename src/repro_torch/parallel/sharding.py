@@ -275,12 +275,24 @@ def placements(spec: Sequence, mesh) -> list:
 _GROUPS: dict = {}
 
 
+_COORDS: dict = {}
+
+
 def _coords(mesh) -> dict:
-    """{global rank: {axis: coordinate}} of every rank of ``mesh``."""
-    names = axis_names(mesh)
-    grid = mesh.mesh
-    return {int(grid[idx]): dict(zip(names, idx))
-            for idx in itertools.product(*(range(s) for s in grid.shape))}
+    """{global rank: {axis: coordinate}} of every rank of ``mesh`` (made
+    once a mesh, from the rank grid read as a list: no tensor op)."""
+    key = id(mesh)
+    if key not in _COORDS or _COORDS[key][0] is not mesh:
+        names = axis_names(mesh)
+        grid = mesh.mesh.tolist()
+        out = {}
+        for idx in itertools.product(*(range(s) for s in mesh.mesh.shape)):
+            g = grid
+            for i in idx:
+                g = g[i]
+            out[int(g)] = dict(zip(names, idx))
+        _COORDS[key] = (mesh, out)
+    return _COORDS[key][1]
 
 
 def axis_group(mesh, axes: Sequence[str]):
@@ -425,3 +437,37 @@ def batch_sum(x: torch.Tensor) -> torch.Tensor:
     if active is None:
         return x
     return _AllReduceSum.apply(x, active[0])
+
+
+# -- a MoE routing the global batch inside a per-rank decode ---------------
+
+_ROUTE: contextvars.ContextVar = contextvars.ContextVar("global_routing",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def global_routing(spec: Sequence, mesh):
+    """Inside the block a MoE routes the global batch as one dispatch
+    group, as the reference's decode step does: its input's rows (dim 0,
+    laid out by ``spec``'s first entry) are all-gathered over the batch
+    axes, and each rank keeps its own rows of the output
+    (``routed``/``own_rows``)."""
+    token = _ROUTE.set((P(*(tuple(spec) + (None,))[:1]), mesh))
+    try:
+        yield
+    finally:
+        _ROUTE.reset(token)
+
+
+def routed(x: torch.Tensor) -> torch.Tensor:
+    """The global batch's rows of ``x`` under ``global_routing``; ``x``
+    itself without it."""
+    active = _ROUTE.get()
+    return x if active is None else gather_shard(x, *active)
+
+
+def own_rows(y: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of a global-batch ``y`` under ``global_routing``;
+    ``y`` itself without it."""
+    active = _ROUTE.get()
+    return y if active is None else local_shard(y, *active)

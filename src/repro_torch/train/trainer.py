@@ -271,6 +271,18 @@ def shard_state(api, state: TrainState, mesh) -> TrainState:
                       layout=layout)
 
 
+def shard_params(api, params: torch.nn.Module, mesh) -> tuple:
+    """Replace each of ``params``' tensors by this rank's shard of it on
+    ``mesh`` (``api.param_spec()``'s rules); returns ({name: P}, {name:
+    logical shape})."""
+    _check_mesh(mesh)
+    shapes = {n: tuple(p.shape) for n, p in params.named_parameters()}
+    specs = _param_specs(api, mesh, shapes)
+    for n, p in list(params.named_parameters()):
+        _set_param(params, n, _own(p, sh.local_shard(p, specs[n], mesh)))
+    return specs, shapes
+
+
 def gather_params(params: torch.nn.Module, layout: sh.Layout):
     """A module of the full parameters from this rank's shards (ZeRO-3's
     gather at use): a parameter that no mesh axis splits is shared, not
@@ -280,6 +292,27 @@ def gather_params(params: torch.nn.Module, layout: sh.Layout):
         full = layout.gather(f"params/{n}", p)
         memo[id(p)] = p if full is p else param(full)
     return copy.deepcopy(params, memo)
+
+
+def moe_groups(api, mesh, batch: dict, bspecs: dict) -> dict:
+    """The forward's ``n_groups`` for this rank's shard of ``batch``
+    (``bspecs``, its specs): the reference's dispatch groups are the dp
+    batch shards (``n_groups`` = dp), and a rank whose shard holds
+    dp / split of them routes those. {} for a model without experts."""
+    if not api.cfg.n_experts:
+        return {}
+    sizes = sh.mesh_axis_sizes(mesh)
+    dp = math.prod(sizes[a] for a in BATCH_AXES if a in sizes)
+    split = math.prod(sizes[a] for a in sh.entry_axes(
+        (bspecs["tokens"] + (None,))[0]))
+    rows = batch["tokens"].shape[0]
+    seq = batch["tokens"].shape[1] + (
+        batch["img_embeds"].shape[1] if "img_embeds" in batch else 0)
+    if split > 1 and (dp % split or rows * seq % dp):
+        raise ValueError(f"a MoE microbatch of {rows} x {seq} tokens split "
+                         f"{split} ways does not hold the reference's {dp} "
+                         f"dispatch groups")
+    return {"n_groups": dp // split}
 
 
 def _make_mesh_step(api, tcfg: TrainConfig, mesh, compress, fwd_kw):
@@ -295,21 +328,7 @@ def _make_mesh_step(api, tcfg: TrainConfig, mesh, compress, fwd_kw):
     def shard_batch(batch: dict) -> tuple:
         mbs = [batch] if M <= 1 else _split_microbatches(batch, M)
         bspecs = batch_shardings(mesh, mbs[0])
-        kw = dict(fwd_kw)
-        if api.cfg.n_experts:
-            # the reference's dispatch groups are the dp batch shards; a
-            # rank whose shard holds dp / split of them routes those
-            split = math.prod(sizes[a] for a in sh.entry_axes(
-                (bspecs["tokens"] + (None,))[0]))
-            rows = mbs[0]["tokens"].shape[0]
-            seq = mbs[0]["tokens"].shape[1] + (
-                mbs[0]["img_embeds"].shape[1] if "img_embeds" in mbs[0]
-                else 0)
-            if split > 1 and (dp % split or rows * seq % dp):
-                raise ValueError(f"a MoE microbatch of {rows} x {seq} "
-                                 f"tokens split {split} ways does not hold "
-                                 f"the reference's {dp} dispatch groups")
-            kw["n_groups"] = dp // split
+        kw = dict(fwd_kw, **moe_groups(api, mesh, mbs[0], bspecs))
         return [{k: sh.local_shard(v, bspecs[k], mesh) for k, v in mb.items()}
                 for mb in mbs], kw
 
@@ -379,12 +398,7 @@ class Trainer:
             res = gc.init_residuals(params) if self.compress else None
             return TrainState(params=params, opt=adamw_init(params),
                               residuals=res)
-        _check_mesh(self.mesh)
-        shapes = {n: tuple(p.shape) for n, p in params.named_parameters()}
-        specs = _param_specs(self.api, self.mesh, shapes)
-        for n, p in list(params.named_parameters()):
-            _set_param(params, n, _own(p, sh.local_shard(p, specs[n],
-                                                         self.mesh)))
+        specs, shapes = shard_params(self.api, params, self.mesh)
         state = TrainState(params=params, opt=adamw_init(params),
                            residuals=(gc.init_residuals(params)
                                       if self.compress else None))

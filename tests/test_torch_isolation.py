@@ -219,3 +219,57 @@ def test_the_parallel_layer_imports_with_jax_and_reference_blocked():
               "p.P('data', 'model')\n")
     subprocess.run([sys.executable, "-c", code], env=_env(), check=True,
                    timeout=120)
+
+
+DRYRUN_MODULES = ("parallel/fake.py", "roofline/__init__.py",
+                  "roofline/trace.py", "roofline/terms.py",
+                  "roofline/report.py", "launch/steps.py",
+                  "launch/dryrun.py", "serve/mesh.py")
+
+
+@pytest.mark.parametrize("module", DRYRUN_MODULES)
+def test_scan_covers_the_dryrun_modules(module):
+    path = os.path.join(ROOT, "src", "repro_torch", module)
+    assert path in PORT_FILES
+    assert not set(_imported_roots(path)) & FORBIDDEN
+
+
+def _imported_names(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+            yield from (f"{node.module}.{alias.name}" for alias in node.names)
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES + [os.path.join(ROOT, "chip_smoke.py")],
+    ids=[os.path.relpath(p, ROOT) for p in PORT_FILES] + ["chip_smoke.py"])
+def test_no_import_of_torch_testing_internals(path):
+    bad = [n for n in _imported_names(path)
+           if n.startswith("torch.testing._internal")]
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_the_dryrun_imports_and_runs_with_jax_and_reference_blocked(tmp_path):
+    # torch itself imports parts of torch.testing._internal; the port's
+    # fake group must not bring in the testing fake_pg module
+    code = (BLOCKED_IMPORT
+            + "import repro_torch.launch.dryrun as d\n"
+            + "import repro_torch.roofline.report, repro_torch.launch.steps\n"
+            + f"r = d.run_cell('gemma_2b', 'long_500k', multi_pod=False, "
+              f"out_dir={str(tmp_path)!r}, verbose=False)\n"
+            + "assert r['status'] == 'skip', r\n"
+            + "from repro_torch.parallel.fake import fake_world\n"
+            + "with fake_world(256):\n"
+            + "    import torch.distributed as dist\n"
+            + "    assert dist.get_world_size() == 256\n"
+            + "assert 'torch.testing._internal.distributed.fake_pg' not in "
+              "__import__('sys').modules\n"
+            + "bad = sorted(m for m in __import__('sys').modules if "
+              "m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            + "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], env=_env(), check=True,
+                   timeout=120)

@@ -16,6 +16,7 @@ import multiprocessing as mp
 import os
 import traceback
 
+import numpy as np
 import torch
 
 JOIN_TIMEOUT_S = 120
@@ -296,3 +297,58 @@ def layouts(rank: int, world: int, args) -> dict:
             "pod_data_group": dist.get_process_group_ranks(group),
             "want_pod_data_group": list(range(world)),
             "coordinate": tuple(mesh.get_coordinate())}
+
+
+def serve_steps(rank: int, world: int, args: dict) -> dict:
+    """The per-rank prefill and decode (``serve/mesh.py``) of each arch on
+    each (data, model) mesh of this world (a MoE at ``args["capacity"]``),
+    from the reference's params,
+    prompt, cache, tokens and position: this rank's logits rows, its
+    shards of the updated cache, and where they lie in the global arrays
+    (each local element's flat index)."""
+    from repro_torch.convert import params_to_torch
+    from repro_torch.models.model import build
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.serve import mesh as sm
+    from repro_torch.train.trainer import batch_shardings, shard_params
+
+    out = {}
+    for arch, x in args["archs"].items():
+        cfg = f32_smoke(arch)
+        if cfg.n_experts:
+            cfg = dataclasses.replace(cfg, capacity_factor=args["capacity"])
+        api = build(cfg)
+        for shape in args["meshes"]:
+            mesh = _mesh(shape, ("data", "model"))
+            params = params_to_torch(cfg, x["params"])
+            specs, shapes = shard_params(api, params, mesh)
+            layout = sm.param_layout(specs, shapes, mesh)
+            prompt = {"tokens": torch.from_numpy(x["prompt"].copy())}
+            with torch.no_grad():
+                pre = sm.make_mesh_prefill(api, mesh, layout)(params, prompt)
+            cache = _torch_tree(x["cache"])
+            cache, clayout = sm.shard_cache(api, cache, mesh)
+            tokens = torch.from_numpy(x["tokens"].copy())
+            pos = torch.tensor(x["pos"], dtype=torch.int32)
+            with torch.no_grad():
+                dl, new = sm.make_mesh_decode(api, mesh, layout, clayout)(
+                    params, cache, tokens, pos)
+            B = tokens.shape[0]
+            rows = sh.local_shard(torch.arange(B), batch_shardings(
+                mesh, prompt)["tokens"], mesh)
+            where = {}
+            for n, shp in clayout.shapes.items():
+                flat = torch.arange(int(np.prod(shp))).reshape(shp)
+                where[n] = clayout.local(n, flat).numpy().copy()
+            out[(arch, tuple(shape))] = {
+                "prefill": pre.numpy().copy(), "decode": dl.numpy().copy(),
+                "rows": rows.numpy().copy(), "where": where,
+                "cache": {n: t.numpy().copy()
+                          for n, t in sm._leaves(new).items()}}
+    return out
+
+
+def _torch_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _torch_tree(v) for k, v in tree.items()}
+    return torch.from_numpy(np.asarray(tree).copy())

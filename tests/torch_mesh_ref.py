@@ -3,7 +3,7 @@ process of its own with four forced host devices (the device count is
 fixed at JAX's first use):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \\
-        PYTHONPATH=src python tests/torch_mesh_ref.py IN.pkl OUT.pkl train|ici
+        PYTHONPATH=src python tests/torch_mesh_ref.py IN.pkl OUT.pkl train|ici|serve
 
 IN.pkl holds the inputs, made by the test (``train_inputs``,
 ``ici_inputs``), so both packages start from the same arrays.
@@ -19,6 +19,13 @@ every device, over ("data",) on 2 and 4 devices and ("pod", "data") on a
 
 ``ici``: the three ICI modes, static and run-time k, over the "model" axis
 of a (2,) and a (4,) mesh, and on a ("data",) mesh that lacks the axis.
+
+``serve``: for gemma-2b, qwen3-moe-30b-a3b (capacity factor 0.5) and
+mamba2-780m at their f32 smoke configs, the reference's own ``launch.steps.prefill_cell`` and
+``decode_cell`` programs, jitted with their shardings on a real (2, 1),
+(1, 2) and (2, 2) (data, model) CPU mesh, from the given params, prompt
+tokens, cache, decode tokens and position: the prefill's last-position
+logits, the decode step's logits and its updated cache.
 
 The results are pickled as numpy trees.
 """
@@ -48,6 +55,20 @@ TCFG = dict(lr=1e-3, warmup_steps=1)
 SHAPE = ShapeConfig("mesh_test", "train", 16, 8)
 ICI_SCALE = noise.NoiseScale(ici_kib=1)
 ICI_K = 3
+SERVE_ARCHS = ("gemma-2b", "qwen3-moe-30b-a3b", "mamba2-780m")
+SERVE_MESHES = ((2, 1), (1, 2), (2, 2))
+# 64 sequences, and a MoE capacity factor of 0.5, so that the decode's
+# dispatch drops (token, choice) pairs: the global batch's one group and a
+# rank's own rows then drop different pairs
+SERVE_B, SERVE_S, SERVE_POS = 64, 32, 9
+SERVE_CAPACITY = 0.5
+
+
+def serve_config(arch: str):
+    cfg = f32_smoke(arch)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=SERVE_CAPACITY)
+    return cfg
 CPSUM_CASES = (((2,), ("data",)), ((4,), ("data",)),
                ((2, 2), ("pod", "data")))
 
@@ -151,12 +172,69 @@ def ici_cases(inputs: dict) -> dict:
     return out
 
 
+def serve_inputs() -> dict:
+    """{arch: {"params", "prompt" (B, S), "cache" (decode_init's tree, of
+    random values), "tokens" (B, 1), "pos"}}, from PRNGKey(0) and a numpy
+    seed."""
+    out = {}
+    rng = np.random.RandomState(11)
+    for arch in SERVE_ARCHS:
+        cfg = serve_config(arch)
+        api = build(cfg)
+        params = api.init(jax.random.PRNGKey(0))
+        cache = api.decode_init(params, {"tokens": jnp.zeros(
+            (SERVE_B, 1), jnp.int32), "max_seq": SERVE_S})
+        cache = jax.tree.map(
+            lambda x: (rng.randn(*x.shape) * 0.5).astype(np.float32)
+            if jnp.issubdtype(x.dtype, jnp.floating) else np.asarray(x),
+            cache)
+        out[arch] = {
+            "params": _np(params),
+            "prompt": rng.randint(0, cfg.vocab_size,
+                                  (SERVE_B, SERVE_S)).astype(np.int32),
+            "cache": cache,
+            "tokens": rng.randint(0, cfg.vocab_size,
+                                  (SERVE_B, 1)).astype(np.int32),
+            "pos": SERVE_POS}
+    return out
+
+
+def serve_cases(inputs: dict) -> dict:
+    from repro.launch.steps import decode_cell, prefill_cell
+
+    out = {}
+    for arch in SERVE_ARCHS:
+        api = build(serve_config(arch))
+        x = inputs[arch]
+        params = jax.tree.map(jnp.asarray, x["params"])
+        for shape in SERVE_MESHES:
+            mesh = _mesh(shape, ("data", "model"))
+            with compat.set_mesh(mesh):
+                pc = prefill_cell(api, ShapeConfig(
+                    "p", "prefill", SERVE_S, SERVE_B), mesh)
+                logits = jax.jit(pc.fn, in_shardings=pc.in_shardings)(
+                    params, {"tokens": jnp.asarray(x["prompt"])})
+                dc = decode_cell(api, ShapeConfig(
+                    "d", "decode", SERVE_S, SERVE_B), mesh)
+                dl, cache = jax.jit(
+                    dc.fn, in_shardings=dc.in_shardings,
+                    out_shardings=dc.out_shardings)(
+                        params, jax.tree.map(jnp.asarray, x["cache"]),
+                        jnp.asarray(x["tokens"]), jnp.int32(x["pos"]))
+            out[(arch, shape)] = {"prefill": np.asarray(logits),
+                                  "decode": np.asarray(dl),
+                                  "cache": _np(cache)}
+    return out
+
+
 def main() -> None:
     src, path, what = sys.argv[1:4]
     with open(src, "rb") as f:
         inputs = pickle.load(f)
     if what == "train":
         res = {"train": train_cases(inputs), "cpsum": cpsum_cases(inputs)}
+    elif what == "serve":
+        res = {"serve": serve_cases(inputs)}
     else:
         res = {"ici": ici_cases(inputs)}
     with open(path, "wb") as f:
