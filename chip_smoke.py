@@ -69,9 +69,17 @@ JAX or of the reference package. Phases, each of which fails the run:
       (every pair audited
       first), then ``run --resume --expect-no-measure`` (must audit and
       measure nothing), ``fleet audit --expect-clean`` (every pair
-      intact), then ``status``;
+      intact), then ``status``; then ``fleet doctor --explain`` in this
+      process (exit 0, a decision path for each of the four regions, its
+      label the report's);
    b. an attention family at seq 256 and 512 (the region's default widths)
-      on two subprocess shards, merged, then replayed;
+      on two subprocess shards writing segmented stores
+      (``store_format="segments"``), merged incrementally (one new segment
+      adopted per worker store, none skipped); in this process: ``fleet
+      watch --once`` and ``fleet doctor`` (exit 0), ``campaign compact``
+      (one sealed segment left); then the compacted store replayed
+      (0 measured, no new audit record) and ``status`` (1 sealed segment,
+      0 unsealed). The added in-process calls' seconds are printed;
    c. ``repro_torch.launch.probe --pallas attention --pallas-n 1024``;
    d. the first slice's paths through the same spine: spmxv n=2^21 L=16
       q=0 and q=1, matmul n=4096, probe 1056 steps;
@@ -265,9 +273,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1650,24 +1660,109 @@ def _bench(tmp: str, study: str, kernels, *extra) -> dict:
 
 
 def _audit_records(store: str) -> int:
-    """How many audit records a store file holds."""
-    with open(store) as f:
-        return sum(1 for line in f if '"kind": "audit"' in line)
+    """How many audit records a store holds (in either layout; every record
+    written, superseded ones included)."""
+    from repro_torch.core.segments import (SegmentStore, is_segmented,
+                                           read_store_records)
+
+    recs = (SegmentStore(store, readonly=True).load() if is_segmented(store)
+            else read_store_records(store)[0])
+    return sum(1 for rec in recs if rec.get("kind") == "audit")
+
+
+def _in_process(seconds: dict, label: str, fn, argv: list) -> tuple:
+    """Run a CLI ``main(argv)`` in this process as a user would run it
+    (``repro_torch.fleet.cli.main`` or ``repro_torch.core.campaign._cli``),
+    its output captured and echoed; adds its seconds to ``seconds[label]``.
+    Returns (exit code, output)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        code = fn(argv)
+    seconds[label] = seconds.get(label, 0.0) + time.perf_counter() - t0
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    return code, out
+
+
+def _segmented_checks(plan, path: str, seconds: dict) -> None:
+    """A segmented fleet after its first run, in this process: the merge
+    adopted one new segment per worker store and skipped none, ``fleet
+    watch --once`` and ``fleet doctor`` exit 0 with every pair complete,
+    and ``campaign compact`` leaves one sealed segment."""
+    from repro_torch.core.campaign import _cli as campaign_cli
+    from repro_torch.core.segments import manifest_status
+    from repro_torch.fleet.cli import main as fleet_cli
+
+    with open(plan.fleet_path()) as f:
+        merge = json.load(f)["merge"]
+    workers = [manifest_status(ws)["segments"] for ws in plan.worker_stores()]
+    print(f"  merge: {merge.get('segments_new')} new segment(s), "
+          f"{merge.get('segments_skipped')} skipped; worker stores' sealed "
+          f"segments {workers}", flush=True)
+    if workers != [1] * plan.shards or merge.get("segments_new") != \
+            plan.shards or merge.get("segments_skipped") != 0:
+        raise RuntimeError(f"{plan.name}: the merge did not adopt one new "
+                           f"segment per worker store ({merge})")
+    grid = len(plan.grid())
+    code, out = _in_process(seconds, "watch", fleet_cli,
+                            ["watch", "--plan", path, "--once"])
+    if code or f"grid: {grid}/{grid} pair(s) done" not in out:
+        raise RuntimeError(f"{plan.name}: fleet watch --once: exit {code}")
+    code, _ = _in_process(seconds, "doctor", fleet_cli,
+                          ["doctor", "--plan", path])
+    if code:
+        raise RuntimeError(f"{plan.name}: fleet doctor: exit {code}")
+    code, _ = _in_process(seconds, "compact", campaign_cli,
+                          ["compact", plan.store])
+    ms = manifest_status(plan.store)
+    if code or ms["segments"] != 1 or ms["orphans"]:
+        raise RuntimeError(f"{plan.name}: compaction left {ms['segments']} "
+                           f"sealed and {ms['orphans']} unsealed segment(s) "
+                           f"(exit {code})")
+
+
+def _explain_check(plan_path: str, report: dict, seconds: dict) -> None:
+    """``fleet doctor --plan P --explain`` in this process: exit 0, and a
+    decision path for every region whose label is the report's."""
+    from repro_torch.fleet.cli import main as fleet_cli
+
+    code, out = _in_process(seconds, "doctor_explain", fleet_cli,
+                            ["doctor", "--plan", plan_path, "--explain"])
+    if code:
+        raise RuntimeError(f"fleet doctor --explain: exit {code}")
+    section = out.split("== explain: decision path per region", 1)[-1]
+    for region, rep in sorted(report.items()):
+        want = rep["bottleneck"]["label"]
+        m = re.search(rf"^  {re.escape(region)}: (\S+) \(confidence.*\n"
+                      rf"(?:    .*\n)*?    path \[[^\]]*\]: .*\w\*",
+                      section, re.M)
+        if m is None or m.group(1) != want:
+            raise RuntimeError(f"doctor --explain: {region}: "
+                               f"{m.group(1) if m else 'no decision path'}"
+                               f", the report says {want}")
 
 
 def _fleet_plan_run(tmp: str, name: str, targets: list, shards: int,
-                    kernels: Kernels, *launcher) -> dict:
+                    kernels: Kernels, *launcher, store_format=None,
+                    seconds=None) -> dict:
     """Save a plan, run it through the fleet CLI (subprocess workers; the
     default --audit gate audits every pair first), check its payloads and
     fits from the merged store and report, replay it with
     --expect-no-measure (it must audit and measure nothing), hold it to
     ``fleet audit --expect-clean`` (every pair intact), print its status;
-    returns its report."""
+    returns its report. A segmented plan (``store_format="segments"``) is
+    also held to ``_segmented_checks`` before its replay, which then
+    replays the compacted store; ``seconds`` collects the in-process
+    calls' seconds."""
     from repro_torch.core.campaign import CampaignStore
+    from repro_torch.fleet.cli import main as fleet_cli
     from repro_torch.fleet.plan import SweepPlan
 
+    seconds = {} if seconds is None else seconds
     plan = SweepPlan(name=name, store=os.path.join(tmp, name, "store.jsonl"),
-                     targets=targets, reps=2, shards=shards, backend="cuda")
+                     targets=targets, reps=2, shards=shards, backend="cuda",
+                     store_format=store_format)
     path = plan.save(os.path.join(tmp, f"{name}.plan.json"))
     _fleet("run", "--plan", path, *launcher)
     audited = _audit_records(plan.store)
@@ -1691,11 +1786,23 @@ def _fleet_plan_run(tmp: str, name: str, targets: list, shards: int,
             if not all(math.isfinite(row[f]) for f in
                        ("abs_raw", "t0_s", "slope_s_per_pattern")):
                 raise RuntimeError(f"{region}/{mode}: non-finite fit {row}")
+    if store_format == "segments":
+        _segmented_checks(plan, path, seconds)
+        audited = _audit_records(plan.store)
     _fleet("run", "--plan", path, "--resume", "--expect-no-measure")
     if _audit_records(plan.store) != audited:
         raise RuntimeError(f"{name}: the resume audited again")
     _fleet("audit", "--plan", path, "--expect-clean")
-    _fleet("status", "--plan", path)
+    if store_format != "segments":
+        _fleet("status", "--plan", path)
+        return report
+    code, out = _in_process(seconds, "status", fleet_cli,
+                            ["status", "--plan", path])
+    canon = out.split("canonical store:", 1)[-1].split("\n")[1]
+    if code or "segments: 1 sealed" not in canon \
+            or "0 unsealed" not in canon:
+        raise RuntimeError(f"{name}: status after the compacted replay "
+                           f"(exit {code}): {canon.strip()}")
     return report
 
 
@@ -1763,6 +1870,8 @@ def phase_main(tmp: str, kernels: Kernels) -> dict:
                    lambda: _fleet_plan_run(tmp, "main_plan", main_targets(),
                                            1, kernels, "--in-process"))
     print(f"  card after: {card_state()}", flush=True)
+    added = {}      # the in-process store and doctor calls' seconds
+    _explain_check(os.path.join(tmp, "main_plan.plan.json"), report, added)
     for region, rep in report.items():
         verdicts[region] = (rep["bottleneck"]["label"],
                             {m: row["abs_raw"] for m, row in
@@ -1770,12 +1879,15 @@ def phase_main(tmp: str, kernels: Kernels) -> dict:
                             {m: row["t0_s"] for m, row in
                              rep["modes"].items()})
     print("== 4b. attention family seq 256, 512 (default widths), two "
-          "shards on one card", flush=True)
+          "shards on one card, segmented stores", flush=True)
     timed("attention_family", "flash_attention", lambda: _fleet_plan_run(
         tmp, "attention_family",
         [TargetSpec("pallas", ("fp", "mxu", "vmem"),
                     {"kernel": "attention", "sizes": [256, 512]})],
-        2, kernels))
+        2, kernels, store_format="segments", seconds=added))
+    print("in-process store and doctor calls (s): " + json.dumps(
+        {k: round(v, 3) for k, v in added.items()}
+        | {"total": round(sum(added.values()), 3)}), flush=True)
 
     cli = {
         "attention_1024": ["--pallas", "attention", "--pallas-n", "1024"],

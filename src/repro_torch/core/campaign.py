@@ -1,6 +1,6 @@
 """Campaign engine — persistent, resumable noise-injection sweeps.
 
-PyTorch port of the reference's campaign engine (single-file layout). For
+PyTorch port of the reference's campaign engine, in both its layouts. For
 every (region, mode) pair a k-sweep of wall-times is appended to a JSONL
 store the moment each point exists; re-running first replays the store, so
 completed sweeps are rebuilt with ZERO new measurements and partial sweeps
@@ -46,10 +46,16 @@ worker stores into one canonical store (sources in argument order, later
 ones superseding; records written in a canonical sorted order with sorted
 keys, so a merge is idempotent and matches the reference's byte for byte),
 and ``compact_store`` rewrites a store without its superseded records.
-``python -m repro_torch.core.campaign merge|inspect`` is the CLI.
+``python -m repro_torch.core.campaign merge|compact|inspect`` is the CLI.
 
-Not ported yet: the segmented layout (refused wherever a store is opened
-or merged).
+Layouts: a store is ONE JSONL file at ``path`` (the legacy layout) or a
+directory of append-only segments with a checksummed manifest
+(``path``'s ``.segments`` directory — see ``repro_torch.core.segments``).
+Both share the record schema, the supersede rules and this module's whole
+API; ``CampaignStore(path, segmented=True)`` opts a new store in, existing
+stores auto-detect. Segmented stores make ``merge_stores`` INCREMENTAL
+(O(new segments), not O(store)) and ``compact_store`` collapses them to one
+canonical segment.
 """
 from __future__ import annotations
 
@@ -64,6 +70,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Mapping, Optional, Sequence
 
 from repro_torch.core import decan as decan_mod
+from repro_torch.core import segments as seg_mod
 from repro_torch.core.absorption import (DEFAULT_KS, STOP_CONSECUTIVE,
                                          AbsorptionFit, MeasureTimeout,
                                          absorption, assemble_curve,
@@ -77,91 +84,21 @@ from repro_torch.core.payload import InjectionReport
 from repro_torch.core.quality import (REASON_DRIFT_SPAN, REASON_TIMEOUT,
                                       QualityPolicy, RemeasureBudget,
                                       VERDICT_QUARANTINE, measure_quality)
+# the tolerant line-streaming reader, the corrupt-store error and the layout
+# helpers live in repro_torch.core.segments (shared with the segmented
+# layout); re-exported here, their public home before the layout existed
+from repro_torch.core.segments import (CampaignStoreError,  # noqa: F401
+                                       io_tally, read_store_records,
+                                       remove_store, segments_dir,
+                                       store_exists)
 
 log = logging.getLogger("repro_torch.campaign")
-
-
-class CampaignStoreError(RuntimeError):
-    """A store is corrupt in a way the loader must not paper over."""
-
-
-def read_store_records(path: str) -> tuple[list[dict], int]:
-    """Parse a JSONL store, streaming line-by-line, tolerating a truncated
-    FINAL line.
-
-    A process killed between ``write`` and ``flush`` leaves a partial last
-    record; that is expected damage and costs at most one point, so it is
-    dropped with a warning. A malformed record with valid records AFTER it
-    cannot come from a torn append — that store is corrupt, and loading it
-    raises ``CampaignStoreError``.
-
-    Returns ``(records, valid_bytes)`` where ``valid_bytes`` is the length of
-    the clean prefix (the caller may truncate the file to it).
-    """
-    records: list[dict] = []
-    valid = 0
-    pos = 0
-    bad: Optional[tuple[int, int, Exception]] = None  # (pos, len, error)
-    with open(path, "rb") as f:
-        for raw in f:
-            line = raw.strip()
-            if line:
-                if bad is not None:
-                    raise CampaignStoreError(
-                        f"{path}: corrupt record at byte {bad[0]} with valid "
-                        f"records after it ({bad[2]}); refusing to load"
-                    ) from bad[2]
-                try:
-                    rec = json.loads(line.decode("utf-8"))
-                    if not isinstance(rec, dict):
-                        raise ValueError(f"record is {type(rec).__name__}, "
-                                         "not an object")
-                except (UnicodeDecodeError, ValueError) as e:
-                    n = len(raw) - (1 if raw.endswith(b"\n") else 0)
-                    bad = (pos, n, e)
-                    pos += len(raw)
-                    continue
-                records.append(rec)
-            pos += len(raw)
-            if bad is None:
-                valid = pos
-    if bad is not None:
-        log.warning(
-            "%s: dropping truncated final record (%d bytes) — a previous "
-            "run died mid-append", path, bad[1])
-    return records, valid
 
 
 def _meta_settings(rec: dict) -> dict:
     """The measurement-settings payload of a meta record (key fields off)."""
     return {f: v for f, v in rec.items()
             if f not in ("kind", "region", "mode")}
-
-
-def segments_dir(path: str) -> str:
-    """Where the reference's segmented layout would keep a store:
-    ``base.jsonl`` -> ``base.segments``."""
-    return os.path.splitext(path)[0] + ".segments"
-
-
-def _refuse_segmented(path: str) -> None:
-    if os.path.isdir(segments_dir(path)):
-        raise CampaignStoreError(
-            f"{path}: a segmented store exists here; this package reads "
-            "the single-file layout only")
-
-
-def store_exists(path: str) -> bool:
-    """True when a store exists at ``path`` (a segment directory counts, so
-    callers see it and the store refuses it when opened)."""
-    return os.path.exists(path) or os.path.isdir(segments_dir(path))
-
-
-def remove_store(path: str) -> None:
-    """Delete the store file at ``path``; a segmented store is refused."""
-    _refuse_segmented(path)
-    if os.path.exists(path):
-        os.unlink(path)
 
 
 def worker_store(path: str, index: int, count: int) -> str:
@@ -205,12 +142,15 @@ class CampaignStore:
     Thread-safe: appends take a lock and flush immediately, so the on-disk
     store is never more than one record behind the in-memory view.
 
-    The port reads and writes the single-file JSONL layout; a path whose
-    segment directory (``<base>.segments``) exists is refused, since the
-    segmented layout is not ported yet.
+    ``segmented=None`` (the default) auto-detects the on-disk layout: a
+    ``path.segments`` directory opens the segmented backend
+    (``repro_torch.core.segments.SegmentStore``), otherwise the legacy
+    single JSONL file at ``path``. ``segmented=True`` opts a NEW store into
+    the segmented layout; both layouts present this exact class API.
     """
 
-    def __init__(self, path: str, *, readonly: bool = False):
+    def __init__(self, path: str, *, readonly: bool = False,
+                 segmented: Optional[bool] = None):
         self.path = path
         self.points: dict[tuple[str, str], dict[int, float]] = {}
         self.sens: dict[tuple[str, str], float] = {}
@@ -224,8 +164,33 @@ class CampaignStore:
         self.body_sizes: dict[str, int] = {}
         self._lock = threading.Lock()
         self._f = None
-        _refuse_segmented(path)
+        self._seg: Optional[seg_mod.SegmentStore] = None
+        has_dir = seg_mod.is_segmented(path)
         has_file = os.path.exists(path)
+        if has_dir and has_file:
+            raise CampaignStoreError(
+                f"{path}: both a legacy store file and a segment dir "
+                f"({segments_dir(path)}) exist; merge or remove one")
+        if segmented is None:
+            segmented = has_dir
+        elif segmented and has_file:
+            raise CampaignStoreError(
+                f"{path}: cannot open as a segmented store — a legacy "
+                "single-file store already exists (merge or compact it into "
+                "a segmented path first)")
+        elif not segmented and has_dir:
+            raise CampaignStoreError(
+                f"{path}: cannot open as a legacy store — a segment dir "
+                f"exists at {segments_dir(path)}")
+        self.segmented = bool(segmented)
+        if segmented:
+            if readonly and not has_dir:
+                raise FileNotFoundError(
+                    f"campaign store {path} does not exist")
+            self._seg = seg_mod.SegmentStore(path, readonly=readonly)
+            for rec in self._seg.load():
+                self._ingest(rec)
+            return
         if readonly and not has_file:
             raise FileNotFoundError(f"campaign store {path} does not exist")
         if has_file:
@@ -286,6 +251,11 @@ class CampaignStore:
     def append(self, rec: dict) -> None:
         """Ingest one record and flush it to disk (locked; readonly stores
         refuse)."""
+        if self._seg is not None:
+            with self._lock:
+                self._ingest(rec)
+                self._seg.append_line(json.dumps(rec), rec)
+            return
         if self._f is None:
             raise RuntimeError(f"store {self.path} was opened readonly")
         with self._lock:
@@ -294,7 +264,12 @@ class CampaignStore:
             self._f.flush()
 
     def close(self) -> None:
-        """Close the append handle (no-op for readonly stores)."""
+        """Close the append handle — for segmented stores this SEALS the
+        session's segment into the manifest (no-op for readonly stores)."""
+        if self._seg is not None:
+            if not self._seg.readonly:
+                self._seg.close()
+            return
         if self._f is not None:
             self._f.close()
 
@@ -375,13 +350,26 @@ def _canon_sort_key(rec: dict) -> tuple:
 @dataclasses.dataclass
 class MergeStats:
     """What ``merge_stores`` did: sources read, records in/out, and the
-    (region, mode) pairs whose meta conflicted (the later source won)."""
+    (region, mode) pairs whose meta conflicted (the later source won). For
+    an INCREMENTAL merge into a segmented destination, ``records_in``
+    counts only the newly adopted segments' records, ``records_out`` the
+    destination's total, and ``conflicts`` stays empty — supersede (and
+    meta-conflict) resolution is a read-time property of a segmented store,
+    applied alike by every later load."""
     sources: int = 0
     records_in: int = 0
     records_out: int = 0
     conflicts: list = dataclasses.field(default_factory=list)  # (region, mode)
+    incremental: bool = False
+    segments_new: int = 0
+    segments_skipped: int = 0
 
     def __str__(self) -> str:
+        if self.incremental:
+            return (f"folded {self.segments_new} new segment(s) "
+                    f"({self.records_in} record(s)) from {self.sources} "
+                    f"store(s); {self.segments_skipped} segment(s) already "
+                    f"merged; {self.records_out} record(s) total")
         s = (f"merged {self.records_in} records from {self.sources} stores "
              f"into {self.records_out}")
         if self.conflicts:
@@ -471,18 +459,63 @@ class _MergeView:
 _MERGE_TMP_COUNT = itertools.count()
 
 
-def merge_stores(dest: str, sources: Sequence[str]) -> MergeStats:
+def _read_any_store(src: str) -> list[dict]:
+    """Records of a source store in replay order, whichever layout it has."""
+    if seg_mod.is_segmented(src):
+        return seg_mod.SegmentStore(src, readonly=True).load()
+    return read_store_records(src)[0]
+
+
+def merge_stores(dest: str, sources: Sequence[str], *,
+                 incremental: Optional[bool] = None) -> MergeStats:
     """Fold worker stores into one canonical store at ``dest``.
 
-    Sources stream in argument order, so later sources supersede earlier
-    ones under the schema's supersede / meta-conflict rules; the output is
-    written with records in a canonical sort order and canonical key order,
-    then atomically renamed over ``dest``. Merging is idempotent (re-merging
-    the output is a byte-level no-op), order-independent when the sources'
-    keys are disjoint, and safe when ``dest`` is itself a source. Segmented
-    stores are refused (the layout is not ported)."""
-    for path in (dest, *sources):
-        _refuse_segmented(path)
+    Two strategies share this entry point:
+
+    * **incremental** (segmented ``dest``): adopt whole source segments the
+      destination manifest has never seen — O(new segments) reads, never
+      O(store); supersede resolution happens at read time. Chosen
+      automatically when ``dest`` is (or, with segmented sources and no
+      legacy dest file, becomes) a segmented store; dest-as-source is a
+      no-op.
+    * **full canonical** (legacy single-file ``dest``): sources stream in
+      argument order, so later sources supersede earlier ones under the
+      schema's supersede / meta-conflict rules; the output is written with
+      records in a canonical sort order and canonical key order, then
+      atomically renamed over ``dest`` — merging is idempotent (re-merging
+      the output is a byte-level no-op), order-independent when the
+      sources' keys are disjoint, and safe when ``dest`` is itself a
+      source. ``incremental=False`` forces this path (segmented sources are
+      read in their replay order), which is how a segmented store is
+      flattened to one canonical file.
+    """
+    dest_seg = seg_mod.is_segmented(dest)
+    dest_file = os.path.isfile(dest)
+    if dest_seg and dest_file:
+        raise CampaignStoreError(
+            f"{dest}: both a legacy store file and a segment dir exist; "
+            "merge or remove one before merging into it")
+    if incremental is None:
+        incremental = dest_seg or (not dest_file and
+                                   any(seg_mod.is_segmented(s)
+                                       for s in sources))
+    if incremental:
+        if dest_file:
+            raise CampaignStoreError(
+                f"{dest}: incremental merge needs a segmented destination "
+                "but a legacy store file is in the way (pass "
+                "incremental=False for a full canonical merge, or pick a "
+                "fresh dest)")
+        r = seg_mod.adopt_segments(dest, sources)
+        return MergeStats(sources=len(sources), records_in=r["records_in"],
+                          records_out=r["records_out"], incremental=True,
+                          segments_new=r["segments_new"],
+                          segments_skipped=r["segments_skipped"])
+    if dest_seg:
+        raise CampaignStoreError(
+            f"{dest}: destination is a segmented store; a full canonical "
+            "merge would leave both layouts in place — use the incremental "
+            "merge, or flatten into a different dest path")
     stats = MergeStats(sources=len(sources))
     view = _MergeView(stats)
     d = os.path.dirname(dest)
@@ -495,7 +528,7 @@ def merge_stores(dest: str, sources: Sequence[str]) -> MergeStats:
             # finally removes the tmp, so ``dest`` only ever sees the atomic
             # rename of a COMPLETE merge
             for src in sources:
-                for rec in read_store_records(src)[0]:
+                for rec in _read_any_store(src):
                     view.ingest(rec)
             records = view.records()
             stats.records_out = len(records)
@@ -515,22 +548,46 @@ class CompactStats:
     records_out: int = 0
     bytes_in: int = 0
     bytes_out: int = 0
+    segments_in: int = 0          # 0 for a legacy single-file store
 
     def __str__(self) -> str:
         pct = 1.0 - (self.bytes_out / self.bytes_in) if self.bytes_in else 0.0
-        return (f"compacted {self.records_in} -> {self.records_out} "
-                f"record(s), {self.bytes_in} -> {self.bytes_out} bytes "
-                f"({pct:.0%} reclaimed)")
+        s = (f"compacted {self.records_in} -> {self.records_out} record(s), "
+             f"{self.bytes_in} -> {self.bytes_out} bytes ({pct:.0%} "
+             "reclaimed)")
+        if self.segments_in:
+            s += f"; {self.segments_in} segment(s) -> 1"
+        return s
 
 
 def compact_store(path: str) -> CompactStats:
     """Rewrite a store in place with superseded and discarded records
-    dropped (the canonical full merge of the store into itself). Do not
-    compact a store a live writer is appending to."""
+    dropped.
+
+    A segmented store collapses to ONE canonical segment: the compaction
+    commit publishes a manifest whose ``folded`` list names every prior
+    segment id, so an interrupted cleanup can never resurrect superseded
+    records and later incremental merges still skip already-folded source
+    segments. A legacy store is rewritten through the canonical full merge
+    (``merge_stores(path, [path])``). Do not compact a store a live writer
+    is appending to.
+    """
     if not store_exists(path):
         raise FileNotFoundError(f"campaign store {path} does not exist")
-    bytes_in = os.path.getsize(path) if os.path.exists(path) else 0
-    ms = merge_stores(path, [path])
+    if seg_mod.is_segmented(path):
+        backend = seg_mod.SegmentStore(path)   # writable: heals orphans in
+        raw = backend.load()
+        view = _MergeView(MergeStats())
+        for rec in raw:
+            view.ingest(rec)
+        records = view.records()
+        r = seg_mod.replace_all_segments(
+            path, [_canon_line(rec) for rec in records], records)
+        return CompactStats(records_in=len(raw), records_out=len(records),
+                            bytes_in=r["bytes_in"], bytes_out=r["bytes_out"],
+                            segments_in=r["segments_in"])
+    bytes_in = os.path.getsize(path)
+    ms = merge_stores(path, [path], incremental=False)
     return CompactStats(records_in=ms.records_in, records_out=ms.records_out,
                         bytes_in=bytes_in, bytes_out=os.path.getsize(path))
 
@@ -1001,7 +1058,7 @@ class AnalyticCampaign:
 
 
 # ---------------------------------------------------------------------------
-# CLI: merge / inspect stores (the fan-out hosts' rendezvous step)
+# CLI: merge / compact / inspect stores (the fan-out hosts' rendezvous step)
 # ---------------------------------------------------------------------------
 
 
@@ -1011,12 +1068,22 @@ def _cli(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.core.campaign",
         description="campaign store maintenance (merge worker stores, "
-                    "inspect contents)")
+                    "compact, inspect contents)")
     sub = ap.add_subparsers(dest="cmd", required=True)
     mp = sub.add_parser("merge", help="fold worker stores into one "
-                                      "canonical store")
+                                      "canonical store (incremental when "
+                                      "the destination is segmented)")
     mp.add_argument("dest")
     mp.add_argument("sources", nargs="+")
+    mp.add_argument("--canonical", action="store_true",
+                    help="force a full canonical single-file merge even for "
+                         "segmented sources (reads every record; this is "
+                         "how a segmented store flattens to one JSONL file)")
+    cp = sub.add_parser("compact", help="rewrite a store in place, dropping "
+                                        "superseded/discarded records (a "
+                                        "segmented store collapses to one "
+                                        "canonical segment)")
+    cp.add_argument("path")
     ip = sub.add_parser("inspect", help="summarize one store with per-"
                                         "(region, mode) grid completeness")
     ip.add_argument("path")
@@ -1027,8 +1094,17 @@ def _cli(argv: Optional[Sequence[str]] = None) -> int:
     args = ap.parse_args(argv)
 
     if args.cmd == "merge":
-        stats = merge_stores(args.dest, args.sources)
+        stats = merge_stores(args.dest, args.sources,
+                             incremental=False if args.canonical else None)
         print(f"{args.dest}: {stats}")
+        return 0
+    if args.cmd == "compact":
+        try:
+            cstats = compact_store(args.path)
+        except FileNotFoundError as e:
+            print(e)
+            return 2
+        print(f"{args.path}: {cstats}")
         return 0
     try:   # readonly: inspecting must neither create nor heal the store
         st = CampaignStore(args.path, readonly=True)

@@ -1,10 +1,10 @@
 """Fleet CLI — build plans, run fleets (with pluggable launchers and retry
-budgets), and show fleet state.
+budgets), diagnose, watch and show fleet state.
 
     # declare a whole size family as one plan (2 subprocess shards)
     PYTHONPATH=src python -m repro_torch.fleet plan --out plan.json \\
         --pallas attention --sizes 256,512 --modes fp,mxu,vmem \\
-        --shards 2 --reps 2 [--backend cuda|cpu]
+        --shards 2 --reps 2 [--backend cuda|cpu] [--store-format segments]
 
     # a model step, or the paged serving engine's two regions (smoke config)
     PYTHONPATH=src python -m repro_torch.fleet plan --out serve.json \\
@@ -15,11 +15,26 @@ budgets), and show fleet state.
     PYTHONPATH=src python -m repro_torch.fleet run --plan plan.json --resume \\
         --expect-no-measure          # assert a completed fleet replays free
 
+    # real hosts: one worker per host from a declarative hosts.json,
+    # flaky shards re-launched automatically up to the retry budget
+    PYTHONPATH=src python -m repro_torch.fleet run --plan plan.json \\
+        --launcher ssh --hosts hosts.json --max-attempts 3 --backoff 2
+
     # deterministic fault injection on one machine
     PYTHONPATH=src python -m repro_torch.fleet run --plan plan.json \\
         --launcher mock --max-attempts 2
 
+    # why is my fleet incomplete?  (per shard: missing ks per pair, torn
+    # store to be healed, attempts exhausted; plus any audit failures);
+    # --explain: each region's decision path, measurement-free
+    PYTHONPATH=src python -m repro_torch.fleet doctor --plan plan.json \\
+        [--explain]
     PYTHONPATH=src python -m repro_torch.fleet status --plan plan.json
+
+    # live progress while workers run: segmented stores are polled through
+    # their manifests alone (no record data is read); --once prints one
+    # frame and exits (1 while the grid is incomplete)
+    PYTHONPATH=src python -m repro_torch.fleet watch --plan plan.json --once
 
     # the static noise audit alone (no measurement): every planned pair's
     # SASS at two static k; exit 1 on a dead pair (--expect-clean: on any
@@ -36,8 +51,10 @@ budgets), and show fleet state.
 ``--backend cuda`` (the default) measures the CUDA kernels on the card and
 fails without one; ``--backend cpu`` runs their plain PyTorch versions
 (which carry no compiled noise: the audit reports every pair
-unauditable). The reference's ``doctor`` and ``watch`` subcommands and its
-ssh launcher are not ported.
+unauditable). ``--launcher ssh`` takes a hosts.json (a list, or
+``{"hosts": [...]}``, of ``{addr, python, workdir, env}`` objects) and a
+relative ``--store``; without ssh and scp/rsync it refuses to start and
+prints the manual multi-host recipe.
 """
 from __future__ import annotations
 
@@ -70,16 +87,32 @@ def _parse_json_arg(flag: str, text: Optional[str]) -> Optional[dict]:
 def _launcher_spec(args) -> Optional[dict]:
     """The plan-embedded launcher spec the ``plan`` subcommand's flags
     describe (None when no launcher flag was given)."""
+    from repro_torch.fleet.launchers import FleetError, load_hosts
+
     if not args.launcher:
-        if args.mock_script:
-            raise SystemExit("plan: --mock-script needs --launcher mock")
+        if args.hosts or args.mock_script:
+            raise SystemExit("plan: --hosts/--mock-script need --launcher")
         return None
     spec: dict = {"kind": args.launcher}
-    script = _parse_json_arg("--mock-script", args.mock_script)
-    if script is not None:
-        if args.launcher != "mock":
-            raise SystemExit("plan: --mock-script needs --launcher mock")
-        spec["script"] = script
+    if args.mock_script and args.launcher != "mock":
+        raise SystemExit("plan: --mock-script needs --launcher mock")
+    if args.hosts and args.launcher != "ssh":
+        raise SystemExit("plan: --hosts needs --launcher ssh")
+    if args.launcher == "ssh":
+        if not args.hosts:
+            raise SystemExit("plan: --launcher ssh needs --hosts hosts.json")
+        try:
+            hosts = load_hosts(args.hosts)
+        except (OSError, ValueError, FleetError) as e:
+            raise SystemExit(f"plan: {e}")
+        spec["hosts"] = [
+            {"addr": h.addr, "python": h.python, "workdir": h.workdir,
+             **({"env": dict(h.env)} if h.env else {})}
+            for h in hosts]
+    elif args.launcher == "mock":
+        script = _parse_json_arg("--mock-script", args.mock_script)
+        if script is not None:
+            spec["script"] = script
     return spec
 
 
@@ -145,6 +178,7 @@ def _build_plan(args):
                      backend=args.backend,
                      launcher=_launcher_spec(args),
                      retry=_retry_spec(args),
+                     store_format=args.store_format,
                      quality=_parse_json_arg("--quality-policy",
                                              args.quality_policy))
     try:
@@ -166,7 +200,8 @@ def _cmd_plan(args) -> int:
     print(f"wrote plan {plan.name!r} [{plan.digest()}] -> {args.out}")
     print(f"  {len(grid)} (region, mode) pair(s) over {plan.shards} "
           f"shard(s); store: {plan.store}; backend: {plan.backend}")
-    for label, value in (("launcher", plan.launcher), ("retry", plan.retry),
+    for label, value in (("store format", plan.store_format),
+                         ("launcher", plan.launcher), ("retry", plan.retry),
                          ("quality", plan.quality)):
         if value:
             print(f"  {label}: {value}")
@@ -191,9 +226,10 @@ def _cmd_run(args) -> int:
                          f"--launcher {args.launcher}")
     try:
         launcher = None
-        if args.launcher or args.in_process or args.mock_script:
+        if args.launcher or args.in_process or args.hosts \
+                or args.mock_script:
             launcher = resolve_launcher(
-                args.launcher, plan=plan,
+                args.launcher, plan=plan, hosts_path=args.hosts,
                 mock_script=_parse_json_arg("--mock-script",
                                             args.mock_script),
                 in_process=args.in_process)
@@ -237,6 +273,19 @@ def _cmd_audit(args) -> int:
               + ", ".join(f"{r}/{m}" for r, m in not_intact))
         return 1
     return 1 if dead else 0
+
+
+def _cmd_doctor(args) -> int:
+    from repro_torch.fleet.executor import FleetError, fleet_doctor
+    from repro_torch.fleet.plan import PlanError, SweepPlan
+
+    try:
+        plan = SweepPlan.load(args.plan)
+        code, report = fleet_doctor(plan, explain=args.explain)
+    except (OSError, PlanError, FleetError) as e:
+        raise SystemExit(f"doctor: {e}")
+    print(report)
+    return code
 
 
 def _cmd_calibrate(args) -> int:
@@ -314,6 +363,21 @@ def _cmd_calibrate(args) -> int:
     return 0
 
 
+def _segment_line(path: str) -> Optional[str]:
+    """A segmented store's manifest summary for ``status`` (None for a
+    single-file store): sealed segments, records and bytes, and unsealed
+    segments — a live writer's, or a killed one's that the next writable
+    open heals."""
+    from repro_torch.core.segments import is_segmented, manifest_status
+
+    if not is_segmented(path):
+        return None
+    ms = manifest_status(path)
+    return (f"    segments: {ms['segments']} sealed, {ms['records']} "
+            f"record(s), {ms['bytes']} B; {ms['orphans']} unsealed "
+            f"(live or orphan, {ms['orphan_bytes']} B)")
+
+
 def _cmd_status(args) -> int:
     from repro_torch.core.campaign import CampaignStore, store_exists
     from repro_torch.fleet.executor import FleetState
@@ -351,6 +415,9 @@ def _cmd_status(args) -> int:
         incomplete_pairs = sum(not ps.complete for ps in status.values())
         print(f"canonical store: {len(grid) - incomplete_pairs}/{len(grid)} "
               "pair(s) complete")
+        seg = _segment_line(plan.store)
+        if seg:
+            print(seg)
     else:
         incomplete_pairs = len(grid)
         print("canonical store: absent")
@@ -363,16 +430,113 @@ def _cmd_status(args) -> int:
         done = sum(ps.complete for ps in st.grid_status(mine).values())
         print(f"  worker store {i}: {done}/{len(mine)} slice pair(s) "
               "complete")
+        seg = _segment_line(ws)
+        if seg:
+            print("  " + seg)
     return 1 if incomplete_pairs else 0
+
+
+def _watch_frame(plan, grid) -> tuple[str, bool]:
+    """One rendered ``fleet watch`` frame plus grid completeness.
+
+    Segmented stores are summarized from their MANIFESTs alone (sealed
+    segment/record/byte totals, live-or-orphan unsealed segments, and the
+    aggregated per-pair ``done`` coverage) — no record data is read, so a
+    2-second poll never contends with active writers. Legacy single-file
+    stores fall back to a full readonly load. ``done`` markers are trusted
+    as-is here; ``doctor``/``status`` own the precise per-k check.
+    """
+    from repro_torch.core.campaign import CampaignStore, store_exists
+    from repro_torch.core.segments import is_segmented, manifest_status
+
+    out = [f"== fleet watch: plan {plan.name!r}, {len(grid)} pair(s)"]
+    done: set = set()
+    stores = [("canonical", plan.store)]
+    stores += [(f"worker {i}", ws)
+               for i, ws in enumerate(plan.worker_stores())]
+    for label, path in stores:
+        if not store_exists(path):
+            out.append(f"  {label} ({path}): absent")
+            continue
+        if is_segmented(path):
+            st = manifest_status(path)
+            seen = sorted((str(r), str(m)) for (r, m), p
+                          in st["pairs"].items() if p.get("done"))
+            done.update((r, m) for (r, m), p in st["pairs"].items()
+                        if p.get("done"))
+            extra = (f", {st['orphans']} unsealed segment(s) "
+                     f"[{st['orphan_bytes']} B live/orphan]"
+                     if st["orphans"] else "")
+            out.append(f"  {label} ({path}): {st['segments']} sealed "
+                       f"segment(s), {st['records']} record(s), "
+                       f"{st['bytes']} B{extra}")
+            if seen:
+                out.append("    done: " + ", ".join(f"{r}/{m}"
+                                                    for r, m in seen))
+            quar = sorted((str(r), str(m), p["quarantined"])
+                          for (r, m), p in st["pairs"].items()
+                          if p.get("quarantined"))
+            if quar:
+                out.append("    quarantined: " + ", ".join(
+                    f"{r}/{m} ({n} point(s))" for r, m, n in quar)
+                    + " — doctor names each point and why")
+        else:
+            st = CampaignStore(path, readonly=True)
+            gs = st.grid_status(grid)
+            comp = {k for k, ps in gs.items() if ps.complete}
+            done.update(comp)
+            out.append(f"  {label} ({path}): legacy file, "
+                       f"{os.path.getsize(path)} B, {len(comp)}/{len(grid)} "
+                       "grid pair(s) complete")
+            quar = sorted((r, m, len(ps.quarantined))
+                          for (r, m), ps in gs.items() if ps.quarantined)
+            if quar:
+                out.append("    quarantined: " + ", ".join(
+                    f"{r}/{m} ({n} point(s))" for r, m, n in quar)
+                    + " — doctor names each point and why")
+    missing = [k for k in grid if k not in done]
+    line = (f"  grid: {len(grid) - len(missing)}/{len(grid)} "
+            "pair(s) done")
+    if missing:
+        head = ", ".join(f"{r}/{m}" for r, m in missing[:6])
+        line += (f" — waiting on {head}"
+                 + (f" (+{len(missing) - 6} more)" if len(missing) > 6
+                    else ""))
+    out.append(line)
+    return "\n".join(out), not missing
+
+
+def _cmd_watch(args) -> int:
+    import time
+
+    from repro_torch.fleet.plan import PlanError, SweepPlan
+
+    try:
+        plan = SweepPlan.load(args.plan)
+        grid = plan.grid()
+    except (OSError, PlanError) as e:
+        raise SystemExit(f"watch: {e}")
+    while True:
+        frame, complete = _watch_frame(plan, grid)
+        print(frame, flush=True)
+        if complete:
+            return 0
+        if args.once:
+            return 1
+        time.sleep(max(0.2, args.interval))
 
 
 def _add_launcher_flags(p, *, for_plan: bool) -> None:
     """The launcher/retry flag set shared by ``plan`` (serialize into the
     plan) and ``run`` (override the plan for this invocation)."""
     where = "serialize into the plan" if for_plan else "override the plan"
-    p.add_argument("--launcher", default=None, choices=("local", "mock"),
+    p.add_argument("--launcher", default=None,
+                   choices=("local", "ssh", "mock"),
                    help=f"shard launcher kind ({where}); default: local "
                         "subprocesses")
+    p.add_argument("--hosts", default=None, metavar="HOSTS.json",
+                   help="ssh host specs: a JSON list (or {\"hosts\": [...]})"
+                        " of {addr, python, workdir, env} objects")
     p.add_argument("--mock-script", default=None, metavar="JSON",
                    help="mock launcher fault script (inline JSON or a file):"
                         " {shard: [action per attempt]}, actions ok|crash|"
@@ -392,8 +556,8 @@ def build_parser() -> argparse.ArgumentParser:
     """The fleet CLI's argparse tree."""
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.fleet",
-        description="fleet orchestrator: plan, spawn (local/mock launchers "
-                    "with retry budgets), merge, classify")
+        description="fleet orchestrator: plan, spawn (local/ssh/mock "
+                    "launchers with retry budgets), merge, classify")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     pp = sub.add_parser("plan", help="build a SweepPlan JSON")
@@ -402,6 +566,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="plan name (default: derived from the target)")
     pp.add_argument("--store", default=None,
                     help=f"campaign store (default: under {CAMPAIGN_DIR}/)")
+    pp.add_argument("--store-format", default=None,
+                    choices=("jsonl", "segments"),
+                    help="store layout: one legacy JSONL file (default) or "
+                         "an append-only segment directory with a "
+                         "checksummed manifest (incremental merges, "
+                         "manifest-driven fleet watch)")
     pp.add_argument("--pallas", default=None, metavar="KERNEL",
                     help="kernel family target (matmul|spmxv|attention|"
                          "probe)")
@@ -493,6 +663,20 @@ def build_parser() -> argparse.ArgumentParser:
                            "(fresh records supersede)")
     audp.set_defaults(fn=_cmd_audit)
 
+    dp = sub.add_parser("doctor", help="explain per shard why the fleet is "
+                                       "incomplete: missing ks per pair, "
+                                       "torn store to be healed, attempts "
+                                       "exhausted (exit 1 while incomplete)")
+    dp.add_argument("--plan", required=True,
+                    help="the SweepPlan JSON to diagnose")
+    dp.add_argument("--explain", action="store_true",
+                    help="for a covered grid, also replay each region's "
+                         "classification (measurement-free) and print the "
+                         "strategy tree's decision path: which node fired, "
+                         "under which thresholds (calibrated or default), "
+                         "plus any audit/quality downgrades")
+    dp.set_defaults(fn=_cmd_doctor)
+
     cal = sub.add_parser("calibrate",
                          help="threshold calibration: run the known-regime "
                               "synthetic sweep and fit per-hardware "
@@ -530,12 +714,24 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--plan", required=True,
                     help="the SweepPlan JSON to summarize")
     sp.set_defaults(fn=_cmd_status)
+
+    wp = sub.add_parser("watch", help="live store progress: manifest-driven "
+                                      "for segmented stores (no record "
+                                      "reads), polled until the grid is "
+                                      "done")
+    wp.add_argument("--plan", required=True,
+                    help="the SweepPlan JSON to watch")
+    wp.add_argument("--interval", type=float, default=2.0,
+                    help="seconds between frames (default 2)")
+    wp.add_argument("--once", action="store_true",
+                    help="print one frame and exit (1 while incomplete)")
+    wp.set_defaults(fn=_cmd_watch)
     return ap
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    """CLI entry: dispatch to the plan/run/audit/calibrate/status
-    subcommand."""
+    """CLI entry: dispatch to the plan/run/audit/doctor/calibrate/status/
+    watch subcommand."""
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

@@ -3,9 +3,10 @@
 ``run_fleet`` drives the whole pipeline:
 
   spawn    N worker shards through a pluggable ``Launcher``
-           (repro_torch.fleet.launchers: local subprocesses or the mock
-           fault-injection cluster), each measuring its slice of the plan's
-           grid into its own worker store, output streamed line-prefixed;
+           (repro_torch.fleet.launchers: local subprocesses, ssh hosts from
+           a hosts.json, or the mock fault-injection cluster), each
+           measuring its slice of the plan's grid into its own worker
+           store, output streamed line-prefixed;
   retry    a ``RetryBudget`` gives failed/incomplete shards more launch
            rounds within one run; completeness is re-derived from the stores
            between rounds, so a retried shard heals its torn store and
@@ -15,7 +16,9 @@
            ONLY the shards whose slice is incomplete, and the campaign layer
            heals the torn tail and re-measures only the missing points;
   merge    worker stores fold into the plan's canonical store
-           (``merge_stores`` — idempotent, atomic);
+           (``merge_stores`` — idempotent, atomic; incremental, by adopting
+           whole segments, when the plan declares ``store_format:
+           "segments"``);
   classify one ``Campaign.characterize`` per region replays the merged store
            (a complete fleet classifies with ZERO new measurements) and the
            cross-region report lands in ``<store>.report.json``.
@@ -25,7 +28,8 @@ decided by ``CampaignStore.grid_status`` against the plan's grid, so a lying
 or lost ``fleet.json`` can never cause double measurement or a hole.
 ``fleet.json`` (next to the store) records the plan digest, per-shard
 status/attempts/attempt-log/stats, the merge manifest, and the final
-classification.
+classification. ``fleet_doctor`` explains, per shard, why a fleet is
+incomplete, and with ``explain`` replays each region's decision path.
 
 The static noise audit (``repro_torch.analysis``) runs once, before any
 measurement: every planned pair's static builds are censused in SASS, and
@@ -295,7 +299,7 @@ def audit_fleet_plan(plan: SweepPlan, store=None, *, gate: str = "gate",
         if fresh and owned:
             # opened only to write: an audit that wrote nothing (the cpu
             # backend) leaves no store behind
-            store = CampaignStore(plan.store)
+            store = _plan_store(plan, plan.store)
         for rep in fresh:
             store.append({"kind": "audit", **rep.to_dict()})
         if store is not None:
@@ -332,6 +336,17 @@ def audit_fleet_plan(plan: SweepPlan, store=None, *, gate: str = "gate",
 # ---------------------------------------------------------------------------
 # the single-process worker entry (probe --plan lands here)
 # ---------------------------------------------------------------------------
+
+
+def _plan_store(plan: SweepPlan, path: str, *, readonly: bool = False):
+    """Open a store under the plan's declared layout: ``store_format:
+    "segments"`` opts writable opens into the segmented backend (readonly
+    opens auto-detect — they must never create anything)."""
+    from repro_torch.core.campaign import CampaignStore
+
+    seg = True if plan.store_format == "segments" else None
+    return CampaignStore(path, readonly=readonly,
+                         segmented=None if readonly else seg)
 
 
 def _stats_path(store: str) -> str:
@@ -420,7 +435,7 @@ def run_worker(plan: SweepPlan, *, index: Optional[int] = None,
     pairs = plan.pairs()
     ctl = Controller(reps=plan.reps, compile_once=plan.compile_once)
     qpolicy, qbudget = _plan_quality(plan)
-    camp = Campaign(CampaignStore(store), ctl, workers=plan.workers,
+    camp = Campaign(_plan_store(plan, store), ctl, workers=plan.workers,
                     quality=qpolicy, remeasure=qbudget)
     try:
         if index is not None:
@@ -599,8 +614,8 @@ def _classify(plan: SweepPlan, quality: str = "gate"):
 
     qpolicy, qbudget = _plan_quality(plan)
     ctl = Controller(reps=plan.reps, compile_once=plan.compile_once)
-    camp = Campaign(CampaignStore(plan.store), ctl, workers=plan.workers,
-                    quality=qpolicy, remeasure=qbudget,
+    camp = Campaign(_plan_store(plan, plan.store), ctl,
+                    workers=plan.workers, quality=qpolicy, remeasure=qbudget,
                     heal_quarantined=False)
     try:
         _use_thresholds(camp)
@@ -614,7 +629,7 @@ def _clean_fleet(plan: SweepPlan) -> None:
     from repro_torch.core.campaign import remove_store
 
     for s in [plan.store] + plan.worker_stores():
-        remove_store(s)
+        remove_store(s)            # either layout (file or segment dir)
     paths = [plan.fleet_path(), plan.report_path()]
     paths += [_stats_path(ws) for ws in plan.worker_stores()]
     for p in paths:
@@ -766,8 +781,10 @@ def run_fleet(plan_path: str, *, resume: bool = False, fresh: bool = False,
         raise FleetError(
             f"shard(s) {sorted(incomplete)} did not complete after "
             f"{round_no} attempt round(s) (returncodes {codes}); completed "
-            "work is preserved in the worker stores — re-running with "
-            "--resume (or a higher --max-attempts) heals and finishes them")
+            "work is preserved in the worker stores — `python -m "
+            "repro_torch.fleet doctor` explains each shard, and re-running "
+            "with --resume (or a higher --max-attempts) heals and finishes "
+            "them")
     if not launched:
         print(f"== fleet {plan.name!r} [{plan.digest()}]: all "
               f"{plan.shards} shard slice(s) already complete, "
@@ -778,7 +795,9 @@ def run_fleet(plan_path: str, *, resume: bool = False, fresh: bool = False,
     sources = [ws for ws in plan.worker_stores() if store_exists(ws)]
     if sources:
         # the canonical store (when present) streams FIRST so freshly
-        # re-measured worker records supersede any stale merged ones
+        # re-measured worker records supersede any stale merged ones (an
+        # incremental merge into a segmented canonical store skips the
+        # self-source and adopts only never-seen worker segments)
         if store_exists(plan.store):
             sources = [plan.store] + sources
         mstats = merge_stores(plan.store, sources)
@@ -788,6 +807,9 @@ def run_fleet(plan_path: str, *, resume: bool = False, fresh: bool = False,
                        "conflicts": [list(c) for c in
                                      sorted(set(map(tuple,
                                                     mstats.conflicts)))]}
+        if mstats.incremental:
+            state.merge["segments_new"] = mstats.segments_new
+            state.merge["segments_skipped"] = mstats.segments_skipped
         print(f"== merge: {mstats}")
 
     reports, cstats = _classify(plan, quality)
@@ -808,3 +830,293 @@ def run_fleet(plan_path: str, *, resume: bool = False, fresh: bool = False,
     finish_stats(cstats, expect_no_measure)
     return FleetResult(plan=plan, reports=reports, stats=cstats, state=state,
                        launched=launched)
+
+
+# ---------------------------------------------------------------------------
+# fleet doctor — explain, per shard, why the fleet is (in)complete
+# ---------------------------------------------------------------------------
+
+
+def _pair_lines(store_path: str, mine, canon_status) -> tuple[list[str], int]:
+    """Diagnose one shard's slice against its worker store (and the
+    canonical store): returns (report lines, #pairs still owing)."""
+    from repro_torch.core.campaign import (CampaignStore, CampaignStoreError,
+                                           read_store_records, store_exists)
+    from repro_torch.core.segments import is_segmented, manifest_status
+
+    lines: list[str] = []
+    wstore = None
+    if not store_exists(store_path):
+        status = {}
+        lines.append(f"  worker store {store_path}: absent")
+    else:
+        try:
+            if is_segmented(store_path):
+                ms = manifest_status(store_path)
+                if ms["orphans"]:
+                    lines.append(
+                        f"  worker store {store_path}: {ms['orphans']} "
+                        f"unsealed segment(s) ({ms['orphan_bytes']} byte(s))"
+                        " — a live or killed writer; healed (sealed, torn "
+                        "tail truncated) on the next writable open")
+            else:
+                records, valid = read_store_records(store_path)
+                size = os.path.getsize(store_path)
+                if valid < size:
+                    lines.append(
+                        f"  worker store {store_path}: torn tail — "
+                        f"{size - valid} byte(s) past the last valid record "
+                        "(a SIGKILL mid-append; healed automatically on the "
+                        "next load, costing at most one point)")
+            wstore = CampaignStore(store_path, readonly=True)
+            status = wstore.grid_status(mine)
+        except CampaignStoreError as e:
+            lines.append(f"  worker store {store_path}: CORRUPT beyond the "
+                         f"final record — {e}; delete it and relaunch the "
+                         "shard (--resume re-measures its whole slice)")
+            status = {}
+    owing = 0
+    for pair in mine:
+        r, m = pair
+        # quarantine evidence lives in the worker store even before any
+        # merge, so a hung-kernel timeout is explainable right after the
+        # failed round, not only once a canonical store exists
+        qwhy = ""
+        if wstore is not None:
+            per_k = wstore.quality.get(pair, {})
+            by: dict[str, list[int]] = {}
+            for k in wstore.quarantined_ks(r, m):
+                reason = per_k.get(k, {}).get("reason") or "unknown"
+                by.setdefault(reason, []).append(k)
+            qwhy = "; ".join(f"{reason} at k(s) {sorted(ks)}"
+                             for reason, ks in sorted(by.items()))
+        if canon_status and canon_status.get(pair) \
+                and canon_status[pair].complete:
+            continue                      # already satisfied by the merge
+        ps = status.get(pair)
+        if ps is None or (not ps.done and not ps.points):
+            owing += 1
+            lines.append(f"  {r}/{m}: absent — never measured")
+            if qwhy:      # e.g. the sensitivity probe itself timed out
+                lines.append(f"    quarantined: {qwhy}")
+        elif ps.complete:
+            if qwhy:
+                lines.append(
+                    f"  {r}/{m}: complete but quarantined — {qwhy}; "
+                    "`--resume` re-measures exactly these points")
+            continue
+        elif ps.done and ps.missing:
+            owing += 1
+            lines.append(
+                f"  {r}/{m}: done-marked but {ps.points}/{ps.expected} "
+                f"point(s) present — missing k(s) {sorted(ps.missing)}; a "
+                "relaunch re-measures ONLY these")
+            if qwhy:
+                lines.append(f"    quarantined: {qwhy}")
+        else:
+            owing += 1
+            lines.append(
+                f"  {r}/{m}: in progress — {ps.points} point(s), no done "
+                "marker (the k grid is adaptive; a relaunch resumes at the "
+                "first missing k)")
+            if qwhy:
+                lines.append(f"    quarantined: {qwhy}")
+    return lines, owing
+
+
+def fleet_doctor(plan: SweepPlan, budget: Optional[RetryBudget] = None,
+                 *, explain: bool = False) -> tuple[int, str]:
+    """Explain, per shard, why a fleet is incomplete — the forensics behind
+    ``_incomplete_shards``'s yes/no answer.
+
+    For every shard: its ledger history (attempts, launcher, host, rc, heal
+    stats from ``fleet.json``), whether its lifetime attempt cap is
+    exhausted, the worker store's physical condition (torn tail to be
+    healed, corruption), and each owing (region, mode) pair with its
+    missing ks when the ``done`` marker pins them. Returns
+    ``(exit_code, report)``: 0 when the grid is fully covered, 1 otherwise.
+
+    ``explain`` appends the classification forensics for a COVERED grid: a
+    measurement-free replay of every region's classification, rendering
+    the strategy tree's evaluated decision path — which node fired, under
+    which thresholds, whether those were calibrated or the paper defaults,
+    and any audit/quality downgrades.
+    """
+    from repro_torch.core.campaign import CampaignStore, store_exists
+
+    grid = plan.grid()
+    if budget is None:
+        budget = RetryBudget.from_dict(plan.retry)
+    state = None
+    if os.path.exists(plan.fleet_path()):
+        state = FleetState.load(plan.fleet_path())
+    out = [f"== fleet doctor: plan {plan.name!r} [{plan.digest()}] — "
+           f"{len(grid)} pair(s) over {plan.shards} shard(s)"]
+    if state is None:
+        out.append(f"fleet ledger {plan.fleet_path()}: not created yet "
+                   "(no run attempted)")
+    elif state.plan_digest != plan.digest():
+        out.append(f"fleet ledger {plan.fleet_path()}: STALE — built by "
+                   f"plan digest {state.plan_digest}; --fresh required")
+    canon_status = None
+    if store_exists(plan.store):
+        canon = CampaignStore(plan.store, readonly=True)
+        canon_status = canon.grid_status(grid)
+        done = sum(ps.complete for ps in canon_status.values())
+        out.append(f"canonical store {plan.store}: {done}/{len(grid)} "
+                   "pair(s) complete")
+        audited = {key: canon.audits[key] for key in grid
+                   if key in canon.audits}
+        if audited:
+            from repro_torch.analysis import AuditReport
+
+            n_dead = sum(r.get("verdict") == "dead"
+                         for r in audited.values())
+            n_intact = sum(r.get("verdict") == "intact"
+                           for r in audited.values())
+            out.append(f"static audit: {len(audited)}/{len(grid)} pair(s) "
+                       f"audited — {n_intact} intact, {n_dead} dead")
+            for key in grid:
+                rec = audited.get(key)
+                if rec is not None and rec.get("verdict") != "intact":
+                    out.append("  " + AuditReport.from_dict(rec).explain())
+                    if rec.get("verdict") == "dead":
+                        out.append("    (the audit gate refuses this pair; "
+                                   "fix the noise body or run with "
+                                   "--audit warn)")
+        # runtime measurement quality: quarantined points, and why
+        qpairs = {key: canon.quarantined_ks(*key) for key in grid}
+        qpairs = {key: ks for key, ks in qpairs.items() if ks}
+        if qpairs:
+            nq = sum(len(ks) for ks in qpairs.values())
+            out.append(f"measurement quality: {nq} quarantined point(s) "
+                       f"across {len(qpairs)} pair(s)")
+            for (r, m), ks in sorted(qpairs.items()):
+                per_k = canon.quality.get((r, m), {})
+                reasons: dict[str, list[int]] = {}
+                for k in ks:
+                    reason = per_k.get(k, {}).get("reason") or "unknown"
+                    reasons.setdefault(reason, []).append(k)
+                why = "; ".join(f"{reason} at k(s) {sorted(kk)}"
+                                for reason, kk in sorted(reasons.items()))
+                out.append(f"  {r}/{m}: {why}")
+                for k in ks:
+                    detail = per_k.get(k, {}).get("detail")
+                    if detail:
+                        out.append(f"    k={k}: {detail}")
+            out.append("  (a quarantined point condemns its reading, not "
+                       "the pair; `fleet run --plan ... --resume` "
+                       "re-measures exactly these points — run it under a "
+                       "quieter clock)")
+        # implausible baseline drift the campaign refused to correct for
+        for key in grid:
+            rec = canon.done.get(key)
+            drift = (rec or {}).get("drift")
+            if drift is not None and not (0.5 < drift < 2.0):
+                r, m = key
+                out.append(f"  {r}/{m}: implausible baseline drift factor "
+                           f"{drift:.3g} recorded — outside (0.5, 2.0), so "
+                           "drift correction was refused and the sweep's "
+                           "tail is suspect; re-measure under a steadier "
+                           "clock")
+    else:
+        out.append(f"canonical store {plan.store}: absent (no merge yet)")
+    total_owing = 0
+    for i in range(plan.shards):
+        mine = grid[i::plan.shards]
+        ss = state.shards.get(i) if state else None
+        hist = ""
+        if ss is not None and ss.attempt_log:
+            tries = ", ".join(
+                f"#{a.get('attempt')}: {a.get('launcher')}"
+                + (f"@{a.get('host')}" if a.get("host") else "")
+                + f" rc={a.get('rc')}"
+                + (f" measured={a.get('measured')} cached={a.get('cached')}"
+                   if a.get("measured") is not None else "")
+                for a in ss.attempt_log)
+            hist = f" — attempts: [{tries}]"
+        elif ss is not None and ss.attempts:
+            hist = f" — {ss.attempts} attempt(s), rc={ss.returncode}"
+        if not mine:
+            out.append(f"shard {i}: no pairs land on this shard{hist}")
+            continue
+        lines, owing = _pair_lines(plan.worker_stores()[i], mine,
+                                   canon_status)
+        total_owing += owing
+        verdict = "complete" if not owing else f"INCOMPLETE ({owing} " \
+            f"pair(s) owing)"
+        out.append(f"shard {i}: {verdict}{hist}")
+        if owing:
+            if ss is not None and budget.per_shard_cap \
+                    and ss.attempts >= budget.per_shard_cap:
+                out.append(
+                    f"  attempts exhausted: lifetime per-shard cap "
+                    f"{budget.per_shard_cap} reached ({ss.attempts} used) — "
+                    "raise --per-shard-cap, or --fresh to restart")
+            out.extend(lines)
+    if total_owing:
+        out.append(f"== verdict: INCOMPLETE — {total_owing} pair(s) still "
+                   "owe measurements; `python -m repro_torch.fleet run --plan "
+                   "... --resume` re-launches only the owing shards")
+    else:
+        out.append("== verdict: COMPLETE — every pair is covered; a resume "
+                   "replays with zero new measurements")
+    if explain:
+        out.extend(_explain_lines(plan, covered=not total_owing))
+    return (1 if total_owing else 0), "\n".join(out)
+
+
+def _explain_lines(plan: SweepPlan, *, covered: bool) -> list[str]:
+    """The ``doctor --explain`` section: replay the covered store's
+    classification (readonly, measurement-free) and render each region's
+    evaluated decision path."""
+    from repro_torch.core.calibration import resolve_thresholds
+    from repro_torch.core.campaign import Campaign, CampaignStore, store_exists
+    from repro_torch.core.controller import Controller
+
+    out = ["== explain: decision path per region"]
+    if not store_exists(plan.store):
+        out.append("  canonical store absent — run the fleet (or merge the "
+                   "worker stores) first")
+        return out
+    if not covered:
+        out.append("  grid incomplete — explain replays the store without "
+                   "measuring, so it needs full coverage first")
+        return out
+    store = CampaignStore(plan.store, readonly=True)
+    low, high, prov = resolve_thresholds(store)
+    out.append(f"  thresholds: {prov} (low={low:g}, high={high:g})")
+    qpolicy, qbudget = _plan_quality(plan)
+    ctl = Controller(reps=plan.reps, compile_once=plan.compile_once)
+    camp = Campaign(store, ctl, workers=plan.workers, quality=qpolicy,
+                    remeasure=qbudget, heal_quarantined=False,
+                    thresholds=(low, high))
+    try:
+        reports = _classify_regions(plan, camp, "gate")
+    except Exception as e:                  # noqa: BLE001 — forensics only
+        out.append(f"  explain failed to replay the store: {e}")
+        return out
+    for name, rep in sorted(reports.items()):
+        b = rep.bottleneck
+        out.append(f"  {name}: {b.label} (confidence {b.confidence:.2f})")
+        out.append("    absorptions: " + ", ".join(
+            f"{m}={r.fit.k1:.1f}" for m, r in sorted(rep.results.items())))
+        path = b.path or {}
+        nodes = path.get("nodes", [])
+        if nodes:
+            chain = " -> ".join(f"{n['node']}{'*' if n['fired'] else ''}"
+                                for n in nodes)
+            out.append(f"    path [{path.get('strategy')}]: {chain} "
+                       "(* = fired)")
+        out.append(f"    why: {b.explanation}")
+        if b.evidence is not None:
+            bad = [e["mode"] for e in b.evidence if not e["supports"]]
+            if bad:
+                out.append("    audit downgrade: conflicting mode(s) "
+                           + ", ".join(sorted(bad)))
+        if b.quality is not None:
+            quar = [q["mode"] for q in b.quality if q["quarantined"]]
+            if quar:
+                out.append("    quality downgrade: quarantined point(s) in "
+                           + ", ".join(sorted(quar)))
+    return out

@@ -20,12 +20,11 @@ so every participant (the launcher, each worker subprocess, a human at the
 
 The JSON schema, digest and grid order are the reference's (``repro.fleet.
 plan``), so a plan file names the same regions in both packages. What the
-port accepts is narrower: ``backend`` "cuda" (the default) or "cpu", the
-single-file store layout, "step" targets of every family (but an encdec
-decode step, which the reference cannot build: ``KeyError: 'frames'``),
-and "serve" targets of the paged layout's families (dense, moe and vlm
-without a sliding window), refused at plan time where the reference fails
-later in every worker.
+port accepts is narrower: ``backend`` "cuda" (the default) or "cpu",
+"step" targets of every family (but an encdec decode step, which the
+reference cannot build: ``KeyError: 'frames'``), and "serve" targets of
+the paged layout's families (dense, moe and vlm without a sliding window),
+refused at plan time where the reference fails later in every worker.
 
 Plan JSON (one object, schema-versioned):
 
@@ -243,13 +242,17 @@ class SweepPlan:
     reference's "auto", "pallas", "interpret" and "ref" are refused: "auto"
     would fall back to the CPU without saying so.
 
-    ``launcher`` (optional): ``{"kind": "local"[, "in_process": true]}`` or
+    ``launcher`` (optional): ``{"kind": "local"[, "in_process": true]}``,
+    ``{"kind": "ssh", "hosts": [{addr, python, workdir, env}, ...]}``, or
     ``{"kind": "mock", "script": {"0": ["crash"], ...}}`` for deterministic
     fault injection. ``retry`` (optional): ``{"max_attempts": N, "backoff":
-    s, "per_shard_cap": M}``. ``store_format`` (optional): None or "jsonl"
-    (the single-file layout). ``quality`` (optional): one flat dict of
-    QualityPolicy and RemeasureBudget fields. Each optional field is
-    serialized — and hashed into the digest — only when set.
+    s, "per_shard_cap": M}``. ``store_format`` (optional): "jsonl" (one
+    legacy file, the default) or "segments" (``core.segments`` —
+    append-only segments and a manifest: incremental merges and ``fleet
+    watch``'s live status; not with the ssh launcher). ``quality``
+    (optional): one flat dict of QualityPolicy and RemeasureBudget fields.
+    Each optional field is serialized — and hashed into the digest — only
+    when set.
     """
     name: str
     store: str
@@ -290,21 +293,33 @@ class SweepPlan:
         specs (lazy import: launchers sit above plan in the layer order)."""
         from repro_torch.fleet import launchers as ln
 
-        if self.store_format not in (None, "jsonl"):
-            raise PlanError(f"store_format {self.store_format!r} is not "
-                            "supported; one of [None, 'jsonl'] (the "
-                            "segmented layout is not ported)")
+        if self.store_format not in (None, "jsonl", "segments"):
+            raise PlanError(f"store_format {self.store_format!r} unknown; "
+                            "one of ['jsonl', 'segments']")
+        if (self.store_format == "segments" and self.launcher is not None
+                and self.launcher.get("kind") == "ssh"):
+            # the ssh launcher pushes and pulls ONE file per worker store; a
+            # segment directory does not fit that staging protocol
+            raise PlanError("store_format 'segments' is not supported with "
+                            "the ssh launcher (single-file staging); use "
+                            "local/mock, or the default jsonl layout")
         if self.launcher is not None:
             kind = self.launcher.get("kind")
             if kind not in ln.LAUNCHER_KINDS:
                 raise PlanError(f"launcher kind {kind!r} unknown; one of "
                                 f"{list(ln.LAUNCHER_KINDS)}")
             unknown = sorted(set(self.launcher)
-                             - {"kind", "script", "in_process"})
+                             - {"kind", "hosts", "script", "in_process"})
             if unknown:
                 raise PlanError(f"unknown launcher key(s) {unknown}")
             try:
-                if kind == "mock":
+                if kind == "ssh":
+                    hosts = [ln.HostSpec.from_dict(h)
+                             for h in self.launcher.get("hosts", [])]
+                    if not hosts:
+                        raise PlanError("ssh launcher spec needs a "
+                                        "non-empty hosts list")
+                elif kind == "mock":
                     ln.MockClusterLauncher(self.launcher.get("script"))
             except ln.FleetError as e:
                 raise PlanError(str(e)) from e

@@ -1,6 +1,6 @@
 """Threshold calibration in the port (``repro_torch.core.calibration``):
-the reference's ``tests/test_calibration.py`` cases that need no segmented
-store, run through the port, plus the fleet's ``calibrate`` kind, its CLI
+the reference's ``tests/test_calibration.py`` cases, the segmented layout's
+included, run through the port, plus the fleet's ``calibrate`` kind, its CLI
 and classification under a calib record.
 
 Pinned contracts, as the reference's:
@@ -184,6 +184,23 @@ def test_calib_records_supersede_by_hw_and_survive_merge(tmp_path):
     merged = str(tmp_path / "m.jsonl")
     merge_stores(merged, [path])
     assert CampaignStore(merged, readonly=True).calib == loaded.calib
+
+
+def test_calib_records_survive_the_segmented_layout_and_compaction(
+        tmp_path):
+    from repro_torch.core.campaign import CampaignStore, compact_store
+
+    path = str(tmp_path / "s.jsonl")
+    store = CampaignStore(path, segmented=True)
+    store.append(_calib_rec(low=1.0, high=9.0))
+    store.close()
+    store = CampaignStore(path, segmented=True)
+    store.append(_calib_rec(low=4.5, high=16.5))
+    store.close()
+    compact_store(path)
+    loaded = CampaignStore(path)
+    loaded.close()
+    assert loaded.calib["cpu"]["low"] == 4.5
 
 
 class _FakeStore:

@@ -191,8 +191,10 @@ def test_plan_round_trips_and_grids_like_the_reference(tmp_path):
     ({"backend": "interpret"}, r"\['cuda', 'cpu'\]"),
     ({"backend": "pallas"}, r"\['cuda', 'cpu'\]"),
     ({"backend": "ref"}, r"\['cuda', 'cpu'\]"),
-    ({"store_format": "segments"}, "segmented layout is not ported"),
-    ({"launcher": {"kind": "ssh", "hosts": []}}, "launcher kind 'ssh'"),
+    ({"store_format": "segments",
+      "launcher": {"kind": "ssh", "hosts": [{"addr": "n0"}]}},
+     "not supported with the ssh launcher"),
+    ({"launcher": {"kind": "ssh", "hosts": []}}, "non-empty hosts list"),
     ({"targets": [TargetSpec("serve", ("fp_add32",),
                              {"arch": "gemma_2b", "slots": 0})]}, "slots"),
     ({"targets": [TargetSpec("serve", ("fp_add32",), {})]}, "arch"),

@@ -1,5 +1,6 @@
-"""The port stands alone: no module under ``src/repro_torch/`` and not
-``chip_smoke.py`` imports jax, jaxlib or the reference package; importing
+"""The port stands alone: no module under ``src/repro_torch/``, not
+``chip_smoke.py`` and not the port's examples import jax, jaxlib or the
+reference package; importing
 the port's entry point loads no jax; the CLI refuses to run without a card
 unless asked for the CPU; ``chip_smoke.py`` fails, printing no result,
 without a card or outside a checkout."""
@@ -16,6 +17,8 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_FILES = sorted(glob.glob(os.path.join(ROOT, "src", "repro_torch", "**",
                                            "*.py"), recursive=True))
+EXAMPLES = [os.path.join(ROOT, "examples", name)
+            for name in ("torch_fleet_probe.py", "torch_multihost_fleet.py")]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
@@ -35,8 +38,9 @@ def _imported_roots(path):
 
 
 @pytest.mark.parametrize(
-    "path", PORT_FILES + [os.path.join(ROOT, "chip_smoke.py")],
-    ids=[os.path.relpath(p, ROOT) for p in PORT_FILES] + ["chip_smoke.py"])
+    "path", PORT_FILES + [os.path.join(ROOT, "chip_smoke.py")] + EXAMPLES,
+    ids=[os.path.relpath(p, ROOT) for p in PORT_FILES] + ["chip_smoke.py"]
+    + [os.path.relpath(p, ROOT) for p in EXAMPLES])
 def test_no_jax_or_reference_import(path):
     bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
@@ -47,6 +51,7 @@ def test_scan_sees_the_whole_package():
     assert "src/repro_torch/launch/probe.py" in names
     assert "src/repro_torch/kernels/spmv_ell/kernel.py" in names
     assert "src/repro_torch/fleet/executor.py" in names
+    assert "src/repro_torch/core/segments.py" in names
     assert "src/repro_torch/kernels/flash_attention/kernel.py" in names
     assert "src/repro_torch/core/injector.py" in names
     assert "src/repro_torch/models/attention.py" in names
@@ -80,7 +85,8 @@ SPINE_MODULES = ("repro_torch.fleet", "repro_torch.fleet.__main__",
                  "repro_torch.kernels.flash_attention",
                  "repro_torch.kernels.flash_attention.kernel",
                  "repro_torch.kernels.flash_attention.ref",
-                 "repro_torch.launch.probe", "repro_torch.core.campaign")
+                 "repro_torch.launch.probe", "repro_torch.core.campaign",
+                 "repro_torch.core.segments", "repro_torch.core")
 
 
 def test_fleet_and_attention_import_with_jax_and_reference_blocked():
@@ -89,7 +95,13 @@ def test_fleet_and_attention_import_with_jax_and_reference_blocked():
             + "".join(f"importlib.import_module({m!r})\n"
                       for m in SPINE_MODULES)
             + "from repro_torch.fleet.cli import build_parser\n"
-            + "build_parser().parse_args(['status', '--plan', 'p.json'])\n")
+            + "build_parser().parse_args(['status', '--plan', 'p.json'])\n"
+            + "build_parser().parse_args(['doctor', '--plan', 'p.json', "
+              "'--explain'])\n"
+            + "build_parser().parse_args(['watch', '--plan', 'p.json', "
+              "'--once'])\n"
+            + "build_parser().parse_args(['run', '--plan', 'p.json', "
+              "'--launcher', 'ssh', '--hosts', 'h.json'])\n")
     subprocess.run([sys.executable, "-c", code], env=_env(), check=True,
                    timeout=120)
 
@@ -245,8 +257,9 @@ def _imported_names(path):
 
 
 @pytest.mark.parametrize(
-    "path", PORT_FILES + [os.path.join(ROOT, "chip_smoke.py")],
-    ids=[os.path.relpath(p, ROOT) for p in PORT_FILES] + ["chip_smoke.py"])
+    "path", PORT_FILES + [os.path.join(ROOT, "chip_smoke.py")] + EXAMPLES,
+    ids=[os.path.relpath(p, ROOT) for p in PORT_FILES] + ["chip_smoke.py"]
+    + [os.path.relpath(p, ROOT) for p in EXAMPLES])
 def test_no_import_of_torch_testing_internals(path):
     bad = [n for n in _imported_names(path)
            if n.startswith("torch.testing._internal")]

@@ -217,8 +217,12 @@ def test_store_refuses_corruption_and_segmented_layouts(tmp_path):
                    '{"kind": "sens", "region": "r", "mode": "m", "value": 2}\n')
     with pytest.raises(CampaignStoreError, match="corrupt"):
         CampaignStore(str(bad))
+    # the reference's layout guard: a legacy file and a segment directory
+    # at one store path are ambiguous, and refused
     (tmp_path / "seg.segments").mkdir()
-    with pytest.raises(CampaignStoreError, match="segmented"):
+    (tmp_path / "seg.jsonl").write_text("")
+    with pytest.raises(CampaignStoreError,
+                       match="both a legacy store file and a segment dir"):
         CampaignStore(str(tmp_path / "seg.jsonl"))
     with pytest.raises(FileNotFoundError):
         CampaignStore(str(tmp_path / "missing.jsonl"), readonly=True)
