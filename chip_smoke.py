@@ -26,7 +26,8 @@ JAX or of the reference package. Phases, each of which fails the run:
    HMMA, LDS, LDG, LDG) from k=4 to k=24; the libraries' SASS dumped in a
    thread pool first; alongside, the static audit's builds (k = 4, 12
    and clean of every pair phases 4 and 11 audit, the sabotaged probe's)
-   and the static builds of phase 4's payload checks (``PAYLOAD_KS``);
+   and the static builds of phase 4's and 14's payload checks
+   (``PAYLOAD_KS``, ``EXAMPLE_PAYLOAD_KS``);
 3. check: every kernel, mode and k in {0, 1, 24, K_MAX+7} against its plain
    PyTorch version on the card at moderate sizes (attention: B=2, H=8,
    KH=2, S=512, hd 64, 128 and 256, causal / non-causal / window 128, f32
@@ -251,8 +252,8 @@ JAX or of the reference package. Phases, each of which fails the run:
    reference's dry-run reaches no Pallas call): the production-mesh cells
    of gemma-2b traced on the host by ``python -m
    repro_torch.launch.dryrun`` (``decode_32k`` and ``train_4k`` on 16 x
-   16, ``decode_32k`` on 2 x 16 x 16; one process each, started first so
-   they overlap the card's cells), each ``OK`` with argument bytes inside
+   16, ``decode_32k`` on 2 x 16 x 16; one process each, started before
+   phase 12 so they overlap it and the card's cells), each ``OK`` with argument bytes inside
    80 GiB; beside them gemma-2b at full width and 2 of 18 layers, a
    training step (4 x 512 tokens, M = 1) and a decode tick (4 sequences,
    a cache of 4,096 positions) traced on meta over a one-rank fake group
@@ -265,6 +266,24 @@ JAX or of the reference package. Phases, each of which fails the run:
    16 x 16 records' report and ``launch.probe --analytic`` on train_4k's
    record through the probe's entry point twice, the second replaying 0
    measured.
+
+14. the port's four examples (``examples/torch_*.py``) in this process
+   through their ``main``s at their defaults on the card, each driven as
+   phase 4's paths are (counts at 0 just before it, read just after), its
+   seconds printed beside the card: the quickstart (STREAM n = 2^22 and
+   HACCmk 60,000 iterations on ``stream_kernel`` and ``haccmk_kernel``,
+   fp_add, l1_ld and mem_ld at 3 reps; payload = expected for each);
+   probe_train_step (gemma-2b's smoke train step at 128 x 4 under
+   fp_add32, mxu_fma128, vmem_ld and hbm_stream on the graph-noise
+   kernels, payload = expected for each; the analytic half on phase 13's
+   train_4k 16 x 16 record when phase 13 ran, else traced on the host);
+   serve_lm (deepseek-coder-33b's smoke config, 10 requests on 4 slots:
+   every request done, its greedy tokens equal to the same request served
+   alone on one slot); train_lm at the reference's full class (``--dim
+   768 --layers 12``, 109.3M parameters) for 150 steps with the failure
+   at step 75: steps 50-74 replayed from the step-50 checkpoint, every
+   replayed loss bitwise equal to its first run's; the loss trajectory
+   and seconds a step printed.
 
 The last lines are the card, one ``{"kernels": [...]}`` JSON object (when
 phase 6 ran), and ``{"ok": true, "device": {...}}``.
@@ -608,7 +627,19 @@ PAYLOAD_KS = {"probe": (("fp", 320), ("vmem", 320)),
                                  ("vmem", 320), ("vmem", 64))}
 
 
+# phase 14's payload checks, built in the same pool: the quickstart's
+# STREAM sweeps end at 320 and HACCmk's mem_ld at 2 (its fp_add at 24 and
+# l1_ld at 12 are the census's and the audit's builds); probe_train_step's
+# graph modes at 128, half the last k of a whole sweep
+EXAMPLE_PAYLOAD_KS = {"loop_regions": (("fp_add", 320), ("l1_ld", 320),
+                                       ("mem_ld", 320), ("mem_ld", 2)),
+                      "graph_noise": (("fp_add32", 128), ("mxu_fma128", 128),
+                                      ("vmem_ld", 128), ("hbm_stream", 128))}
+
+
 def _payload_set():
+    from repro_torch.core.loopnoise import MODE_IDS as LOOP_IDS
+    from repro_torch.kernels.graph_noise.kernel import MODE_IDS as GRAPH_IDS
     from repro_torch.kernels.noise_slots import MODE_IDS
 
     src = {"probe": ("noise_probes", ()), "spmxv": ("spmv_ell", ()),
@@ -616,8 +647,11 @@ def _payload_set():
            "attention": ("flash_attention", attention_variant(128, "float32")),
            "attention hd64": ("flash_attention",
                               attention_variant(64, "float32"))}
+    ids = {"loop_regions": LOOP_IDS, "graph_noise": GRAPH_IDS}
     return [(src[kern][0], MODE_IDS[m], k, src[kern][1])
-            for kern, pairs in PAYLOAD_KS.items() for m, k in pairs]
+            for kern, pairs in PAYLOAD_KS.items() for m, k in pairs] + [
+        (source, ids[source][m], k, ())
+        for source, pairs in EXAMPLE_PAYLOAD_KS.items() for m, k in pairs]
 
 
 def _check_set():
@@ -702,7 +736,8 @@ def _fadd_grows(kernel: str, defines: tuple, per_pattern: int) -> None:
 def _census_paths() -> list:
     """The libraries phase 2's SASS census reads: the run-time library,
     the fp kernels' and the graph modes' static builds at K_LO and k=24,
-    the loop and DECAN ones at k=8 and 24."""
+    the loop and DECAN ones at k=8 and 24; and the loop builds of phase
+    14's payload census."""
     from repro_torch.analysis import K_LO
     from repro_torch.core.loopnoise import MODE_IDS as LOOP_IDS
     from repro_torch.kernels import _build
@@ -716,6 +751,10 @@ def _census_paths() -> list:
     libs += [(src, LOOP_IDS[m], k, ()) for src in ("loop_regions",
                                                    "decan_loops")
              for m in LOOP_MODES for k in (8, STATIC_CHECK_K)]
+    # the quickstart's payload census: its loop builds against the clean one
+    libs += [("loop_regions", LOOP_IDS[m], k, ())
+             for m, k in EXAMPLE_PAYLOAD_KS["loop_regions"]]
+    libs += [("loop_regions", 0, 0, ())]
     return [_build.runtime_lib_path()] + [
         _build.static_lib_path(*lib, sabotage=False) for lib in libs]
 
@@ -764,7 +803,7 @@ def phase_build() -> None:
           f"parallel nvcc + link): {rt_s:.1f} s; {len(statics)} static-k "
           f"builds alongside ({n_audit} of them for the audit, "
           f"{len(want) - len(set(_check_set() + _audit_set()))} for phase "
-          f"4's payload checks; slowest {max(static_s):.1f} s): "
+          f"4's and 14's payload checks; slowest {max(static_s):.1f} s): "
           f"{time.perf_counter() - t0:.1f} s in all")
     t0 = time.perf_counter()
     paths = _census_paths()
@@ -4574,7 +4613,7 @@ def _host_cells(tmp: str, started: dict) -> dict:
             "roofline": text.splitlines()[1].strip(),
             "memory": rec["memory"], "trace_s": rec["compile_s"],
             "n_ops": rec["n_ops"],
-            "wall_s": round(time.perf_counter() - t0, 1)}
+            "wall_s": round(time.perf_counter() - t0, 1), "record": rec}
     return cells
 
 
@@ -4603,9 +4642,10 @@ def _analytic_route(tmp: str) -> list:
             if ln.strip().startswith(("=>", "["))]
 
 
-def phase_dryrun(tmp: str) -> dict:
+def phase_dryrun(tmp: str, started: dict) -> dict:
     """Phase 13: the dry-run held against the card, and the production
-    meshes traced on the host beside it (started first, so they overlap
+    meshes traced on the host beside it (``started`` by
+    ``_start_host_cells`` before phase 12, so they overlap phase 12 and
     the card's cells)."""
     from repro_torch.parallel import fake
 
@@ -4615,14 +4655,15 @@ def phase_dryrun(tmp: str) -> dict:
            "analytic probe")
     t_phase = time.perf_counter()
     print(f"FakeProcessGroup available: {fake.available()}", flush=True)
-    started = _start_host_cells(tmp)
-    try:
-        return _dryrun_phase(tmp, started, t_phase)
-    finally:        # a failure leaves no trace process behind
-        for _, proc in started.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
+    return _dryrun_phase(tmp, started, t_phase)
+
+
+def _stop(started: dict) -> None:
+    """Kill the host cells' processes that are still running."""
+    for _, proc in started.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
 
 
 def _dryrun_phase(tmp: str, started: dict, t_phase: float) -> dict:
@@ -4754,7 +4795,146 @@ def _dryrun_phase(tmp: str, started: dict, t_phase: float) -> dict:
     return {"cells": results, "host": host, "seconds": seconds}
 
 
-PHASES = (1, 2, 3, 4, 6, 7, 8, 9, 10, 11, 12, 13)   # 4 runs 4 and 5
+# ---------------------------------------------------------------------------
+# phase 14: the port's examples
+# ---------------------------------------------------------------------------
+
+# train_lm at the reference's full class; 150 steps fail at 75, after the
+# step-50 checkpoint, so steps 50-74 run twice (200 would fail at 100, on a
+# checkpoint, and replay nothing)
+EXAMPLE_TRAIN_ARGS = ("--dim", "768", "--layers", "12", "--steps", "150")
+EXAMPLE_TRAIN_REPLAYED = tuple(range(50, 75))
+
+
+def _example(name: str):
+    """``examples/<name>.py`` loaded as a module (its ``main`` not run)."""
+    import importlib.util
+
+    path = os.path.join(HERE, "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _example_quickstart() -> dict:
+    reports = _example("torch_quickstart").main([])
+    # the verdict: every pattern survived (payload = k by the aux oracle
+    # and the SASS census); the loads' address arithmetic is overhead
+    bad = [f"{key}/{mode}" for key, rep in reports.items()
+           for mode, res in rep.results.items()
+           if res.injection is None
+           or res.injection.payload != res.injection.expected]
+    if bad:
+        raise RuntimeError(f"quickstart: payload != expected: {bad}")
+    return {key: {"label": rep.bottleneck.label,
+                  "abs_raw": rep.absorptions(),
+                  "payload": {m: [r.injection.payload, r.injection.expected,
+                                  r.injection.overhead]
+                              for m, r in rep.results.items()}}
+            for key, rep in reports.items()}
+
+
+def _example_probe(tmp: str, record: Optional[dict]) -> dict:
+    dryrun_dir = os.path.join(tmp, "dryrun", "16x16")
+    if record is not None:          # phase 13's train_4k record
+        os.makedirs(dryrun_dir, exist_ok=True)
+        with open(os.path.join(dryrun_dir, "gemma_2b_train_4k.json"),
+                  "w") as f:
+            json.dump(record, f)
+    probes, rep = _example("torch_probe_train_step").main(
+        ["--dryrun-dir", dryrun_dir, "--store",
+         os.path.join(tmp, "pred.jsonl")])
+    short = {m: (pr.injection.payload, pr.injection.expected)
+             for m, pr in probes.items()
+             if pr.injection.payload != pr.injection.expected}
+    if short:
+        raise RuntimeError(f"probe_train_step: payload != expected: {short}")
+    return {"measured": {m: pr.fit.k1 for m, pr in probes.items()},
+            "analytic": rep.bottleneck.label,
+            "record": "phase 13" if record is not None else "traced"}
+
+
+def _example_serve() -> dict:
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import build
+    from repro_torch.serve import ServeEngine
+
+    ex = _example("torch_serve_lm")
+    requests, dt = ex.main([])
+    if not all(r.done for r in requests):
+        raise RuntimeError("serve_lm: a request is not done")
+    api = build(get_smoke_config(ex.ARCH))
+    params = api.init(0, "cuda")        # the example's weights (seed 0)
+    alone = []
+    for r in requests:
+        engine = ServeEngine(api, params, n_slots=1, max_seq=ex.MAX_SEQ,
+                             temperature=0.0)
+        solo = engine.submit(r.prompt, max_new=ex.MAX_NEW)
+        engine.run()
+        alone.append(solo.out == r.out)
+    if not all(alone):
+        raise RuntimeError(f"serve_lm: {alone.count(False)} of "
+                           f"{len(alone)} requests differ from the same "
+                           "request served alone")
+    total = sum(len(r.out) for r in requests)
+    return {"tokens": total, "seconds": dt, "tok_s": total / dt,
+            "equal_alone": len(alone)}
+
+
+def _example_train(tmp: str) -> dict:
+    ex = _example("torch_train_lm")
+    _, hist = ex.main([*EXAMPLE_TRAIN_ARGS, "--ckpt-dir",
+                       os.path.join(tmp, "ckpt")])
+    again = ex.replays(hist)
+    if tuple(step for step, _, _ in again) != EXAMPLE_TRAIN_REPLAYED:
+        raise RuntimeError(f"train_lm: replayed steps "
+                           f"{[step for step, _, _ in again]}, not 50-74")
+    differ = [(step, a, b) for step, a, b in again if a != b]
+    if differ:
+        raise RuntimeError(f"train_lm: replayed losses not bitwise equal "
+                           f"to their first run: {differ[:5]}")
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        raise RuntimeError("train_lm: a loss is not finite")
+    walls = sorted(h["wall_s"] for h in hist[1:])
+    return {"executed": len(hist), "replayed": len(again),
+            "loss": [round(h["loss"], 4) for h in hist
+                     if h["step"] % 25 == 0 or h["step"] == 149],
+            "median_s_a_step": walls[len(walls) // 2],
+            "first_step_s": hist[0]["wall_s"]}
+
+
+def phase_examples(tmp: str, kernels: Kernels,
+                   record: Optional[dict] = None) -> dict:
+    """Phase 14: the four examples through their mains on the card.
+    ``record``: phase 13's train_4k 16 x 16 dry-run record, when it
+    ran."""
+    banner("14. the port's examples on the card: quickstart, "
+           "probe_train_step, serve_lm, train_lm (768 x 12, 150 steps)")
+    seconds: dict = {}
+    counts = {name: [0, 0] for name in kernels.rows}
+    res: dict = {}
+    paths = (("quickstart", ("stream_triad", "haccmk"), _example_quickstart),
+             ("probe_train_step", ("graph_fp_add32", "graph_mxu_fma128",
+                                   "graph_vmem_ld", "graph_hbm_stream"),
+              partial(_example_probe, tmp, record)),
+             ("serve_lm", (), _example_serve),
+             ("train_lm", (), partial(_example_train, tmp)))
+    for name, kernel, fn in paths:
+        _free(f"before the example {name}")
+        res[name] = drive(kernels, counts, seconds, f"example_{name}",
+                          kernel, fn)
+        print(f"example {name}: {json.dumps(res[name])}; "
+              f"{seconds[f'example_{name}']:.1f} s; {card_line()}",
+              flush=True)
+    _free("after the examples")
+    print("phase 14 wall time per example (s): "
+          + json.dumps({k: round(v, 1) for k, v in seconds.items()})
+          + f"; {card_line()}", flush=True)
+    return {name: n_cuda for name, (n_cuda, _) in counts.items()}
+
+
+PHASES = (1, 2, 3, 4, 6, 7, 8, 9, 10, 11, 12, 13, 14)   # 4 runs 4 and 5
 
 
 def parse_phases(text: Optional[str]) -> list:
@@ -4842,16 +5022,27 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_audit_") as tmp:
             phase_audit(tmp)
         lap("11")
-    if 12 in phases:
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
-            phase_mesh(tmp)
-        lap("12")
-    if 13 in phases:
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
-            phase_dryrun(tmp)
-        lap("13")
+    train_4k = None
+    with contextlib.ExitStack() as stack:
+        if 13 in phases:    # its host traces run beside phase 12
+            dry_tmp = stack.enter_context(
+                tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_"))
+            started = _start_host_cells(dry_tmp)
+            stack.callback(_stop, started)  # a failure leaves none behind
+        if 12 in phases:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+                phase_mesh(tmp)
+            lap("12")
+        if 13 in phases:
+            train_4k = phase_dryrun(dry_tmp, started)[
+                "host"]["train_4k [16x16]"]["record"]
+            lap("13")
+    if 14 in phases:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+            serve_launches.append(phase_examples(tmp, kernels, train_4k))
+        lap("14")
     print(f"\nwall time per phase (s): {json.dumps(elapsed)}")
-    for row in rows:        # the serving paths are main paths too
+    for row in rows:        # the serving, training and example paths too
         row["launches"] += sum(n[row["name"]] for n in serve_launches)
     print(f"\nchip_smoke: {'all phases' if phases == list(PHASES) else 'phases ' + ','.join(map(str, phases))} "
           f"passed in {time.perf_counter() - t_start:.1f} s")

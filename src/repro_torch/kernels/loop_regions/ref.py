@@ -124,8 +124,8 @@ def run_noise(mode: str, carry: dict, k: int, groups: int,
               schedule) -> torch.Tensor:
     """Emit k patterns per iteration for ``groups`` carries;
     ``schedule`` yields (i, active): the iteration index of every group
-    (an int64 tensor) and which groups run it (None: all). Returns
-    ``lane_values`` of the final carries."""
+    (an int64 tensor, or an int that all groups share) and which groups
+    run it (None: all). Returns ``lane_values`` of the final carries."""
     noise = _MODES[mode]
     cur = _grouped(carry, groups)
     for i, active in schedule:
@@ -141,9 +141,11 @@ def _strided_schedule(n_iter: int, warps: int, device):
         yield i, (None if (r + 1) * warps <= n_iter else i < n_iter)
 
 
-def _serial_schedule(n_iter: int, device):
+def _serial_schedule(n_iter: int):
+    # a plain int: the patterns' offsets are host arithmetic and their rows
+    # views, not a device tensor and kernels an iteration
     for i in range(n_iter):
-        yield torch.tensor([i], dtype=torch.int64, device=device), None
+        yield i, None
 
 
 def _warp_aux(mode, carry, k, n_iter, device, warps=None) -> torch.Tensor:
@@ -163,7 +165,7 @@ def _uniform_aux(mode, carry, k, n_iter, n_threads, device,
     iteration (one carry, lane = thread % 8)."""
     if mode == "none":
         return torch.zeros((), dtype=torch.float32, device=device)
-    lanes = run_noise(mode, carry, k, 1, _serial_schedule(n_iter, device))[0]
+    lanes = run_noise(mode, carry, k, 1, _serial_schedule(n_iter))[0]
     per_thread = lanes[torch.arange(n_threads, device=device) % VEC]
     return reduce_threads(per_thread, block)
 

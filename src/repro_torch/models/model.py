@@ -103,9 +103,15 @@ class ModelApi:
 
     def dummy_batch(self, shape: ShapeConfig,
                     generator: Optional[torch.Generator] = None, *,
-                    device="cpu", **kw) -> dict[str, Any]:
+                    device="cuda", **kw) -> dict[str, Any]:
         """A concrete random batch matching ``input_specs``: drawn from a CPU
-        ``generator`` (default: seeded 0), then moved to ``device``."""
+        ``generator`` (default: seeded 0), then moved to ``device`` (the
+        card unless the caller asks for another, as ``init``; without a
+        card "cuda" raises, as ``kernels.region.resolve_device`` does)."""
+        if torch.device(device).type == "cuda" \
+                and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass "
+                               "device='cpu' for a batch on the CPU")
         gen = generator if generator is not None \
             else torch.Generator().manual_seed(0)
         out = {}

@@ -285,7 +285,8 @@ def test_input_specs_with_frames(kind):
         assert str(spec.dtype).split(".")[-1] == str(rspecs[name].dtype)
     if kind == "train":
         assert specs["frames"].shape == (2, cfg.enc_frames, cfg.d_model)
-        batch = api.dummy_batch(ShapeConfig("s", kind, 32, 2))
+        batch = api.dummy_batch(ShapeConfig("s", kind, 32, 2),
+                                device="cpu")
         assert batch["frames"].dtype == torch.bfloat16
         loss, _ = api.loss(api.init(0, "cpu"), batch)
         assert torch.isfinite(loss)

@@ -46,7 +46,7 @@ def steps():
 
     api = build(get_smoke_config("gemma_2b"))
     params = api.init(0, "cpu")
-    batch = api.dummy_batch(ShapeConfig("p", "train", 16, 2))
+    batch = api.dummy_batch(ShapeConfig("p", "train", 16, 2), device="cpu")
     cache = api.decode_init(params, {"tokens": torch.zeros((2, 1)),
                                      "max_seq": 16})
     toks = torch.zeros((2, 1), dtype=torch.int32)

@@ -17,8 +17,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_FILES = sorted(glob.glob(os.path.join(ROOT, "src", "repro_torch", "**",
                                            "*.py"), recursive=True))
-EXAMPLES = [os.path.join(ROOT, "examples", name)
-            for name in ("torch_fleet_probe.py", "torch_multihost_fleet.py")]
+EXAMPLES = sorted(glob.glob(os.path.join(ROOT, "examples", "torch_*.py")))
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
@@ -44,6 +43,13 @@ def _imported_roots(path):
 def test_no_jax_or_reference_import(path):
     bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_scan_sees_every_port_example():
+    names = {os.path.basename(p) for p in EXAMPLES}
+    assert {"torch_fleet_probe.py", "torch_multihost_fleet.py",
+            "torch_quickstart.py", "torch_probe_train_step.py",
+            "torch_serve_lm.py", "torch_train_lm.py"} <= names
 
 
 def test_scan_sees_the_whole_package():

@@ -329,8 +329,27 @@ def test_input_specs_and_dummy_batch():
         "tokens": (3, 16), "labels": (3, 16)}
     assert tuple(api.input_specs(shape, for_decode=True)["tokens"].shape) \
         == (3, 1)
-    b = api.dummy_batch(shape, torch.Generator().manual_seed(3))
-    again = api.dummy_batch(shape, torch.Generator().manual_seed(3))
+    b = api.dummy_batch(shape, torch.Generator().manual_seed(3),
+                      device="cpu")
+    again = api.dummy_batch(shape, torch.Generator().manual_seed(3),
+                          device="cpu")
     assert torch.equal(b["tokens"], again["tokens"])
     assert b["tokens"].dtype == torch.int32
     assert int(b["tokens"].max()) < api.cfg.vocab_size
+
+
+def test_dummy_batch_defaults_to_the_card_and_raises_without_one():
+    """As ``init``, ``dummy_batch`` puts its batch on the card unless asked
+    for another device: with no card it raises and returns no CPU
+    tensors."""
+    from repro_torch.configs.base import ShapeConfig
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    api = build(configs.get_smoke_config("gemma_2b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.dummy_batch(ShapeConfig("t", "train", 16, 3))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.dummy_batch(ShapeConfig("t", "train", 16, 3), device="cuda")
+    b = api.dummy_batch(ShapeConfig("t", "train", 16, 3), device="cpu")
+    assert b["tokens"].device.type == "cpu"

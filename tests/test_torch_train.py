@@ -536,7 +536,7 @@ def test_an_unknown_remat_policy_raises(arch):
     api = build(cfg)
     params = api.init(0, "cpu")
     _, shape = _shape(16, 1)
-    batch = api.dummy_batch(shape)
+    batch = api.dummy_batch(shape, device="cpu")
     with pytest.raises(ValueError, match="unknown remat policy"):
         api.forward(params, batch, remat="everything")
 
@@ -545,7 +545,7 @@ def test_lm_forward_refuses_an_unknown_keyword_and_a_bad_group():
     cfg = configs.get_smoke_config("gemma_2b")
     api = build(cfg)
     params = api.init(0, "cpu")
-    batch = api.dummy_batch(_shape(16, 1)[1])
+    batch = api.dummy_batch(_shape(16, 1)[1], device="cpu")
     with pytest.raises(TypeError):
         api.forward(params, batch, remat="nothing", bogus=1)
     with pytest.raises(ValueError, match="groups of 3"):

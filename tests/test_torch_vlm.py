@@ -152,7 +152,8 @@ def test_input_specs_and_dummy_batch_hold_the_image():
         k: tuple(v.shape) for k, v in ref_specs.items()}
     assert specs["img_embeds"].dtype == torch.bfloat16
     assert set(api.input_specs(shape, for_decode=True)) == {"tokens"}
-    b = api.dummy_batch(shape, torch.Generator().manual_seed(1))
+    b = api.dummy_batch(shape, torch.Generator().manual_seed(1),
+                      device="cpu")
     assert b["img_embeds"].shape == (3, 8, cfg.d_model)
     loss, aux = api.loss(api.init(0, "cpu"), b)
     assert torch.isfinite(loss) and set(aux) == {"nll"}
