@@ -314,6 +314,16 @@ SRC = os.path.join(HERE, "src")
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOPS = 495e12
 FP32_FLOPS = 67e12
+# one FADD or FMUL per FP32 lane and clock (132 SMs x 128 lanes x 1.98 GHz):
+# the most the loop kernels can reach, whose arithmetic is unfused by design
+# (__fadd_rn / __fmul_rn, rounded as their plain versions round); the
+# published FP32 peak counts an FFMA as two operations
+FP32_ISSUE_OPS = 33.5e12
+UNFUSED_FP32 = ("stream_triad", "lat_mem_rd", "haccmk", "spmxv", "matmul_O0",
+                "matmul_O3", "decan_table3", "decan_livermore")
+# the two STREAM triads (csrc/triad.cuh): their device time is held to
+# torch.add's and their run-time build at k=0 to their clean build's
+TRIAD_ROWS = ("stream_triad", "decan_table3")
 
 CHECK_KS = (0, 1, 24)           # plus K_MAX + 7 (the clamp)
 STATIC_CHECK_K = 24
@@ -2168,6 +2178,12 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
         t_ops = nops / peak * 1e3
         bound_ms = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        issue = {}
+        if name in UNFUSED_FP32:
+            t_issue = nops / FP32_ISSUE_OPS * 1e3
+            issue = {"issue_bound_ms": max(t_bytes, t_issue),
+                     "issue_bound_by": ("bytes" if t_bytes >= t_issue
+                                        else "operations")}
         share = {"event": bound_ms / kernel_ms,
                  "device": bound_ms / dev_ms if dev_ms else None}
         vs_lib = {"event": kernel_ms / library_ms if library_ms else None,
@@ -2188,6 +2204,25 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
                  "own records)"))
         print(f"  share of the bound (bound / time): {share}; kernel / "
               f"library call: {vs_lib}", flush=True)
+        if issue:
+            print(f"  FP32 issue-rate bound ({FP32_ISSUE_OPS:g} FADD/FMUL a "
+                  f"second): {issue['issue_bound_ms']!r} ms "
+                  f"({issue['issue_bound_by']}); device share "
+                  f"{issue['issue_bound_ms'] / dev_ms if dev_ms else None!r}",
+                  flush=True)
+        tgt = extra.get(name, {}).get("slot_ms", {}).get("target")
+        if tgt and all(None not in tgt[f] for f in ("clean", "row",
+                                                    "torch_add")):
+            med, ratios = tgt["median"], tgt["row_over_clean"]
+            ratio = statistics.median(ratios)
+            print(f"  {name} targets over {TARGET_READINGS} device readings "
+                  f"in turns (median [min, max]): device ms {med['row']!r} "
+                  f"[{min(tgt['row'])!r}, {max(tgt['row'])!r}] <= "
+                  f"torch.add's {med['torch_add']!r} [{min(tgt['torch_add'])!r}"
+                  f", {max(tgt['torch_add'])!r}]: "
+                  f"{med['row'] <= med['torch_add']}; run-time k=0 / clean "
+                  f"build {ratio!r} [{min(ratios)!r}, {max(ratios)!r}] "
+                  f"(median within 2%: {abs(ratio - 1) <= 0.02})", flush=True)
         if (name in ("noise_probes", "spmv_ell") or name in LOOP_PLAIN_REPS
                 ) and n_kernels != 1:
             one_launch.append(f"{label}: {n_kernels!r} kernels a call")
@@ -2201,7 +2236,8 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
                "device_records_whole": dev_whole,
                "library_device_ms": lib_dev_ms,
                "bound_share": share, "vs_library": vs_lib,
-               "kernels_per_call": n_kernels, **extra.get(name, {})}
+               "kernels_per_call": n_kernels, **issue,
+               **extra.get(name, {})}
         if name in out:     # spmv at q=1: beside the q=0 row
             out[name]["q1"] = {k: v for k, v in row.items()
                                if k not in ("name", "route", "source",
@@ -2242,25 +2278,7 @@ def _loop_rows():
 
     def main_call(region, name):
         fn, args = region.build_rt("fp_add"), region.args_for_rt("fp_add")
-        # the slot's own cost: each mode's run-time kernel at k=0 against
-        # the clean one, and its run-time and static builds at k=8
-        slot = {"clean": time_ms(partial(region.build("", 0),
-                                         *region.args_for("", 0)), reps=5,
-                                 warmup=1)}
-        for mode in LOOP_MODES:
-            rt = region.build_rt(mode)
-            slot[mode] = {
-                "rt_k0": time_ms(partial(rt, 0, *region.args_for_rt(mode)),
-                                 reps=5, warmup=1),
-                "rt_k8": time_ms(partial(rt, 8, *region.args_for_rt(mode)),
-                                 reps=3, warmup=1),
-                "static_k8": time_ms(partial(region.build(mode, 8),
-                                             *region.args_for(mode, 8)),
-                                     reps=3, warmup=1)}
-        print(f"{region.name}: event ms of the noise slot (clean kernel; "
-              f"each mode's run-time kernel at k=0 and k=8, static k=8): "
-              f"{slot}", flush=True)
-        extra.setdefault(name, {})["slot_ms"] = slot
+        extra.setdefault(name, {})["slot_ms"] = _slot_ms(region, name)
         return partial(fn, 0, *args), args
 
     # every call binds its tensors now (partial): the names are reused below
@@ -2346,6 +2364,64 @@ def _loop_rows():
     return rows, extra
 
 
+def _slot_ms(region, name: str, *, device: bool = False,
+             static: bool = True) -> dict:
+    """The noise slot's own cost in a loop kernel, event ms: the clean
+    build against each mode's run-time build at k=0, and its run-time and
+    (``static``) static builds at k=8; ``device``: each of these also in
+    device ms (``tools/torch_triad_bench.py``). For the triads
+    (TRIAD_ROWS) also ``target``: TARGET_READINGS device readings each of
+    the clean build, the row's call (fp_add's run-time build at k=0) and
+    torch.add on the same tensors, taken in turns, which phase 6 holds
+    the row to."""
+    import torch
+
+    clean = partial(region.build("", 0), *region.args_for("", 0))
+
+    def both(fn, reps):
+        ms = time_ms(fn, reps=reps, warmup=1)
+        return {"event": ms, "device": device_ms(fn)[0]} if device else ms
+
+    slot = {"clean": both(clean, 5)}
+    for mode in LOOP_MODES:
+        rt, args = region.build_rt(mode), region.args_for_rt(mode)
+        slot[mode] = {"rt_k0": both(partial(rt, 0, *args), 5),
+                      "rt_k8": both(partial(rt, 8, *args), 3)}
+        if static:
+            slot[mode]["static_k8"] = time_ms(
+                partial(region.build(mode, 8), *region.args_for(mode, 8)),
+                reps=3, warmup=1)
+    if name in TRIAD_ROWS:
+        a, b = region.args_for("", 0)[:2]
+        c_lib = torch.empty_like(a)
+        slot["target"] = _target_readings({
+            "clean": clean,
+            "row": partial(region.build_rt("fp_add"), 0,
+                           *region.args_for_rt("fp_add")),
+            "torch_add": partial(torch.add, a, b, alpha=3.0, out=c_lib)})
+    print(f"{region.name}: ms of the noise slot (clean kernel; each mode's "
+          f"run-time kernel at k=0 and k=8, static k=8): {slot}", flush=True)
+    return slot
+
+
+# device readings a triad's targets are read from (each a mean over
+# TIMING_REPS calls, the three calls in turns)
+TARGET_READINGS = 5
+
+
+def _target_readings(fns: dict) -> dict:
+    """{name: [device ms] * TARGET_READINGS} of ``fns``, read in turns,
+    with the medians and, for "row", its ratio to "clean" reading by
+    reading."""
+    out = {name: [] for name in fns}
+    for _ in range(TARGET_READINGS):
+        for name, fn in fns.items():
+            out[name].append(device_ms(fn)[0])
+    out["median"] = {name: statistics.median(out[name]) for name in fns}
+    out["row_over_clean"] = [r / c for r, c in zip(out["row"], out["clean"])]
+    return out
+
+
 def _graph_work(name: str, state: dict, k: int) -> tuple:
     """(bytes, operations, peak) of one graph-mode call at k: its state read
     once and its new state written once, plus the bytes its patterns read
@@ -2391,6 +2467,7 @@ def _decan_graph_rows():
     tgt = targets["t3 data-bound"]
     reg = tgt.region()
     fn, args = reg.build_rt("fp_add"), reg.args_for_rt("fp_add")
+    extra["decan_table3"] = {"slot_ms": _slot_ms(reg, "decan_table3")}
     a, b, c, x0, carry = args
     n = MAIN_T3["n"]
     c_lib = torch.empty_like(c)

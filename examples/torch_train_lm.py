@@ -45,10 +45,28 @@ def n_params(api) -> int:
     return sum(p.numel() for p in api.init(0, "meta").parameters())
 
 
+def clear_checkpoints(ckpt_dir) -> None:
+    """Remove the entries of ``ckpt_dir`` that a ``CheckpointManager``
+    writes (``step_<N>`` and ``step_<N>.tmp``) and nothing else: the
+    directory may be one the user keeps other files in."""
+    if not os.path.isdir(ckpt_dir):
+        return
+    for name in os.listdir(ckpt_dir):
+        step = name[len("step_"):].removesuffix(".tmp")
+        if not (name.startswith("step_") and step.isdigit()):
+            continue
+        path = os.path.join(ckpt_dir, name)
+        if os.path.isdir(path) and not os.path.islink(path):
+            shutil.rmtree(path)
+        else:
+            os.remove(path)
+
+
 def train(cfg, *, steps=200, seq=96, batch=8, ckpt_dir,
           ckpt_every=50, inject_failure=True, device="cuda", state=None):
     """Train ``steps`` steps from ``state`` (default: the trainer's own
-    from its seed) with checkpoints in ``ckpt_dir`` (emptied first) and a
+    from its seed) with checkpoints in ``ckpt_dir`` (its old ones removed
+    first, ``clear_checkpoints``) and a
     failure at ``steps // 2``: (state, history of every executed step,
     replays included)."""
     api = build(cfg)
@@ -57,8 +75,7 @@ def train(cfg, *, steps=200, seq=96, batch=8, ckpt_dir,
                        ckpt_dir=ckpt_dir)
     pipe = SyntheticPipeline(cfg, ShapeConfig("ex", "train", seq, batch),
                              task="lcg", device=device)
-    if os.path.isdir(ckpt_dir):         # a stale checkpoint would be restored
-        shutil.rmtree(ckpt_dir)
+    clear_checkpoints(ckpt_dir)         # a stale one would be restored
     ckpt = CheckpointManager(ckpt_dir, keep=2)
     trainer = Trainer(api, tcfg, ckpt_manager=ckpt, device=device)
     if state is None:
@@ -102,7 +119,8 @@ def main(argv=None):
     ap.add_argument("--vocab", type=int, default=4096,
                     help="vocabulary size")
     ap.add_argument("--ckpt-dir", default="experiments/ckpt_torch/train_lm",
-                    help="checkpoint directory (emptied at the start)")
+                    help="checkpoint directory (its step_* checkpoints "
+                         "removed at the start)")
     ap.add_argument("--ckpt-every", type=int, default=50,
                     help="save after step s when (s + 1) is a multiple")
     ap.add_argument("--inject-failure", action="store_true", default=True,

@@ -90,7 +90,7 @@ def take_census(text: str, *, kernels=None) -> Census:
         load_depth = max(load_depth, chain_depth(
             fn.instrs, lambda ins: ins.op in BANDWIDTH_OPS))
         for ins in fn.instrs:
-            op = census_op(ins.opcode)
+            op = census_op(ins.opcode, ins.text)
             if op in _PLUMBING:
                 continue
             key = (op, ins.depth, where)

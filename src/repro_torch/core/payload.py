@@ -22,6 +22,7 @@ packages. Without a card (the plain PyTorch versions) there is no SASS:
 from __future__ import annotations
 
 import dataclasses
+import re
 from collections import Counter
 from typing import Optional
 
@@ -46,11 +47,20 @@ PAYLOAD_OPS = {
 }
 
 
-def census_op(opcode: str) -> str:
-    """The census name of a SASS opcode: its base, with ``IMAD.MOV`` read
-    as ``MOV`` (a value being copied or materialized, not a product)."""
+# HFMA2 whose multiplicands are both RZ (``HFMA2.MMA R3, -RZ, RZ, 0, 0``):
+# the immediate addend put in a register, as ptxas materializes constants
+_RZ_PRODUCT = re.compile(r"^[^,]+,\s*-?RZ\s*,\s*-?RZ\s*,")
+
+
+def census_op(opcode: str, text: str = "") -> str:
+    """The census name of a SASS opcode: its base, with ``IMAD.MOV`` and an
+    ``HFMA2`` of RZ by RZ read as ``MOV`` (a value being copied or
+    materialized, not a product). ``text``: the instruction's text (its
+    operands), which the HFMA2 case needs."""
     parts = opcode.split(".")
     if parts[0] == "IMAD" and len(parts) > 1 and parts[1].startswith("MOV"):
+        return "MOV"
+    if parts[0] == "HFMA2" and _RZ_PRODUCT.match(text.partition(" ")[2]):
         return "MOV"
     return parts[0]
 
@@ -105,7 +115,7 @@ def _counts(sass: str, kernels) -> Counter:
     for fn in parse_sass(sass).values():
         if kernels is None or fn.base in kernels:
             for ins in fn.instrs:
-                op = census_op(ins.opcode)
+                op = census_op(ins.opcode, ins.text)
                 if op not in BOOKKEEPING:
                     out[op] += 1
     return out
@@ -145,7 +155,8 @@ def body_size(sass: str, *, kernels=None) -> int:
     instrs = funcs[0].instrs
     deepest = max((i.depth for i in instrs), default=0)
     return sum(1 for i in instrs
-               if i.depth == deepest and census_op(i.opcode) not in BOOKKEEPING)
+               if i.depth == deepest
+               and census_op(i.opcode, i.text) not in BOOKKEEPING)
 
 
 def with_census(report: InjectionReport,

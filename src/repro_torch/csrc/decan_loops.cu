@@ -21,8 +21,14 @@
 //     token        (compute-bound)  two 8-wide loads an iteration from a
 //                  4096-float window (L1-resident) into accs[0..1]
 //     stream       (data-bound, full-overlap) a 512-float triad chunk an
-//                  iteration, cout = a + 3 b; bound by device memory when
-//                  N = 2^25 (a, b, cout: 384 MiB, far beyond the 50 MB L2)
+//                  iteration, cout = a + 3 b: triad.cuh's chunk, as
+//                  STREAM's in loop_regions.cu (what held the old loop back
+//                  and what the routine does about it are noted there), its
+//                  offset stepped (the old loop's integer modulo an
+//                  iteration is gone); bound by device memory when N = 2^25
+//                  (a, b, cout: 384 MiB, far beyond the 50 MB L2), where
+//                  the chains must hide under the loads (Table 3's full
+//                  overlap)
 //     scatter_dep  (limited-overlap) four 8-wide loads at
 //                  ((i*4+j)*40503) % (N-8) an iteration, seeding the chains
 //                  (seed = acc*1e-12 + x): dependent misses
@@ -53,12 +59,14 @@
 // kernels/decan_loops/ref.py is that order in plain PyTorch.
 //
 // Offsets are the reference's traced int32 arithmetic: products wrap at 32
-// bits, then jnp's floor modulo.
+// bits, then jnp's floor modulo (the stream scenarios' is stepped, which
+// equals it where n_iter * 512 < 2^31; the wrapper refuses the rest).
 #include "loop_noise.cuh"   // LoopNoise, reduce_blocks
+#include "triad.cuh"        // Triad512
 
 #define DL_THREADS 256
 #define DL_WARPS (DL_THREADS / 32)
-#define T3_CHUNK 512
+#define T3_CHUNK TRIAD_CHUNK
 #define T3_WINDOW 4096
 #define LIV_CHUNK 64
 #define LIV_CHAINS 12
@@ -123,23 +131,25 @@ __global__ void __launch_bounds__(DL_THREADS) t3_kernel(T3 p, NoiseArgs na, int 
 #pragma unroll
     for (int j = 0; j < 4; ++j) xs[j] = __fadd_rn(x0, (float)j);
     if constexpr (STREAM) {
+      // the triad at (i*512) % m, m = n - 512, stepped: off starts at
+      // (unit*512) % m and each grid-stride step adds (groups*512) % m and
+      // takes m off once it reaches m (the wrapper keeps n_iter*512 below
+      // 2^31, where this is the reference's int32 floor modulo); no
+      // integer division in the loop, which the card does in software
+      const unsigned m = (unsigned)(p.n - T3_CHUNK);
+      unsigned off = 0, step = 0;
+      Triad512 tri;
+      if constexpr (LS) {
+        off = (unsigned)(((unsigned long long)unit * T3_CHUNK) % m);
+        step = (unsigned)(((unsigned long long)p.groups * T3_CHUNK) % m);
+        if (unit < p.n_iter) tri.load(p.a, p.b, off, lane);
+      }
 #pragma unroll 1
       for (int i = unit; i < p.n_iter; i += p.groups) {
         if constexpr (LS) {
-          const int off = floor_mod(wrap_mul(i, T3_CHUNK), p.n - T3_CHUNK);
-          const float4* a4 = reinterpret_cast<const float4*>(p.a + off);
-          const float4* b4 = reinterpret_cast<const float4*>(p.b + off);
-          float4* c4 = reinterpret_cast<float4*>(p.cout + off);
-#pragma unroll
-          for (int e = lane; e < T3_CHUNK / 4; e += 32) {
-            const float4 x = __ldg(a4 + e), y = __ldg(b4 + e);
-            float4 z;
-            z.x = __fadd_rn(x.x, __fmul_rn(3.f, y.x));
-            z.y = __fadd_rn(x.y, __fmul_rn(3.f, y.y));
-            z.z = __fadd_rn(x.z, __fmul_rn(3.f, y.z));
-            z.w = __fadd_rn(x.w, __fmul_rn(3.f, y.w));
-            c4[e] = z;
-          }
+          const unsigned next = off + step >= m ? off + step - m : off + step;
+          tri.advance(p.a, p.b, p.cout, off, next, i < p.n_iter - p.groups, lane);
+          off = next;
         }
         if constexpr (FP) t3_chains(xs, p.depth);
         nz.emit(k, i);

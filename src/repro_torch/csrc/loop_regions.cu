@@ -54,6 +54,7 @@
 // (kernels/noise_slots.py `Workspace`): parts, 2 floats a block ([output,
 // aux]), and one ticket counter, 0 on entry and on exit; res: 2 floats.
 #include "loop_noise.cuh"   // LoopNoise, reduce_blocks
+#include "triad.cuh"        // Triad512, triad_generic
 
 #define LOOP_THREADS 256
 #define LOOP_WARPS_PER_BLOCK (LOOP_THREADS / 32)
@@ -64,7 +65,12 @@ static inline NoiseArgs noise_args(const float* nf, const float* nacc0, const in
 }
 
 // ---------------------------------------------------------------------------
-// stream_triad: c[i*chunk + e] = a + 3 b, warp per chunk
+// stream_triad: c[i*chunk + e] = a + 3 b, warp per chunk. Bound by device
+// memory, 12 bytes an element. What held the old loop back and what the
+// chunk routine does about it: triad.cuh. At chunk 512 the warp keeps its
+// next chunk in flight while its noise slot runs (Triad512); other chunks
+// take triad_generic. One loop with one noise slot serves both, so the
+// static-k SASS holds k patterns.
 // ---------------------------------------------------------------------------
 template <int MODE, int SK>
 __global__ void __launch_bounds__(LOOP_THREADS)
@@ -76,27 +82,18 @@ stream_kernel(const float* __restrict__ a, const float* __restrict__ b, float* _
   LoopNoise<MODE, SK> nz;
   nz.init(na, lane & (LOOP_VEC - 1));
   const bool active = w < n_warps;
+  const bool fast = chunk == TRIAD_CHUNK;
+  const size_t stride = (size_t)n_warps * TRIAD_CHUNK;
+  Triad512 t;
+  if (active && fast && w < n_iter) t.load(a, b, (size_t)w * TRIAD_CHUNK, lane);
   if (active) {
 #pragma unroll 1
     for (int i = w; i < n_iter; i += n_warps) {
       const size_t off = (size_t)i * chunk;
-      if ((chunk & 3) == 0) {
-        const float4* a4 = reinterpret_cast<const float4*>(a + off);
-        const float4* b4 = reinterpret_cast<const float4*>(b + off);
-        float4* c4 = reinterpret_cast<float4*>(c + off);
-        for (int e = lane; e < chunk / 4; e += 32) {
-          const float4 x = __ldg(a4 + e), y = __ldg(b4 + e);
-          float4 z;
-          z.x = __fadd_rn(x.x, __fmul_rn(3.f, y.x));
-          z.y = __fadd_rn(x.y, __fmul_rn(3.f, y.y));
-          z.z = __fadd_rn(x.z, __fmul_rn(3.f, y.z));
-          z.w = __fadd_rn(x.w, __fmul_rn(3.f, y.w));
-          c4[e] = z;
-        }
-      } else {
-        for (int e = lane; e < chunk; e += 32)
-          c[off + e] = __fadd_rn(__ldg(a + off + e), __fmul_rn(3.f, __ldg(b + off + e)));
-      }
+      if (fast)
+        t.advance(a, b, c, off, off + stride, i < n_iter - n_warps, lane);
+      else
+        triad_generic(a, b, c, off, chunk, lane);
       nz.emit(k, i);
     }
   }

@@ -74,6 +74,17 @@ _LOCKS: dict[str, threading.Lock] = {}   # one per library: builds of
 _LOCKS_GUARD = threading.Lock()          # different libraries run together
 
 
+def use_sources(sources: tuple, build_dir: str) -> None:
+    """From now on build only ``sources`` (names in ``KERNEL_SOURCES``), into
+    ``build_dir``: for a tool that measures a few kernels without building
+    the rest, or the library the main path loads."""
+    global KERNEL_SOURCES, BUILD_DIR
+    unknown = set(sources) - set(KERNEL_SOURCES)
+    if unknown:
+        raise ValueError(f"unknown kernel sources {sorted(unknown)}")
+    KERNEL_SOURCES, BUILD_DIR = tuple(sources), build_dir
+
+
 def _lock_for(path: str) -> threading.Lock:
     with _LOCKS_GUARD:
         return _LOCKS.setdefault(path, threading.Lock())

@@ -61,6 +61,9 @@ def table3_cuda(a, b, c, x0, *, kind, depth, n_iter, fp, ls, width, mode, k,
     if kind == "stream" and (n < 2 * ref.CHUNK or n % 4):
         raise ValueError("table3 stream: n must be a multiple of 4 and at "
                          f"least {2 * ref.CHUNK}")
+    if kind == "stream" and n_iter * ref.CHUNK >= 2 ** 31:
+        raise ValueError(f"table3 stream: n_iter * {ref.CHUNK} must stay "
+                         "below 2^31 (the kernel steps its offset)")
     if n < ref.WINDOW + 8:
         raise ValueError(f"table3: n must be at least {ref.WINDOW + 8}")
     groups = ref.groups_of(width)

@@ -202,6 +202,24 @@ def test_census_keys_line_up_across_template_arguments():
         ("FADD", 1, "probe_kernel"): 8}
 
 
+def test_a_constant_moved_by_hfma2_is_no_payload():
+    """ptxas puts an immediate in a register with ``HFMA2.MMA R, -RZ, RZ,
+    imm`` as well as with a move, and picks one or the other build by
+    build: the census reads it as a move, so an intact payload stays
+    intact when the k=4 build has one such HFMA2 more than the k=12 one
+    (a real HFMA2 stays compute)."""
+    def make(k):
+        return kernel(k, extra=("HFMA2.MMA R9, -RZ, RZ, 0, 0",) if k == 4
+                      else ("MOV R9, RZ",))
+    rep = audit3(make, hint=HINT)
+    assert (rep.verdict, rep.survival) == ("intact", 1.0)
+    assert [pm.census_op(i.opcode, i.text) for i in parse_sass(sass((
+        "_Z1fv", ["HFMA2.MMA R3, -RZ, RZ, 0, 5.9604644775390625e-08",
+                  "HFMA2.MMA R3, R2, RZ, 0, 0", "HFMA2 R3, R2, R4, R5",
+                  "IMAD.MOV.U32 R1, RZ, RZ, 4", "FADD R1, R2, R3"])))
+        ["_Z1fv"].instrs] == ["MOV", "HFMA2", "HFMA2", "MOV", "FADD"]
+
+
 def test_dead_by_dce():
     rep = audit3(lambda k: kernel(0), hint=HINT)
     assert (rep.verdict, rep.corruption) == ("dead", "dce")
@@ -471,6 +489,21 @@ def test_sabotage_reaches_the_static_builds_and_their_path(monkeypatch):
     assert _build.static_lib_path("noise_probes", 1, 4, sabotage=False) \
         == clean
     assert _build._with_sabotage((), None) == (_build.SABOTAGE_DEFINE,)
+
+
+def test_use_sources_cuts_the_build_to_a_few_kernels(monkeypatch, tmp_path):
+    """A tool that measures a few kernels builds only their sources, into a
+    directory of its own; an unknown source is refused."""
+    monkeypatch.setattr(_build, "KERNEL_SOURCES", _build.KERNEL_SOURCES)
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
+    monkeypatch.setattr(_build, "source_hash", lambda: "h")
+    with pytest.raises(ValueError, match="unknown kernel sources"):
+        _build.use_sources(("loop_regions", "nope"), str(tmp_path))
+    _build.use_sources(("loop_regions",), str(tmp_path))
+    assert _build.KERNEL_SOURCES == ("loop_regions",)
+    assert _build.runtime_lib_path() == str(tmp_path / "librepro_rt_h.so")
+    with pytest.raises(ValueError, match="unknown kernel source"):
+        _build.static_build("noise_probes", 1, 4)
 
 
 # ---------------------------------------------------------------------------

@@ -287,3 +287,19 @@ def test_grid_stride_carries_are_each_warps_own_loop(mode):
             own = noise.emit(own, k, i)
         want = lref.lane_values(mode, lref._grouped(own, 1))[0]
         assert torch.equal(got[w], want), w
+
+
+def test_both_triads_take_their_chunk_from_one_routine():
+    """stream_kernel (``csrc/loop_regions.cu``) and t3_kernel's stream
+    scenarios (``csrc/decan_loops.cu``) take their chunk from
+    ``csrc/triad.cuh``, so the two cannot drift apart (phase 3 of
+    ``chip_smoke.py`` holds both against their plain versions on the
+    card)."""
+    import os
+
+    import repro_torch
+
+    csrc = os.path.join(os.path.dirname(repro_torch.__file__), "csrc")
+    for name in ("loop_regions.cu", "decan_loops.cu"):
+        with open(os.path.join(csrc, name)) as f:
+            assert '#include "triad.cuh"' in f.read(), name

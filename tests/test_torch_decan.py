@@ -279,6 +279,57 @@ def test_stream_warps_walk_the_iterations_grid_stride():
         dref.default_width("token", 10)
 
 
+def _stepped_offsets(n: int, n_iter: int, groups: int) -> torch.Tensor:
+    """(n_iter,) int64: the triad offset of every iteration as t3_kernel
+    steps it, warp w taking iterations w, w + groups, ...: it starts at
+    (w*512) % m and adds (groups*512) % m a step, taking m off when it
+    reaches m (m = n - 512)."""
+    m = n - dref.CHUNK
+    off = torch.arange(groups, dtype=torch.int64) * dref.CHUNK % m
+    step = groups * dref.CHUNK % m
+    out = torch.empty(n_iter, dtype=torch.int64)
+    for lo in range(0, n_iter, groups):
+        hi = min(lo + groups, n_iter)
+        out[lo:hi] = off[:hi - lo]
+        off = off + step
+        off = torch.where(off >= m, off - m, off)
+    return out
+
+
+@pytest.mark.parametrize("n,n_iter,groups", (
+    (1 << 25, (1 << 25) // 512, None),      # the main path: 16 rounds
+    (1 << 13, 3 * (1 << 13) // 512 // 2, 7),   # the offsets wrap
+    (1 << 13, 200, 5),                      # 40 rounds of 5 warps
+    (4096 + 512, 450, 100),                 # a step of 100 chunks > m
+    (3 * (1 << 20) + 4, 3 * (1 << 20) // 512, 77)))
+def test_stepped_triad_offsets_are_the_references(n, n_iter, groups):
+    """t3_kernel steps each warp's triad offset (no modulo in the loop):
+    past one round of the grid-stride walk, at every iteration it equals
+    the reference's (i*512) % (n-512), int32-wrapped then floor modulo."""
+    from repro_torch.core.loopnoise import _wrap32
+
+    if groups is None:
+        groups = dref.default_width("stream", n_iter) // 8
+    assert -(-n_iter // groups) > 1
+    i = torch.arange(n_iter, dtype=torch.int64)
+    want = _wrap32(i * dref.CHUNK) % (n - dref.CHUNK)
+    assert torch.equal(_stepped_offsets(n, n_iter, groups), want)
+
+
+def test_stream_wrapper_refuses_where_the_stepped_offset_would_differ():
+    """At n_iter*512 >= 2^31 the int32 product wraps and the stepped offset
+    is no longer the reference's: the launcher refuses before it
+    launches (at one iteration less it goes on to the launch)."""
+    args = tuple(torch.from_numpy(a.copy()) for a in _ref_inputs())
+    kw = {"kind": "stream", "depth": 4, "fp": True, "ls": True, "width": 8,
+          "mode": "none", "k": 0, "carry": None, "static": False}
+    with pytest.raises(ValueError, match="below 2\\^31"):
+        dk.table3_cuda(*args, n_iter=2 ** 22, **kw)
+    with pytest.raises(Exception) as err:
+        dk.table3_cuda(*args, n_iter=2 ** 22 - 1, **kw)
+    assert "2^31" not in str(err.value)
+
+
 def test_variants_refuse_noise_and_empty_removal():
     args = tuple(torch.from_numpy(a.copy()) for a in _ref_inputs())
     with pytest.raises(ValueError, match="without noise"):

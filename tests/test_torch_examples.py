@@ -240,6 +240,35 @@ def test_train_lm_replayed_steps_are_bitwise_their_first_run(tmp_path):
             step
 
 
+def test_train_lm_removes_only_checkpoints_from_its_directory(tmp_path):
+    """``--ckpt-dir`` may be a directory that holds the user's own files:
+    train removes only what a ``CheckpointManager`` writes there
+    (``step_<N>``, ``step_<N>.tmp``). A stale checkpoint of a later step
+    is removed, so the failure at step 6 restores this run's step-4
+    checkpoint and replays 4 and 5 (restored, step 40 would end the run);
+    a foreign file, a foreign subdirectory and a name that only looks like
+    a checkpoint survive."""
+    ex, cfg, _ = _train_pair()
+    ck = tmp_path / "ck"
+    ex.train(cfg, steps=4, seq=16, batch=2, ckpt_every=4, ckpt_dir=str(ck),
+             inject_failure=False, device="cpu")
+    os.rename(ck / "step_4", ck / "step_40")
+    (ck / "step_7.tmp").mkdir()
+    (ck / "notes").mkdir()
+    (ck / "notes" / "a.txt").write_text("mine")
+    (ck / "results.csv").write_text("1,2\n")
+    (ck / "step_final").write_text("not a checkpoint")
+    _, hist = ex.train(cfg, steps=12, seq=16, batch=2, ckpt_every=4,
+                       ckpt_dir=str(ck), device="cpu")
+    assert [h["step"] for h in hist] == [0, 1, 2, 3, 4, 5, 4, 5, 6, 7, 8,
+                                         9, 10, 11]
+    assert (ck / "notes" / "a.txt").read_text() == "mine"
+    assert (ck / "results.csv").read_text() == "1,2\n"
+    assert (ck / "step_final").read_text() == "not a checkpoint"
+    assert sorted(p.name for p in ck.iterdir() if p.name.startswith(
+        "step_") and p.name != "step_final") == ["step_12", "step_8"]
+
+
 # ---------------------------------------------------------------------------
 # chip_smoke's phase 14
 # ---------------------------------------------------------------------------
