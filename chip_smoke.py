@@ -54,10 +54,12 @@ JAX or of the reference package. Phases, each of which fails the run:
    table; HACCmk at width 135,168, 1,000 iterations; matmul n=192); every
    DECAN variant (3 x 4 Table 3 scenarios, 3 Livermore) at phase 4's shapes
    on seeded random inputs (N=2^25; token and scatter_dep at 200
-   iterations, Livermore at 5,000, past its offset's wrap; the stream
-   scenarios' whole triad buffer too) and the reference variant under
-   every loop mode at k in {0, 5}, bitwise against its plain version
-   (``plain=True``); every graph-level mode at the card's scale, static
+   iterations; Livermore at the edges of its trips and load ring,
+   ``CHECK_LIV_SHAPES``: the main path's 60,000 iterations, past one wrap,
+   a wrap landing past 0, every trip stepped, fewer iterations than the
+   ring; the stream scenarios' whole triad buffer too) and the reference
+   variant under every loop mode at k in {0, 5} (Livermore's main path at
+   k = 0), bitwise against its plain version (``plain=True``); every graph-level mode at the card's scale, static
    and run-time k in {0, 5}: aux and new state bitwise against the plain
    version, static equal to run-time k, the input state unchanged;
 4. the main path, through the user's entry points, each path driven with
@@ -118,7 +120,9 @@ JAX or of the reference package. Phases, each of which fails the run:
    and the noise slot's own cost: each mode's run-time kernel at k=0 and
    k=8 and its static build at k=8, against the clean kernel; the DECAN
    loops at their phase-4 shapes (Table 3's data-bound scenario with
-   torch.add alpha 3 as the library call, Livermore); each graph-level
+   torch.add alpha 3 as the library call, Livermore; the triads' row and
+   clean build read 5 times in turns beside torch.add, Livermore's beside
+   its FP32 issue bound); each graph-level
    mode's kernel at k=64 and its µs a pattern, the slope of event and
    device time over k in {0, 128, 256, 512}, beside
    ``pattern_cost(H100_SXM)``'s: hbm_stream and hbm_latency on lines the
@@ -216,7 +220,9 @@ JAX or of the reference package. Phases, each of which fails the run:
    and gemma-2b's decode step (the graph-noise kernels), in this process
    (the census timed); the golden fixtures captured again, their reports
    equal to ``tests/golden_torch/audit_expected.json``; |body| from the clean SASS
-   of every region the port builds (nonzero; a step region's 0); the
+   of every region the port builds (nonzero; a step region's 0; an
+   iteration's where the innermost loop is an unrolled trip: Livermore's
+   over its LIV_UNROLL); the
    loop and step payload census (payload = k, overhead and body_ops from
    the SASS); the probe's fp under ``REPRO_NOISE_SABOTAGE=const`` through
    ``python -m repro_torch.launch.probe --plan``: the audit reads it dead
@@ -322,8 +328,11 @@ FP32_ISSUE_OPS = 33.5e12
 UNFUSED_FP32 = ("stream_triad", "lat_mem_rd", "haccmk", "spmxv", "matmul_O0",
                 "matmul_O3", "decan_table3", "decan_livermore")
 # the two STREAM triads (csrc/triad.cuh): their device time is held to
-# torch.add's and their run-time build at k=0 to their clean build's
+# torch.add's and their run-time build at k=0 to their clean build's; the
+# rows whose targets are read in turns (Livermore: its run-time build at
+# k=0 against its clean build, and its share of the FP32 issue bound)
 TRIAD_ROWS = ("stream_triad", "decan_table3")
+TARGET_ROWS = TRIAD_ROWS + ("decan_livermore",)
 
 CHECK_KS = (0, 1, 24)           # plus K_MAX + 7 (the clamp)
 STATIC_CHECK_K = 24
@@ -367,15 +376,24 @@ MAIN_HACC = {"n_iter": 60_000, "width": 132 * 1024}
 MAIN_MM_N = 192
 # the DECAN loops (csrc/decan_loops.cu) at phase 4's shapes
 # (src/repro_torch/bench/studies.py T3_SIZES, FIG6_SIZES); the loops whose
-# every lane group runs every iteration are checked at CHECK_DECAN_ITERS
-# (Livermore at CHECK_LIV_ITERS: its stepped offset (i*64) % (n-64) wraps
-# after 4,095 iterations at n = 2^18), on seeded random inputs
+# every lane group runs every iteration are checked at CHECK_DECAN_ITERS,
+# on seeded random inputs
 MAIN_T3 = {"n": 2 ** 25, "width": 132 * 512}
 MAIN_LIV = {"n": 2 ** 18, "n_iter": 60_000, "width": 132 * 1024}
 CHECK_DECAN_ITERS = 200
-CHECK_LIV_ITERS = 5000
 CHECK_DECAN_SEED = 0
 DECAN_CHECK_KS = (0, 5)
+# Livermore's (n, n_iter, noise ks) at MAIN_LIV's width, each at the edges
+# of liv_kernel's schedule (trips of LIV_UNROLL = 8, a ring of LIV_RING = 8
+# loads, the wrap checked once a trip): the main path's (14 wraps of its
+# stepped offset (i*64) % (n-64), each inside a trip; the noise at k = 0,
+# the sweeps' t(0), whose plain aux is cheap); past one wrap with n_iter %
+# 8 != 0; n - 64 not a multiple of 64, the wrap landing past 0; a buffer
+# whose every trip steps its loads; n_iter below the ring. Run-time k is
+# held to static k at every shape but the main path's.
+CHECK_LIV_SHAPES = ((2 ** 18, 60_000, (0,)), (2 ** 18, 5003, DECAN_CHECK_KS),
+                    (4096 + 40, 1001, DECAN_CHECK_KS),
+                    (130, 50, DECAN_CHECK_KS), (2 ** 12, 3, DECAN_CHECK_KS))
 # the graph-level noise modes (csrc/graph_noise.cu): their kernels, the SASS
 # opcode of one pattern, the quantities of phase 3 and the timed k
 GRAPH_MODES = ("fp_add32", "mxu_fma128", "vmem_ld", "hbm_stream",
@@ -1453,8 +1471,9 @@ def _decan_targets(n_iter_replicated: int, n_iter_liv: int,
                    seed=None) -> dict:
     """label -> DecanTarget of every DECAN loop at phase 4's shapes; token
     and scatter_dep at ``n_iter_replicated`` iterations, Livermore at
-    ``n_iter_liv`` (the stream scenarios at their own); the reference's
-    inputs or, with ``seed``, seeded random ones."""
+    ``n_iter_liv`` (the stream scenarios at their own; None: Livermore at
+    each of CHECK_LIV_SHAPES, labelled by it); the reference's inputs or,
+    with ``seed``, seeded random ones."""
     from repro_torch.bench.kernels import livermore_target, table3_target
     from repro_torch.bench.studies import T3_SCENARIOS
     from repro_torch.kernels.decan_loops.ref import CHUNK
@@ -1467,20 +1486,27 @@ def _decan_targets(n_iter_replicated: int, n_iter_liv: int,
             MAIN_T3["n"] // CHUNK if stream else n_iter_replicated,
             n=MAIN_T3["n"], width=None if stream else MAIN_T3["width"],
             seed=seed)
-    out["livermore"] = livermore_target(n_iter_liv, n=MAIN_LIV["n"],
-                                        width=MAIN_LIV["width"], seed=seed)
+    if n_iter_liv is not None:
+        out["livermore"] = livermore_target(n_iter_liv, n=MAIN_LIV["n"],
+                                            width=MAIN_LIV["width"],
+                                            seed=seed)
+        return out
+    for n, n_iter, _ in CHECK_LIV_SHAPES:
+        out[f"livermore n={n} x {n_iter}"] = livermore_target(
+            n_iter, n=n, width=MAIN_LIV["width"], seed=seed)
     return out
 
 
 def _check_decan(failures: list, max_err: dict) -> None:
     """Every DECAN variant (3 x 4 scenarios + Livermore x 3) against its
     plain version at phase 4's shapes (token and scatter_dep at
-    CHECK_DECAN_ITERS iterations, Livermore at CHECK_LIV_ITERS), on seeded
-    random inputs, bitwise: the output and, for the stream scenarios, the
-    whole triad buffer; the reference variant under every loop mode at k in
-    DECAN_CHECK_KS (run-time k) against its plain version, out and aux
-    bitwise, out unchanged by the noise; run-time k == static k at
-    k=24."""
+    CHECK_DECAN_ITERS iterations, Livermore at each of CHECK_LIV_SHAPES),
+    on seeded random inputs, bitwise: the output and, for the stream
+    scenarios, the whole triad buffer; the reference variant under every
+    loop mode at k in DECAN_CHECK_KS (Livermore: its shape's ks; run-time
+    k) against its plain version, out and aux bitwise, out unchanged by the
+    noise; run-time k == static k at k=24 (Table 3's compute-bound loop,
+    Livermore but at the main path's shape)."""
     import torch
 
     from repro_torch.bench.studies import T3_SCENARIOS
@@ -1490,12 +1516,16 @@ def _check_decan(failures: list, max_err: dict) -> None:
     from repro_torch.kernels.decan_loops import ref as dref
 
     modes = make_loop_modes()
-    targets = _decan_targets(CHECK_DECAN_ITERS, CHECK_LIV_ITERS,
-                             seed=CHECK_DECAN_SEED)
+    targets = _decan_targets(CHECK_DECAN_ITERS, None, seed=CHECK_DECAN_SEED)
+    liv_ks = {f"livermore n={n} x {n_iter}": ks
+              for n, n_iter, ks in CHECK_LIV_SHAPES}
+    main_liv = f"livermore n={MAIN_LIV['n']} x {MAIN_LIV['n_iter']}"
     for label, target in targets.items():
         t0 = time.perf_counter()
         args = target.args_for()
-        kernel = "decan_livermore" if label == "livermore" else "decan_table3"
+        liv = label in liv_ks
+        kernel = "decan_livermore" if liv else "decan_table3"
+        ks = liv_ks.get(label, DECAN_CHECK_KS)
         stream = label in ("t3 data-bound", "t3 full-overlap")
         worst = 0.0
         for vname, (fp, ls) in VARIANTS.items():
@@ -1520,7 +1550,7 @@ def _check_decan(failures: list, max_err: dict) -> None:
         clean = target.build(True, True)(*args)
         for mode in LOOP_MODES:
             carry = loop_carry(mode, target.device)
-            for k in DECAN_CHECK_KS:
+            for k in ks:
                 got = target.build_noisy(modes[mode], k, static=False)(
                     *args, carry)
                 want = target.build_noisy(modes[mode], k, plain=True)(
@@ -1531,7 +1561,7 @@ def _check_decan(failures: list, max_err: dict) -> None:
                 what = f"decan {label} {mode} k={k}"
                 _equal(got, want, what + " (out, aux) vs plain", failures)
                 _equal(got[0], clean, what + " out vs no noise", failures)
-            if label == "t3 compute-bound":
+            if label == "t3 compute-bound" or liv and label != main_liv:
                 _equal(target.build_noisy(modes[mode], STATIC_CHECK_K,
                                           static=False)(*args, carry),
                        target.build_noisy(modes[mode], STATIC_CHECK_K)(
@@ -1540,7 +1570,7 @@ def _check_decan(failures: list, max_err: dict) -> None:
                        f"k={STATIC_CHECK_K}", failures)
         max_err[kernel] = max(max_err.get(kernel, 0.0), worst)
         print(f"decan {label}: variants ref/fp/ls and ref x "
-              f"{', '.join(LOOP_MODES)} x k in {list(DECAN_CHECK_KS)} vs "
+              f"{', '.join(LOOP_MODES)} x k in {list(ks)} vs "
               f"plain; max|kernel - plain| = {worst:.3g} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
@@ -2211,18 +2241,24 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
                   f"{issue['issue_bound_ms'] / dev_ms if dev_ms else None!r}",
                   flush=True)
         tgt = extra.get(name, {}).get("slot_ms", {}).get("target")
-        if tgt and all(None not in tgt[f] for f in ("clean", "row",
-                                                    "torch_add")):
+        if tgt and all(None not in tgt[f] for f in tgt["median"]):
             med, ratios = tgt["median"], tgt["row_over_clean"]
             ratio = statistics.median(ratios)
+            if "torch_add" in tgt:
+                against = (f" <= torch.add's {med['torch_add']!r} "
+                           f"[{min(tgt['torch_add'])!r}, "
+                           f"{max(tgt['torch_add'])!r}]: "
+                           f"{med['row'] <= med['torch_add']}")
+            else:
+                against = (f", {issue['issue_bound_ms'] / med['row']!r} of "
+                           f"the FP32 issue bound (the median's; >= 0.70: "
+                           f"{issue['issue_bound_ms'] / med['row'] >= 0.70})")
             print(f"  {name} targets over {TARGET_READINGS} device readings "
                   f"in turns (median [min, max]): device ms {med['row']!r} "
-                  f"[{min(tgt['row'])!r}, {max(tgt['row'])!r}] <= "
-                  f"torch.add's {med['torch_add']!r} [{min(tgt['torch_add'])!r}"
-                  f", {max(tgt['torch_add'])!r}]: "
-                  f"{med['row'] <= med['torch_add']}; run-time k=0 / clean "
-                  f"build {ratio!r} [{min(ratios)!r}, {max(ratios)!r}] "
-                  f"(median within 2%: {abs(ratio - 1) <= 0.02})", flush=True)
+                  f"[{min(tgt['row'])!r}, {max(tgt['row'])!r}]{against}; "
+                  f"run-time k=0 / clean build {ratio!r} [{min(ratios)!r}, "
+                  f"{max(ratios)!r}] (median within 2%: "
+                  f"{abs(ratio - 1) <= 0.02})", flush=True)
         if (name in ("noise_probes", "spmv_ell") or name in LOOP_PLAIN_REPS
                 ) and n_kernels != 1:
             one_launch.append(f"{label}: {n_kernels!r} kernels a call")
@@ -2369,11 +2405,11 @@ def _slot_ms(region, name: str, *, device: bool = False,
     """The noise slot's own cost in a loop kernel, event ms: the clean
     build against each mode's run-time build at k=0, and its run-time and
     (``static``) static builds at k=8; ``device``: each of these also in
-    device ms (``tools/torch_triad_bench.py``). For the triads
-    (TRIAD_ROWS) also ``target``: TARGET_READINGS device readings each of
-    the clean build, the row's call (fp_add's run-time build at k=0) and
-    torch.add on the same tensors, taken in turns, which phase 6 holds
-    the row to."""
+    device ms (``tools/torch_triad_bench.py``, ``tools/torch_liv_bench.py``).
+    For TARGET_ROWS also ``target``: TARGET_READINGS device readings each
+    of the clean build, the row's call (fp_add's run-time build at k=0)
+    and, for the triads (TRIAD_ROWS), torch.add on the same tensors, taken
+    in turns, which phase 6 holds the row to."""
     import torch
 
     clean = partial(region.build("", 0), *region.args_for("", 0))
@@ -2391,21 +2427,22 @@ def _slot_ms(region, name: str, *, device: bool = False,
             slot[mode]["static_k8"] = time_ms(
                 partial(region.build(mode, 8), *region.args_for(mode, 8)),
                 reps=3, warmup=1)
-    if name in TRIAD_ROWS:
-        a, b = region.args_for("", 0)[:2]
-        c_lib = torch.empty_like(a)
-        slot["target"] = _target_readings({
-            "clean": clean,
-            "row": partial(region.build_rt("fp_add"), 0,
-                           *region.args_for_rt("fp_add")),
-            "torch_add": partial(torch.add, a, b, alpha=3.0, out=c_lib)})
+    if name in TARGET_ROWS:
+        fns = {"clean": clean,
+               "row": partial(region.build_rt("fp_add"), 0,
+                              *region.args_for_rt("fp_add"))}
+        if name in TRIAD_ROWS:
+            a, b = region.args_for("", 0)[:2]
+            c_lib = torch.empty_like(a)
+            fns["torch_add"] = partial(torch.add, a, b, alpha=3.0, out=c_lib)
+        slot["target"] = _target_readings(fns)
     print(f"{region.name}: ms of the noise slot (clean kernel; each mode's "
           f"run-time kernel at k=0 and k=8, static k=8): {slot}", flush=True)
     return slot
 
 
 # device readings a triad's targets are read from (each a mean over
-# TIMING_REPS calls, the three calls in turns)
+# TIMING_REPS calls, the calls in turns)
 TARGET_READINGS = 5
 
 
@@ -2481,6 +2518,7 @@ def _decan_graph_rows():
     tgt = targets["livermore"]
     reg = tgt.region()
     fn, args = reg.build_rt("fp_add"), reg.args_for_rt("fp_add")
+    extra["decan_livermore"] = {"slot_ms": _slot_ms(reg, "decan_livermore")}
     w, it = MAIN_LIV["width"], MAIN_LIV["n_iter"]
     rows.append(("decan_livermore", f"decan_livermore width {w}, {it} "
                  "iterations", partial(fn, 0, *args),
@@ -3872,6 +3910,9 @@ def _derived_bodies() -> dict:
     for region in regions:
         site = region.sass("", 0)
         label = f"{region.name} [{site.source} {site.kernels[0][0]}]"
+        if site.unroll > 1:
+            label += (f" (an iteration's: the innermost loop's count over "
+                      f"its {site.unroll}-iteration trip)")
         bodies[label] = derive_body_size(region)
     x = torch.zeros(1, device="cuda")
     step = step_region("step", lambda t: t * 2, (x,),

@@ -233,7 +233,9 @@ def livermore_target(n_iter: int, *, n: int = 1 << 18, width: int = 8,
                      device="cuda") -> DecanTarget:
     """Fig. 6's Livermore loop (``benchmarks/fig6_overlap.py:_livermore``)
     on a buffer of ones, the reference's, or with ``seed`` a standard
-    normal one from ``default_rng(seed)``; named as the reference's."""
+    normal one from ``default_rng(seed)``; named as the reference's. It
+    states no |body|: the derived one is the clean SASS's innermost loop,
+    an unrolled trip, over its ``LIV_UNROLL`` iterations."""
     dev = resolve_device(device)
     if seed is None:
         buf = torch.ones(n, dtype=torch.float32, device=dev)
@@ -246,4 +248,5 @@ def livermore_target(n_iter: int, *, n: int = 1 << 18, width: int = 8,
                                           **kw),
                        n_iter=n_iter, device=dev,
                        build_plain=_variants(dref.livermore_plain, kw),
-                       sass=("decan_loops", (("liv_kernel", "ILb1ELb1E"),)))
+                       sass=("decan_loops", (("liv_kernel", "ILb1ELb1E"),),
+                             dref.LIV_UNROLL))

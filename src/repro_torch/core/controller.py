@@ -260,7 +260,8 @@ def derive_body_size(target: RegionTarget) -> int:
         from repro_torch.analysis.audit import site_text
 
         return payload_mod.body_size(site_text(site),
-                                     kernels={b for b, _ in site.kernels})
+                                     kernels={b for b, _ in site.kernels},
+                                     unroll=site.unroll)
     except Exception:
         log.warning("body-size derivation failed for %s", target.name,
                     exc_info=True)
@@ -285,7 +286,7 @@ def census_payload(target: RegionTarget, mode: str, k: int, *,
         site_text(clean), site_text(site), mode=mode,
         target=target.payload_target.get(mode, _default_target(mode)),
         expected=expected, kernels={b for b, _ in site.kernels},
-        trips=trips)
+        trips=trips, unroll=site.unroll)
 
 
 def _default_target(mode: str) -> str:
@@ -318,9 +319,11 @@ def loop_region(name: str,
     ``device`` is where the carries live (``loop_carry``: the card's
     256 MiB buffers for mem_ld and chase on CUDA). ``n_iter``: the loop's
     trip count (the payload's dynamic count). ``sass``: ``(source,
-    kernels)``, the ``csrc/<source>.cu`` static builds and the loop
-    kernel's (base name, mangled-tail prefix) in them, which the audit and
-    the payload census read on the card.
+    kernels[, unroll])``, the ``csrc/<source>.cu`` static builds and the
+    loop kernel's (base name, mangled-tail prefix) in them, which the audit
+    and the payload census read on the card; ``unroll`` (default 1): the
+    region's iterations one pass of the kernel's innermost loop runs, so
+    that a derived |body| is one iteration's.
     """
     from repro_torch.core.loopnoise import MODE_IDS
     from repro_torch.kernels._build import SassSite
@@ -356,7 +359,8 @@ def loop_region(name: str,
     def site(mode: str, k: int) -> SassSite:
         mode_id = MODE_IDS[mode] if mode and k else 0
         return SassSite(sass[0], mode_id, k if mode_id else 0,
-                        kernels=tuple(sass[1]))
+                        kernels=tuple(sass[1]),
+                        unroll=sass[2] if len(sass) > 2 else 1)
 
     def payload_check(mode: str, k: int) -> payload_mod.InjectionReport:
         """Run the static-k build once and hold its aux against the plain

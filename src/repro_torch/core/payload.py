@@ -123,12 +123,13 @@ def _counts(sass: str, kernels) -> Counter:
 
 def analyze_injection(clean_sass: str, noisy_sass: str, *, mode: str,
                       target: str, expected: int, kernels=None,
-                      trips: int = 1) -> InjectionReport:
+                      trips: int = 1, unroll: int = 1) -> InjectionReport:
     """The census of one static-k build against the clean build of the
     same kernel: ``payload`` the payload-family instructions the k build
     adds (per thread: a pattern may be several), ``overhead`` every other
-    instruction it adds, ``body_ops`` |l1.l2| of the clean build.
-    ``kernels``: the base names of the functions censused (None: all)."""
+    instruction it adds, ``body_ops`` |l1.l2| of the clean build (an
+    iteration of ``unroll``). ``kernels``: the base names of the functions
+    censused (None: all)."""
     clean, noisy = _counts(clean_sass, kernels), _counts(noisy_sass, kernels)
     family = PAYLOAD_OPS.get(target, PAYLOAD_OPS["compute"])
     grown = {op: noisy[op] - clean.get(op, 0) for op in noisy
@@ -138,14 +139,17 @@ def analyze_injection(clean_sass: str, noisy_sass: str, *, mode: str,
     return InjectionReport(mode=mode, target=target, expected=expected,
                            payload=payload, overhead=overhead,
                            payload_dynamic=payload * trips,
-                           body_ops=body_size(clean_sass, kernels=kernels))
+                           body_ops=body_size(clean_sass, kernels=kernels,
+                                              unroll=unroll))
 
 
-def body_size(sass: str, *, kernels=None) -> int:
+def body_size(sass: str, *, kernels=None, unroll: int = 1) -> int:
     """|l1.l2| of a clean build: the non-bookkeeping instructions at the
     deepest loop of the region's kernel function (the first function of
     ``kernels``' base names in the dump, else the first function); the
-    whole function when it has no loop. 0 when the dump has no function."""
+    whole function when it has no loop. 0 when the dump has no function.
+    ``unroll``: the region's iterations one pass of that loop runs; the
+    count is divided by it (rounded) to give one iteration's."""
     from repro_torch.sass.parse import parse_sass
 
     funcs = [fn for fn in parse_sass(sass).values()
@@ -154,9 +158,10 @@ def body_size(sass: str, *, kernels=None) -> int:
         return 0
     instrs = funcs[0].instrs
     deepest = max((i.depth for i in instrs), default=0)
-    return sum(1 for i in instrs
-               if i.depth == deepest
-               and census_op(i.opcode, i.text) not in BOOKKEEPING)
+    count = sum(1 for i in instrs
+                if i.depth == deepest
+                and census_op(i.opcode, i.text) not in BOOKKEEPING)
+    return (count + unroll // 2) // unroll
 
 
 def with_census(report: InjectionReport,

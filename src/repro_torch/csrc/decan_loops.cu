@@ -35,7 +35,18 @@
 //   liv_kernel        Fig. 6's Livermore loop: 12 add chains and one light
 //                     8-wide load (a 1 MiB buffer, cache-resident) an
 //                     iteration, its offset stepped (no modulo); bound by
-//                     FP32 issue.
+//                     FP32 issue. The paper's out-of-order core overlaps the
+//                     light load with the chains in hardware; an SM issues
+//                     in order, and a load consumed in the iteration that
+//                     issued it leaves the warp waiting one L2 round trip
+//                     (~300 cycles) an iteration. So the loop does in
+//                     software what that core does: a ring of LIV_RING
+//                     loads in flight (the load of iteration i + LIV_RING
+//                     issued while iteration i adds its value), the body
+//                     unrolled LIV_UNROLL times with immediate offsets where
+//                     no wrap falls in the trip (checked once a trip), and
+//                     the noise slot's run-time k > 0 test taken once a
+//                     call (a body with the slot and one without).
 //
 // Mapping of the reference's sequential 8-lane loop onto the card, as in
 // loop_regions.cu: a group of 8 threads holds the reference's 8 lanes.
@@ -48,7 +59,10 @@
 //   copies). scatter_dep's group g loads from the address stream of
 //   iterations i + g*n_iter, so the groups miss on different lines: with
 //   one stream for all, the first group would bring each line into the L2
-//   for the others. Group 0's stream is the reference's.
+//   for the others. Group 0's stream is the reference's. Livermore's ring
+//   changes when a load is issued, not what is added: every iteration
+//   reads the reference's address once, and its value is added to the
+//   accumulator in the reference's order, one add an iteration.
 // One group (width 8, or one warp for stream) is the reference's loop. Each
 // thread keeps its noise carry (lane = thread % 8) and emits k patterns an
 // iteration it runs. The output is the sum over the groups of the
@@ -70,6 +84,11 @@
 #define T3_WINDOW 4096
 #define LIV_CHUNK 64
 #define LIV_CHAINS 12
+#define LIV_UNROLL 8   // reference iterations a trip of the loop
+// light loads in flight a thread: 8 warps a scheduler at ~15 instructions
+// an iteration make 8 iterations ~1,000 cycles, past an L2 round trip under
+// load (a ring of 4 covers it too, and ran ~1% slower on the H100)
+#define LIV_RING 8
 
 enum { KIND_TOKEN = 0, KIND_STREAM = 1, KIND_SCATTER_DEP = 2 };
 
@@ -198,8 +217,110 @@ __global__ void __launch_bounds__(DL_THREADS) t3_kernel(T3 p, NoiseArgs na, int 
 // ---------------------------------------------------------------------------
 // Fig. 6's Livermore loop: every group of 8 threads runs every iteration
 // ---------------------------------------------------------------------------
+// The state of one thread's loop: the chains, the load accumulator, the
+// ring (r[d] holds the value of iteration i + d) and the offset `lo` of the
+// next load, (j*64) % (n-64) for iteration j = i + LIV_RING, stepped: the
+// card has no integer divider, and a modulo an iteration would be the
+// loop's heaviest work, where the reference's load is light (the wrapper
+// keeps n_iter*64 below 2^31). Between loads lo may reach m = n - 64; a
+// stepped load takes m off first.
+template <bool FP, bool LS>
+struct LivState {
+  float ch[LIV_CHAINS];
+  float acc;
+  float r[LIV_RING];
+  int lo;
+
+  // iteration i's value into the accumulator and the ring moved on by one
+  // (registers renamed in the unrolled trips); the caller then loads the
+  // ring's newest entry, r[LIV_RING - 1], for iteration i + LIV_RING
+  __device__ __forceinline__ void consume() {
+    if constexpr (LS) {
+      acc = __fadd_rn(acc, r[0]);
+#pragma unroll
+      for (int d = 0; d + 1 < LIV_RING; ++d) r[d] = r[d + 1];
+    }
+  }
+
+  __device__ __forceinline__ void chains() {
+    if constexpr (FP) {
+#pragma unroll
+      for (int j = 0; j < LIV_CHAINS; ++j) ch[j] = __fadd_rn(ch[j], 1e-7f);
+    }
+  }
+
+  // the next load at its stepped offset
+  __device__ __forceinline__ float load_stepped(const float* p, int m) {
+    if (lo >= m) lo -= m;
+    const float v = __ldg(p + lo);
+    lo += LIV_CHUNK;
+    return v;
+  }
+};
+
+// Iterations 0 .. n_iter-1 of one thread (p = buf + lane). Trips of
+// LIV_UNROLL iterations run while each of their loads exists (i + U + RING
+// <= n_iter): a trip whose loads lie before the wrap (lo + (U-1)*64 < m,
+// checked once a trip) takes them at immediate offsets from one address
+// and steps lo once, in the innermost loop; the trip across the wrap steps
+// each load. The last < U + RING iterations consume the ring and load
+// while iteration i + RING exists. SLOT: emit the noise an iteration, at
+// its global index (the run-time build at k = 0 runs the body without it).
+template <bool FP, bool LS, bool SLOT, int MODE, int SK>
+__device__ __forceinline__ void liv_loop(LivState<FP, LS>& s, LoopNoise<MODE, SK>& nz,
+                                         const float* __restrict__ p, int m, int n_iter, int k) {
+  if constexpr (SLOT && SK < 0) __builtin_assume(k > 0);
+  s.lo = 0;
+#pragma unroll
+  for (int d = 0; d < LIV_RING; ++d) {
+    s.r[d] = 0.f;
+    if constexpr (LS) {
+      if (d < n_iter) s.r[d] = s.load_stepped(p, m);
+    }
+  }
+  const int last_trip = n_iter - LIV_RING - LIV_UNROLL;   // a trip starts at i <= it
+  int i = 0;
+#pragma unroll 1
+  while (i <= last_trip) {
+#pragma unroll 1
+    while (i <= last_trip && (!LS || s.lo + (LIV_UNROLL - 1) * LIV_CHUNK < m)) {
+      const float* q = p + s.lo;
+#pragma unroll
+      for (int u = 0; u < LIV_UNROLL; ++u) {
+        s.consume();
+        if constexpr (LS) s.r[LIV_RING - 1] = __ldg(q + u * LIV_CHUNK);
+        s.chains();
+        if constexpr (SLOT) nz.emit(k, i + u);
+      }
+      if constexpr (LS) s.lo += LIV_UNROLL * LIV_CHUNK;
+      i += LIV_UNROLL;
+    }
+    if (i <= last_trip) {
+#pragma unroll
+      for (int u = 0; u < LIV_UNROLL; ++u) {
+        s.consume();
+        if constexpr (LS) s.r[LIV_RING - 1] = s.load_stepped(p, m);
+        s.chains();
+        if constexpr (SLOT) nz.emit(k, i + u);
+      }
+      i += LIV_UNROLL;
+    }
+  }
+#pragma unroll 1
+  for (; i < n_iter; ++i) {
+    s.consume();
+    if constexpr (LS) {
+      if (i + LIV_RING < n_iter) s.r[LIV_RING - 1] = s.load_stepped(p, m);
+    }
+    s.chains();
+    if constexpr (SLOT) nz.emit(k, i);
+  }
+}
+
+// 4 blocks of 256 an SM: at most 64 registers a thread, so the main path's
+// 528 blocks run in one wave
 template <bool FP, bool LS, int MODE, int SK>
-__global__ void __launch_bounds__(DL_THREADS)
+__global__ void __launch_bounds__(DL_THREADS, 4)
 liv_kernel(const float* __restrict__ buf, int n, int n_iter, int width, NoiseArgs na, int k,
            Reduce rd) {
   __shared__ float sh[DL_THREADS];
@@ -209,31 +330,25 @@ liv_kernel(const float* __restrict__ buf, int n, int n_iter, int width, NoiseArg
   nz.init(na, l8);
   float out = 0.f, aux = 0.f;
   if (t < width) {
-    float ch[LIV_CHAINS], acc = 0.f;
+    LivState<FP, LS> s;
+    s.acc = 0.f;
 #pragma unroll
-    for (int j = 0; j < LIV_CHAINS; ++j) ch[j] = (float)j;
-    // off = (i*64) % (n-64), stepped: the card has no integer divider, and
-    // a modulo an iteration would be the loop's heaviest work, where the
-    // reference's load is light (the wrapper keeps i*64 below 2^31)
+    for (int j = 0; j < LIV_CHAINS; ++j) s.ch[j] = (float)j;
+    const float* p = buf + l8;
     const int m = n - LIV_CHUNK;
-    int off = 0;
-#pragma unroll 1
-    for (int i = 0; i < n_iter; ++i) {
-      if constexpr (LS) {
-        acc = __fadd_rn(acc, __ldg(buf + off + l8));
-        off += LIV_CHUNK;
-        if (off >= m) off -= m;
-      }
-      if constexpr (FP) {
-#pragma unroll
-        for (int j = 0; j < LIV_CHAINS; ++j) ch[j] = __fadd_rn(ch[j], 1e-7f);
-      }
-      nz.emit(k, i);
+    if constexpr (MODE == LMODE_NONE || SK == 0) {
+      liv_loop<FP, LS, false>(s, nz, p, m, n_iter, k);
+    } else if constexpr (SK > 0) {
+      liv_loop<FP, LS, true>(s, nz, p, m, n_iter, k);
+    } else if (k > 0) {       // one test a call, not one an iteration
+      liv_loop<FP, LS, true>(s, nz, p, m, n_iter, k);
+    } else {
+      liv_loop<FP, LS, false>(s, nz, p, m, n_iter, k);
     }
-    out = ch[0];
+    out = s.ch[0];
 #pragma unroll
-    for (int j = 1; j < LIV_CHAINS; ++j) out = __fadd_rn(out, ch[j]);
-    out = __fadd_rn(out, acc);
+    for (int j = 1; j < LIV_CHAINS; ++j) out = __fadd_rn(out, s.ch[j]);
+    out = __fadd_rn(out, s.acc);
     aux = nz.finalize();
   }
   reduce_blocks<DL_THREADS>(out, aux, rd, sh);

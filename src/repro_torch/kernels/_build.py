@@ -389,7 +389,9 @@ class SassSite:
     (``kernels``) and the other functions one call launches (``aux``),
     each as (base name, mangled-tail prefix; "" for any instance). ``body``:
     whether the kernel is the region's own body (False for a step region,
-    whose body is a CUDA graph of library kernels)."""
+    whose body is a CUDA graph of library kernels). ``unroll``: the
+    region's iterations one pass of the kernel's innermost loop runs, which
+    |body| is divided by."""
     source: str
     mode_id: int
     k: int
@@ -398,6 +400,7 @@ class SassSite:
     aux: tuple = ()
     body: bool = True
     sabotage: Optional[bool] = None
+    unroll: int = 1
 
 
 def site_sass(site: SassSite) -> Optional[str]:

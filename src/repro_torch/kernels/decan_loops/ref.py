@@ -37,6 +37,11 @@ WINDOW = 4096        # token's L1-resident window
 N_CH = 4             # chains and accumulators
 LIV_CHUNK = 64
 LIV_CHAINS = 12
+# liv_kernel's trip (reference iterations an unrolled pass of its innermost
+# loop) and its ring of loads in flight (csrc/decan_loops.cu LIV_UNROLL,
+# LIV_RING): they change when the kernel loads, not what it computes
+LIV_UNROLL = 8
+LIV_RING = 8
 
 
 def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
@@ -166,25 +171,29 @@ def livermore_plain(buf, *, n_iter: int, width: int, fp: bool = True,
                     ls: bool = True, mode: str = "none", k: int = 0,
                     carry: Optional[dict] = None):
     """Fig. 6's Livermore loop over ``width`` lanes -> (out, aux). Every
-    group runs the same loop, so one group is computed and repeated."""
+    group runs the same loop, so one group is computed and repeated. The
+    loop's f32 adds run on a host copy of ``buf`` (one rounding an add on
+    either device, and no kernel an iteration on the card); the lanes'
+    values go back to ``buf``'s device for the reduction."""
     livermore_plain.launches += 1
     dev = buf.device
     n = buf.shape[0]
     G = groups_of(width)
-    ch = torch.arange(LIV_CHAINS, dtype=torch.float32, device=dev)[:, None] \
+    host = buf.cpu()
+    ch = torch.arange(LIV_CHAINS, dtype=torch.float32)[:, None] \
         .expand(LIV_CHAINS, 8).clone()
-    acc = torch.zeros(8, dtype=torch.float32, device=dev)
-    c7 = _f32(1e-7, buf)
+    acc = torch.zeros(8, dtype=torch.float32)
+    c7 = _f32(1e-7, host)
     for i in range(n_iter):
         if ls:
             off = _floor_mod(_wrap32(i * LIV_CHUNK), n - LIV_CHUNK)
-            acc = acc + buf[off:off + 8]
+            acc = acc + host[off:off + 8]
         if fp:
             ch = ch + c7
     per_lane = ch[0]
     for j in range(1, LIV_CHAINS):
         per_lane = per_lane + ch[j]
-    per_lane = per_lane + acc
+    per_lane = (per_lane + acc).to(dev)
     total = reduce_threads(per_lane.expand(G, 8).reshape(-1), THREADS)
     return total, _uniform_aux(mode, carry, k, n_iter, width, dev)
 

@@ -46,6 +46,7 @@ from repro_torch.core.controller import Controller
 from repro_torch.core.decan import VARIANTS, DecanResult, run_decan
 from repro_torch.kernels.decan_loops import kernel as dk
 from repro_torch.kernels.decan_loops import ref as dref
+from repro_torch.kernels.loop_regions.ref import reduce_threads
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 1 << 13
@@ -314,6 +315,170 @@ def test_stepped_triad_offsets_are_the_references(n, n_iter, groups):
     i = torch.arange(n_iter, dtype=torch.int64)
     want = _wrap32(i * dref.CHUNK) % (n - dref.CHUNK)
     assert torch.equal(_stepped_offsets(n, n_iter, groups), want)
+
+
+def _cu_define(name: str) -> int:
+    """A ``#define`` of ``csrc/decan_loops.cu``."""
+    import re
+
+    path = os.path.join(ROOT, "src", "repro_torch", "csrc", "decan_loops.cu")
+    with open(path) as f:
+        return int(re.search(rf"^#define {name} (\d+)", f.read(),
+                             re.M).group(1))
+
+
+def test_livermore_constants_are_the_kernels():
+    """The plain version's and the schedule model's constants are
+    liv_kernel's."""
+    for name in ("LIV_CHUNK", "LIV_CHAINS", "LIV_UNROLL", "LIV_RING"):
+        assert _cu_define(name) == getattr(dref, name), name
+    assert 4 <= dref.LIV_UNROLL <= 8 and dref.LIV_RING >= 1
+
+
+def _liv_schedule(n: int, n_iter: int, unroll: int = dref.LIV_UNROLL,
+                  ring: int = dref.LIV_RING) -> dict:
+    """liv_kernel's loop (``liv_loop``) as one thread runs it: the ring of
+    ``ring`` loads, trips of ``unroll`` iterations while each of their
+    loads exists (i + unroll + ring <= n_iter), a trip taking its loads at
+    immediate offsets from lo when lo + (unroll-1)*64 < m (checked once a
+    trip; lo then steps once) and stepping each load otherwise, then the
+    last iterations one by one. Returns the loads in issue order as
+    (iteration loaded, offset, iteration issuing it; -1 before the loop),
+    the iteration whose value each accumulator add takes, the iterations
+    that emit noise, and the fast and stepped trips."""
+    chunk = dref.LIV_CHUNK
+    m = n - chunk
+    st = {"lo": 0, "loads": [], "adds": [], "emits": [], "fast": 0,
+          "stepped": 0}
+    ring_vals = [None] * ring
+
+    def stepped(j, at):
+        if st["lo"] >= m:
+            st["lo"] -= m
+        st["loads"].append((j, st["lo"], at))
+        st["lo"] += chunk
+        return j
+
+    def body(i, load):
+        st["adds"].append(ring_vals.pop(0))     # consume, the ring moves on
+        ring_vals.append(load(i + ring, i) if load else None)
+        st["emits"].append(i)
+
+    for d in range(ring):
+        ring_vals[d] = stepped(d, -1) if d < n_iter else None
+    last_trip = n_iter - ring - unroll
+    i = 0
+    while i <= last_trip:
+        while i <= last_trip and st["lo"] + (unroll - 1) * chunk < m:
+            base = st["lo"]
+            for u in range(unroll):
+                body(i + u, lambda j, at, u=u: st["loads"].append(
+                    (j, base + u * chunk, at)) or j)
+            st["lo"] += unroll * chunk
+            st["fast"] += 1
+            i += unroll
+        if i <= last_trip:
+            for u in range(unroll):
+                body(i + u, stepped)
+            st["stepped"] += 1
+            i += unroll
+    while i < n_iter:
+        body(i, stepped if i + ring < n_iter else None)
+        i += 1
+    return st
+
+
+@pytest.mark.parametrize("n,n_iter", (
+    (1 << 18, 60_000),          # the main path: 14 wraps, each inside a trip
+    (1 << 12, 1000),            # m = 63 * 64: the wrap lands inside a trip
+    (4096 + 40, 1001),          # m not a multiple of 64, n_iter % U != 0
+    (130, 50),                  # m = 66: every trip steps its loads
+    (1 << 12, 3),               # n_iter < the ring
+    (1 << 12, 1),
+    (1 << 12, 0),
+    (1 << 18, 5003)))           # n_iter % U != 0 past the first wrap
+def test_livermore_schedule_is_the_references(n, n_iter):
+    """liv_kernel's redesigned schedule loads every iteration's reference
+    offset (i*64) % (n-64), int32-wrapped then floor modulo, exactly once
+    and in order, LIV_RING iterations before the one that adds it; the
+    accumulator adds each iteration's value once, in the reference's order,
+    and the noise is emitted once an iteration in order. Run on seeded
+    values, that order gives the plain version's output bit for bit."""
+    from repro_torch.core.loopnoise import _wrap32
+
+    st = _liv_schedule(n, n_iter)
+    want = _wrap32(torch.arange(n_iter, dtype=torch.int64) * dref.LIV_CHUNK
+                   ) % (n - dref.LIV_CHUNK)
+    assert [j for j, _, _ in st["loads"]] == list(range(n_iter))
+    assert torch.equal(torch.tensor([o for _, o, _ in st["loads"]],
+                                    dtype=torch.int64), want)
+    assert [at for _, _, at in st["loads"]] == [
+        j - dref.LIV_RING if j >= dref.LIV_RING else -1
+        for j in range(n_iter)]
+    assert st["adds"] == list(range(n_iter)) == st["emits"]
+    trips = max(0, -(-(n_iter - dref.LIV_RING - dref.LIV_UNROLL + 1)
+                     // dref.LIV_UNROLL))
+    assert st["fast"] + st["stepped"] == trips
+    m = n - dref.LIV_CHUNK
+    if n_iter * dref.LIV_CHUNK > m and m > dref.LIV_UNROLL * dref.LIV_CHUNK:
+        assert 0 < st["stepped"] <= -(-n_iter * dref.LIV_CHUNK // m)
+        assert st["fast"] > st["stepped"]
+    if m < (dref.LIV_UNROLL - 1) * dref.LIV_CHUNK:
+        assert st["fast"] == 0
+    first = -(-m // dref.LIV_CHUNK)        # the first iteration past a wrap
+    if m % dref.LIV_CHUNK and first < n_iter:   # it lands past 0
+        assert int(want[first]) == first * dref.LIV_CHUNK - m > 0
+    buf = torch.from_numpy(
+        np.random.default_rng(n_iter).standard_normal(n, dtype=np.float32))
+    offs = dict((j, o) for j, o, _ in st["loads"])
+    acc = torch.zeros(8, dtype=torch.float32)
+    for j in st["adds"]:
+        acc = acc + buf[offs[j]:offs[j] + 8]
+    lanes = torch.arange(dref.LIV_CHAINS, dtype=torch.float32)
+    per_lane = lanes[0].expand(8)
+    for j in range(1, dref.LIV_CHAINS):
+        per_lane = per_lane + lanes[j]
+    total = reduce_threads(per_lane + acc)
+    got, _ = dref.livermore_plain(buf, n_iter=n_iter, width=8, fp=False)
+    assert torch.equal(got, total)
+
+
+def test_livermore_body_is_per_iteration(monkeypatch):
+    """livermore_target states no |body|, so it is derived from the clean
+    SASS's innermost loop, which holds an unrolled trip: divided by
+    LIV_UNROLL it is one iteration's (the payload census's body_ops too)."""
+    import dataclasses
+
+    from repro_torch.core import payload as pm
+    from repro_torch.core.controller import census_payload, derive_body_size
+    from repro_torch.kernels import _build
+
+    U = dref.LIV_UNROLL
+    iteration = ["FADD R1, R1, R7"] + [f"FADD R{8 + j}, R{8 + j}, 1e-07"
+                                       for j in range(12)] \
+        + ["LDG.E.CONSTANT R7, desc[UR4][R2.64+0x100]"]
+    body = ["S2R R0, SR_TID.X", ".L_x_0:", "ISETP.GE.AND P0, PT, R0, R5, PT",
+            ".L_x_1:", *(iteration * U), "IADD3 R4, R4, 0x800, RZ",
+            "IADD3 R0, R0, 0x8, RZ", "ISETP.GT.AND P1, PT, R4, R6, PT",
+            "@!P1 BRA `(.L_x_1)", *iteration, "IADD3 R4, R4, 0x40, RZ",
+            "@!P0 BRA `(.L_x_0)", "EXIT", ".L_x_2:", "BRA `(.L_x_2)"]
+    text = "\n".join(["\t\tFunction : _Z10liv_kernelILb1ELb1ELi0ELi0EEvPKfiiii",
+                      *(f"        /*{16 * a:04x}*/   {ins} ;"
+                        if not ins.endswith(":") else ins
+                        for a, ins in enumerate(body))]) + "\n"
+    monkeypatch.setattr(_build, "site_sass", lambda site: text)
+    target = livermore_target(32, n=1 << 12, width=16, device="cpu")
+    region = dataclasses.replace(target, device="cuda").region()
+    assert region.sass("", 0).unroll == U
+    trip = len(iteration) * U + 3          # the trip's IADD3 x2 and ISETP
+    assert pm.body_size(text) == trip
+    assert derive_body_size(region) == (trip + U // 2) // U \
+        == len(iteration)
+    monkeypatch.setattr(_build, "site_sass",
+                        lambda site: text.replace("ILi0ELi0E", "ILi1ELi4E")
+                        if site.k else text)
+    assert census_payload(region, "fp_add", 4, expected=4).body_ops \
+        == len(iteration)
 
 
 def test_stream_wrapper_refuses_where_the_stepped_offset_would_differ():
