@@ -9,8 +9,10 @@ JAX or of the reference package. Phases, each of which fails the run:
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions; TF32 is switched off for the plain versions;
-2. build: the runtime-k library and the static-k builds the check needs,
-   one ``nvcc`` per library, all started together; the registers of every
+2. build: the runtime-k library and the static-k builds phases 3 and 7
+   need, one ``nvcc`` per library, ``BUILD_WORKERS`` at a time; the rest
+   (below) go on building while phase 3 runs, and the census waits for
+   them (printed as 2b, after phase 3): the registers of every
    kernel (``nvcc -Xptxas -v``, no spills allowed), ``loop_regions.cu``
    included; the SASS FADD count of the static fp probe, matmul and
    attention at k=4 and k=24 (the fp adds must survive); the loop regions'
@@ -24,7 +26,7 @@ JAX or of the reference package. Phases, each of which fails the run:
    chains' FMUL or FADD); each graph-level noise mode's kernel
    (``graph_noise.cu``) growing by >= 20 of its pattern instruction (FADD,
    HMMA, LDS, LDG, LDG) from k=4 to k=24; the libraries' SASS dumped in a
-   thread pool first; alongside, the static audit's builds (k = 4, 12
+   thread pool first; the rest of the builds: the static audit's (k = 4, 12
    and clean of every pair phases 4 and 11 audit, the sabotaged probe's)
    and the static builds of phase 4's and 14's payload checks
    (``PAYLOAD_KS``, ``EXAMPLE_PAYLOAD_KS``);
@@ -51,7 +53,11 @@ JAX or of the reference package. Phases, each of which fails the run:
    alone), runtime k bitwise equal to static k at k=24; the same at k in
    {0, 5} on the main path's own inputs (STREAM n=2^25 and SPMXV n=2^21,
    15.5 and 7.8 iterations a warp, grid-stride; lat_mem_rd on the 2^26
-   table; HACCmk at width 135,168, 1,000 iterations; matmul n=192); every
+   table; HACCmk at width 135,168, 1,000 iterations; matmul n=192);
+   matmul O3 at the edges of its trips, load ring and shared stage
+   (``CHECK_O3_SHAPES``: n = 8, 33, 192 and 384, and an n_iter no multiple
+   of its trip) x every loop mode at k in {0, 5}, runtime == static k=24;
+   every
    DECAN variant (3 x 4 Table 3 scenarios, 3 Livermore) at phase 4's shapes
    on seeded random inputs (N=2^25; token and scatter_dep at 200
    iterations; Livermore at the edges of its trips and load ring,
@@ -63,7 +69,9 @@ JAX or of the reference package. Phases, each of which fails the run:
    and run-time k in {0, 5}: aux and new state bitwise against the plain
    version, static equal to run-time k, the input state unchanged;
 4. the main path, through the user's entry points, each path driven with
-   every launch count set to 0 just before it and read just after:
+   every launch count set to 0 just before it and read just after (each
+   ``python -m`` command below runs through its ``main`` in this process,
+   ``_run_cli``; only 4b's shards are processes of their own):
    a. the main fleet plan: Qwen3-30B-A3B's attention (32 query heads, 4
       KV heads, head_dim 128, batch 1, seq 4096, causal), the probe at
       1056 steps, spmxv n=2^21 L=16 q=0 and the matmul at n=4096, one
@@ -122,7 +130,9 @@ JAX or of the reference package. Phases, each of which fails the run:
    loops at their phase-4 shapes (Table 3's data-bound scenario with
    torch.add alpha 3 as the library call, Livermore; the triads' row and
    clean build read 5 times in turns beside torch.add, Livermore's beside
-   its FP32 issue bound); each graph-level
+   its FP32 issue bound, matmul O3's beside its warp-issue floor at the
+   card's SM clock); both matmuls' slot costs in device ms too; each
+   graph-level
    mode's kernel at k=64 and its µs a pattern, the slope of event and
    device time over k in {0, 128, 256, 512}, beside
    ``pattern_cost(H100_SXM)``'s: hbm_stream and hbm_latency on lines the
@@ -222,7 +232,7 @@ JAX or of the reference package. Phases, each of which fails the run:
    equal to ``tests/golden_torch/audit_expected.json``; |body| from the clean SASS
    of every region the port builds (nonzero; a step region's 0; an
    iteration's where the innermost loop is an unrolled trip: Livermore's
-   over its LIV_UNROLL); the
+   over its LIV_UNROLL, matmul O3's over its MM_O3_UNROLL); the
    loop and step payload census (payload = k, overhead and body_ops from
    the SASS); the probe's fp under ``REPRO_NOISE_SABOTAGE=const`` through
    ``python -m repro_torch.launch.probe --plan``: the audit reads it dead
@@ -298,6 +308,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import glob
 import io
 import json
 import math
@@ -332,7 +343,11 @@ UNFUSED_FP32 = ("stream_triad", "lat_mem_rd", "haccmk", "spmxv", "matmul_O0",
 # rows whose targets are read in turns (Livermore: its run-time build at
 # k=0 against its clean build, and its share of the FP32 issue bound)
 TRIAD_ROWS = ("stream_triad", "decan_table3")
-TARGET_ROWS = TRIAD_ROWS + ("decan_livermore",)
+TARGET_ROWS = TRIAD_ROWS + ("decan_livermore", "matmul_O3")
+# matmul O3's targets: its row at or below O3_TARGET_MS device ms, and at
+# least O3_FLOOR_SHARE of its warp-issue floor (``o3_issue_floor``)
+O3_TARGET_MS = 0.100
+O3_FLOOR_SHARE = 0.50
 
 CHECK_KS = (0, 1, 24)           # plus K_MAX + 7 (the clamp)
 STATIC_CHECK_K = 24
@@ -394,6 +409,15 @@ DECAN_CHECK_KS = (0, 5)
 CHECK_LIV_SHAPES = ((2 ** 18, 60_000, (0,)), (2 ** 18, 5003, DECAN_CHECK_KS),
                     (4096 + 40, 1001, DECAN_CHECK_KS),
                     (130, 50, DECAN_CHECK_KS), (2 ** 12, 3, DECAN_CHECK_KS))
+# matmul O3's (n, n_iter) at the edges of mm_o3_kernel (trips of
+# MM_O3_UNROLL = 8, a ring of MM_O3_RING = 8 loads, a[:8, :n] staged in
+# shared memory): the smallest n (one trip a wrap of n); n = 33, whose
+# wraps fall inside trips; the main path's n with an n_iter no multiple of
+# the trip; --full's n = 384 (a 12 KiB stage, six blocks) over 4 passes of
+# its rows; n = 13 with fewer iterations than the ring. The main path's
+# own n = 192 at 16 n is checked with the other regions' main shapes.
+CHECK_O3_SHAPES = ((8, 128), (33, 531), (192, 8 * 192 + 5), (384, 4 * 384),
+                   (13, 5))
 # the graph-level noise modes (csrc/graph_noise.cu): their kernels, the SASS
 # opcode of one pattern, the quantities of phase 3 and the timed k
 GRAPH_MODES = ("fp_add32", "mxu_fma128", "vmem_ld", "hbm_stream",
@@ -434,6 +458,31 @@ def card_state() -> str:
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock in MHz (``nvidia-smi clocks.max.sm``):
+    the clock of a warp-issue floor."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+
+
+def o3_issue_floor(n: int, n_iter: int, threads: int, mhz: float) -> dict:
+    """matmul O3's warp-issue floor: each warp issues 16 FADD/FMUL an
+    iteration (never contracted into FFMA), a scheduler one a clock, and a
+    block's warps are dealt to its SM's 4 schedulers (one block an SM: the
+    n / ``threads`` blocks are fewer than the 132 SMs), so the floor is 16 x
+    n_iter x the warps of the busiest scheduler clocks at the SM clock."""
+    warps = -(-min(threads, n) // 32)
+    busiest = -(-warps // 4)
+    clocks = 16 * n_iter * busiest
+    return {"ms": clocks / (mhz * 1e3), "clocks": clocks,
+            "warps_a_block": warps, "warps_busiest_scheduler": busiest,
+            "sm_clock_mhz": mhz,
+            "formula": f"16 FADD/FMUL x {n_iter} iterations x {busiest} "
+                       f"warp(s) on the busiest scheduler / {mhz:g} MHz"}
 
 
 def host_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
@@ -805,7 +854,17 @@ def _no_spills(usage: dict) -> None:
         raise RuntimeError(f"register spills in {spilled}")
 
 
-def phase_build() -> None:
+# nvcc processes at once beside this process (the run-time library's seven
+# count as one): every core but one, so the checks that run while the
+# static builds finish keep a core of their own
+BUILD_WORKERS = max(2, (os.cpu_count() or 8) - 1)
+
+
+def phase_build():
+    """Build the run-time library and phase 3's and 7's static builds, and
+    start the rest (the audit's and the payload checks') in the
+    background; returns the pool and the call that waits for them and
+    reads the SASS census (``_finish_build``), which runs after phase 3."""
     from repro_torch.kernels import _build
 
     banner("2. build")
@@ -820,19 +879,34 @@ def phase_build() -> None:
                                    sabotage=sabotage)
 
     t0 = time.perf_counter()
-    want = _static_set()
-    with ThreadPoolExecutor(max_workers=len(want) + 1) as pool:
-        rt = pool.submit(timed, _build.runtime_lib)
-        statics = [pool.submit(timed, static, *s) for s in want]
-        rt_s = rt.result()
-        static_s = [f.result() for f in statics]
-    n_audit = len(set(_audit_set()) - set(_check_set()))
+    first = list(dict.fromkeys(_check_set()))
+    rest = [s for s in _static_set() if s not in set(first)]
+    pool = ThreadPoolExecutor(max_workers=BUILD_WORKERS)
+    rt = pool.submit(timed, _build.runtime_lib)
+    statics = [pool.submit(timed, static, *s) for s in first]
+    later = [pool.submit(timed, static, *s) for s in rest]
+    rt_s = rt.result()
+    static_s = [f.result() for f in statics]
     print(f"runtime-k library ({len(_build.KERNEL_SOURCES)} sources, "
           f"parallel nvcc + link): {rt_s:.1f} s; {len(statics)} static-k "
-          f"builds alongside ({n_audit} of them for the audit, "
-          f"{len(want) - len(set(_check_set() + _audit_set()))} for phase "
-          f"4's and 14's payload checks; slowest {max(static_s):.1f} s): "
-          f"{time.perf_counter() - t0:.1f} s in all")
+          f"builds of phases 3 and 7 alongside (slowest {max(static_s):.1f} "
+          f"s), {BUILD_WORKERS} builds at a time: {time.perf_counter() - t0:.1f}"
+          f" s; {len(later)} more building while phase 3 runs", flush=True)
+    return pool, partial(_finish_build, later, t0)
+
+
+def _finish_build(later: list, t0: float) -> None:
+    """Wait for the static builds phase 2 left running, then read the SASS
+    census of the libraries and the registers of every kernel."""
+    from repro_torch.kernels import _build
+
+    banner("2b. the rest of the static builds, and the SASS census")
+    static_s = [f.result() for f in later]
+    n_audit = len(set(_audit_set()) - set(_check_set()))
+    print(f"{len(later)} static-k builds ({n_audit} of them for the audit, "
+          f"{len(later) - n_audit} for phase 4's and 14's payload checks; "
+          f"slowest {max(static_s, default=0.0):.1f} s): all built "
+          f"{time.perf_counter() - t0:.1f} s after phase 2 began")
     t0 = time.perf_counter()
     paths = _census_paths()
     with ThreadPoolExecutor(max_workers=16) as pool:
@@ -1436,6 +1510,26 @@ def _loop_main_cases() -> dict:
     }
 
 
+def _o3_edge_cases(dev) -> dict:
+    """label -> ``_loop_case`` of matmul O3 at ``CHECK_O3_SHAPES``, on
+    standard normal a and b from ``RandomState(n)``."""
+    import numpy as np
+
+    from repro_torch.convert import to_torch
+    from repro_torch.kernels.loop_regions import kernel as lk
+    from repro_torch.kernels.loop_regions import ref as lref
+
+    cases = {}
+    for n, n_iter in CHECK_O3_SHAPES:
+        rs = np.random.RandomState(n)
+        a, b = to_torch(tuple(rs.standard_normal((n, n)).astype(np.float32)
+                              for _ in range(2)), dev)
+        cases[f"matmul_O3 n={n}, {n_iter} iterations"] = _loop_case(
+            "matmul_O3", lk.matmul_o3, lref.matmul_o3_plain, a, b,
+            n_iter=n_iter)
+    return cases
+
+
 def _check_loops(cases: dict, ks, failures: list, max_err: dict) -> None:
     """Every loop region x mode x k in ``ks`` against its plain version
     (outputs and aux bitwise), outputs unchanged across k, runtime k ==
@@ -1680,6 +1774,7 @@ def phase_check(main: dict) -> dict:
     _check_fused(main, failures)
     _check_loops(_loop_cases(dev), LOOP_CHECK_KS, failures, max_err)
     _check_loops(_loop_main_cases(), LOOP_MAIN_CHECK_KS, failures, max_err)
+    _check_loops(_o3_edge_cases(dev), LOOP_MAIN_CHECK_KS, failures, max_err)
     _check_decan(failures, max_err)
     _check_graph(failures, max_err)
     if failures:
@@ -1698,41 +1793,58 @@ def _payloads_ok(rep) -> None:
             raise RuntimeError(f"{rep.region}/{mode}: non-finite fit {fit}")
 
 
+@contextlib.contextmanager
+def _cli_env():
+    """The environment a user's shell gives a CLI (``PYTHONPATH`` holding
+    the checkout's ``src``, for the worker processes it starts), restored
+    afterwards with anything the CLI set (``calibrate run`` turns the
+    synthetic clock on for its own sweeps)."""
+    saved = dict(os.environ)
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (SRC, saved.get("PYTHONPATH")) if p)
+    try:
+        yield
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+
+
+def _run_cli(prog: str, main, argv: list) -> None:
+    """``python -m PROG ARGV`` as a user runs it, through its ``main`` in
+    this process (a process of its own costs seconds to reach the card);
+    raises on a nonzero exit."""
+    sys.stdout.flush()
+    with _cli_env():
+        try:
+            rc = main(argv)
+        except SystemExit as e:
+            rc = e.code if isinstance(e.code, int) else 1
+            if not isinstance(e.code, int):
+                print(e.code, flush=True)
+    sys.stdout.flush()
+    if rc:
+        raise RuntimeError(f"python -m {prog} {' '.join(argv)}: exit {rc}")
+
+
 def _fleet(*args) -> None:
-    """``python -m repro_torch.fleet ARGS`` as a user runs it, its output
-    streamed; raises on a nonzero exit."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (SRC, env.get("PYTHONPATH")) if p)
-    sys.stdout.flush()
-    rc = subprocess.run([sys.executable, "-m", "repro_torch.fleet", *args],
-                        env=env, timeout=900).returncode
-    if rc:
-        raise RuntimeError(f"python -m repro_torch.fleet {' '.join(args)}: "
-                           f"exit {rc}")
+    """``python -m repro_torch.fleet ARGS`` (``_run_cli``)."""
+    from repro_torch.fleet.cli import main as fleet_cli
+
+    _run_cli("repro_torch.fleet", fleet_cli, list(args))
 
 
-def _bench(tmp: str, study: str, kernels, *extra) -> dict:
-    """``python -m repro_torch.bench STUDY`` as a user runs it, with a store
-    directory (its output streamed; raises on a nonzero exit). Adds the
-    process's launches to ``kernels`` and prints the study's result."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (SRC, env.get("PYTHONPATH")) if p)
-    out = os.path.join(tmp, "bench_out")
-    sys.stdout.flush()
-    rc = subprocess.run([sys.executable, "-m", "repro_torch.bench", study,
-                         "--store-dir", os.path.join(tmp, "bench_stores"),
-                         "--out", out, *extra], env=env,
-                        timeout=900).returncode
-    if rc:
-        raise RuntimeError(f"python -m repro_torch.bench {study}: exit {rc}")
+def _bench(tmp: str, study: str, *extra) -> dict:
+    """``python -m repro_torch.bench STUDY`` with a store directory
+    (``_run_cli``; its launches count in this process's wrappers); prints
+    the study's result."""
     from repro_torch.bench.studies import STUDIES
+    from repro_torch.bench.studies import main as bench_main
 
-    name = STUDIES[study][0]
-    if kernels is not None:
-        kernels.add_worker(os.path.join(out, f"{name}.stats.json"))
-    with open(os.path.join(out, f"{name}.json")) as f:
+    out = os.path.join(tmp, "bench_out")
+    _run_cli("repro_torch.bench", bench_main,
+             [study, "--store-dir", os.path.join(tmp, "bench_stores"),
+              "--out", out, *extra])
+    with open(os.path.join(out, f"{STUDIES[study][0]}.json")) as f:
         result = json.load(f)
     print(f"{study} result: {json.dumps(result)}", flush=True)
     return result
@@ -1825,8 +1937,9 @@ def _explain_check(plan_path: str, report: dict, seconds: dict) -> None:
 def _fleet_plan_run(tmp: str, name: str, targets: list, shards: int,
                     kernels: Kernels, *launcher, store_format=None,
                     seconds=None) -> dict:
-    """Save a plan, run it through the fleet CLI (subprocess workers; the
-    default --audit gate audits every pair first), check its payloads and
+    """Save a plan, run it through the fleet CLI (its workers in
+    subprocesses, or in this process with ``--in-process``; the default
+    --audit gate audits every pair first), check its payloads and
     fits from the merged store and report, replay it with
     --expect-no-measure (it must audit and measure nothing), hold it to
     ``fleet audit --expect-clean`` (every pair intact), print its status;
@@ -1848,8 +1961,9 @@ def _fleet_plan_run(tmp: str, name: str, targets: list, shards: int,
     if audited != len(plan.grid()):
         raise RuntimeError(f"{name}: the gate wrote {audited} audit records "
                            f"for {len(plan.grid())} pairs")
-    for ws in plan.worker_stores():
-        kernels.add_worker(ws + ".stats.json")
+    if "--in-process" not in launcher:     # workers in processes of their own
+        for ws in plan.worker_stores():
+            kernels.add_worker(ws + ".stats.json")
     store = CampaignStore(plan.store, readonly=True)
     for key in plan.grid():
         pay = (store.done.get(key) or {}).get("payload") or {}
@@ -1904,12 +2018,24 @@ def main_targets() -> list:
     ]
 
 
+def _static_libs() -> set:
+    """The static-k libraries built so far, by (source, mode, k[, variant])
+    (their file names without the source hash)."""
+    from repro_torch.kernels import _build
+
+    return {os.path.basename(p)[len("librepro_"):].rsplit("_", 1)[0]
+            for p in glob.glob(os.path.join(_build.BUILD_DIR,
+                                            "librepro_*_m*_k*.so"))}
+
+
 def drive(kernels: Kernels, counts: dict, seconds: dict, name: str, kernel,
           fn):
     """Drive one path with every count set to 0 just before it; read the
     counts just after (adding them to ``counts``), and fail unless it
-    launched ``kernel`` (a name or a tuple of names)."""
+    launched ``kernel`` (a name or a tuple of names). Prints the static
+    builds the path made (each an ``nvcc`` run of seconds on its clock)."""
     kernels.reset()
+    built = _static_libs()
     t0 = time.perf_counter()
     out = fn()
     seconds[name] = time.perf_counter() - t0
@@ -1917,9 +2043,11 @@ def drive(kernels: Kernels, counts: dict, seconds: dict, name: str, kernel,
     for k, (n_cuda, n_plain) in path_counts.items():
         counts[k][0] += n_cuda
         counts[k][1] += n_plain
+    new = sorted(_static_libs() - built)
     print(f"  ({name}: {seconds[name]:.1f} s; launches (kernel, plain): "
-          f"{ {k: c for k, c in path_counts.items() if any(c)} })",
-          flush=True)
+          f"{ {k: c for k, c in path_counts.items() if any(c)} }"
+          + (f"; {len(new)} static build(s) phase 2 did not make: "
+             f"{', '.join(new)}" if new else "") + ")", flush=True)
     for kern in (kernel,) if isinstance(kernel, str) else kernel:
         if path_counts[kern][0] <= 0:
             raise RuntimeError(f"{name}: the path never launched {kern}")
@@ -2019,8 +2147,7 @@ def phase_main(tmp: str, kernels: Kernels) -> dict:
     for study, extra, kerns in study_kernels:
         print(f"== 4e. python -m repro_torch.bench {study} {' '.join(extra)}"
               f"; card before: {card_state()}", flush=True)
-        timed(f"bench_{study}", kerns,
-              lambda: _bench(tmp, study, kernels, *extra))
+        timed(f"bench_{study}", kerns, lambda: _bench(tmp, study, *extra))
     print(f"== 4f. python -m repro_torch.fleet calibrate run; card: "
           f"{card_state()}", flush=True)
     calib_store = os.path.join(tmp, "calibrate", "calibrate.jsonl")
@@ -2038,7 +2165,7 @@ def phase_main(tmp: str, kernels: Kernels) -> dict:
     for name in path_kernel:
         run(name, expect_no_measure=True)
     for study, extra, _ in study_kernels:
-        _bench(tmp, study, None, *extra, "--expect-no-measure")
+        _bench(tmp, study, *extra, "--expect-no-measure")
     _fleet("calibrate", "run", "--store", calib_store, "--expect-no-measure")
     print("wall time per characterization (s): "
           + json.dumps({k: round(v, 1) for k, v in seconds.items()}))
@@ -2249,6 +2376,13 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
                            f"[{min(tgt['torch_add'])!r}, "
                            f"{max(tgt['torch_add'])!r}]: "
                            f"{med['row'] <= med['torch_add']}")
+            elif name == "matmul_O3":
+                fl = extra[name]["warp_issue_floor"]["ms"]
+                against = (f" (<= {O3_TARGET_MS} ms: "
+                           f"{med['row'] <= O3_TARGET_MS}), {fl / med['row']!r}"
+                           f" of the warp-issue floor {fl!r} ms (>= "
+                           f"{O3_FLOOR_SHARE}: "
+                           f"{fl / med['row'] >= O3_FLOOR_SHARE})")
             else:
                 against = (f", {issue['issue_bound_ms'] / med['row']!r} of "
                            f"the FP32 issue bound (the median's; >= 0.70: "
@@ -2312,9 +2446,10 @@ def _loop_rows():
     from repro_torch.kernels.loop_regions import kernel as lk
     from repro_torch.kernels.loop_regions import ref as lref
 
-    def main_call(region, name):
+    def main_call(region, name, device=False):
         fn, args = region.build_rt("fp_add"), region.args_for_rt("fp_add")
-        extra.setdefault(name, {})["slot_ms"] = _slot_ms(region, name)
+        extra.setdefault(name, {})["slot_ms"] = _slot_ms(region, name,
+                                                         device=device)
         return partial(fn, 0, *args), args
 
     # every call binds its tensors now (partial): the names are reused below
@@ -2381,7 +2516,10 @@ def _loop_rows():
     n = MAIN_MM_N
     for opt, name in ((False, "matmul_O0"), (True, "matmul_O3")):
         reg = matmul_region(n=n, optimized=opt)
-        kern, args = main_call(reg, name)
+        kern, args = main_call(reg, name, device=True)
+        print(f"{name}: the noise slot at run-time k=0 over the clean build "
+              f"(device ms): " + slot_costs(extra[name]["slot_ms"]),
+              flush=True)
         it = 16 * n if opt else 32 * n // lref.UNROLL_O0
         if opt:
             a, b, carry = args
@@ -2389,6 +2527,11 @@ def _loop_rows():
                             mode="fp_add", k=0, carry=carry)
             nbytes = 4 * (lref.ROWS_O3 * n + n * n)
             nops = 2 * it * lref.ROWS_O3 * n
+            floor = o3_issue_floor(n, it, lref.MM_O3_THREADS, sm_clock_mhz())
+            extra[name]["warp_issue_floor"] = floor
+            print(f"{name}: warp-issue floor ({lref.MM_O3_THREADS}-thread "
+                  f"blocks, {floor['warps_a_block']} warp(s) a block): "
+                  f"{floor['formula']} = {floor['ms']!r} ms", flush=True)
         else:
             a, b, out0, carry = args
             plain = partial(lref.matmul_o0_plain, a, b, out0, n_iter=it,
@@ -2398,6 +2541,15 @@ def _loop_rows():
         rows.append((name, f"{name} n={n}", kern, plain, None, nbytes, nops,
                      FP32_FLOPS, None))
     return rows, extra
+
+
+def slot_costs(slot: dict) -> str:
+    """Each mode's run-time build at k=0 over the clean build, from a
+    ``_slot_ms`` result (device ms where it has them)."""
+    def ms(v):
+        return v["device"] if isinstance(v, dict) else v
+    return ", ".join(f"{m} {ms(slot[m]['rt_k0']) / ms(slot['clean'])!r}"
+                     for m in LOOP_MODES)
 
 
 def _slot_ms(region, name: str, *, device: bool = False,
@@ -3755,19 +3907,30 @@ def _train_cli(tmp: str) -> dict:
     from repro_torch.models.model import build
     from repro_torch.train import Trainer
 
-    env = dict(os.environ, PYTHONPATH=SRC)
+    import logging
+
+    from repro_torch.launch.train import main as train_main
+
     ckpt_dir = os.path.join(tmp, "train_ckpt")
     runs = []
+    root = logging.getLogger()
     for steps in CLI_STEPS:
-        argv = [sys.executable, "-m", "repro_torch.launch.train",
-                *TRAIN_CLI, "--steps", str(steps), "--ckpt-dir", ckpt_dir]
-        out = subprocess.run(argv, env=env, capture_output=True, text=True,
-                             timeout=600)
-        print(f"== {' '.join(argv[1:])}\n{out.stdout}", flush=True)
-        if out.returncode:
+        argv = [*TRAIN_CLI, "--steps", str(steps), "--ckpt-dir", ckpt_dir]
+        # its main in this process (_run_cli), its output captured; the
+        # root logger's setting it makes is undone after it
+        buf, level, handlers = io.StringIO(), root.level, root.handlers[:]
+        try:
+            with contextlib.redirect_stdout(buf):
+                train_main(argv)
+        except SystemExit as e:
             raise RuntimeError(f"launch.train --steps {steps} failed: "
-                               f"{out.stderr[-2000:]}")
-        runs.append(out.stdout)
+                               f"{e.code}")
+        finally:
+            root.setLevel(level)
+            root.handlers[:] = handlers
+        print(f"== -m repro_torch.launch.train {' '.join(argv)}\n"
+              f"{buf.getvalue()}", flush=True)
+        runs.append(buf.getvalue())
     if f"resumed from checkpoint step {CLI_STEPS[0]}" not in runs[1]:
         raise RuntimeError(f"the rerun did not resume from step "
                            f"{CLI_STEPS[0]}")
@@ -3841,19 +4004,26 @@ def phase_train(tmp: str, kernels: Kernels) -> dict:
 # ---------------------------------------------------------------------------
 
 def _probe_out(*args, env: Optional[dict] = None) -> tuple:
-    """``python -m repro_torch.launch.probe ARGS`` with ``env`` added to
-    the environment; its output printed; (exit code, output)."""
-    full = dict(os.environ)
-    full["PYTHONPATH"] = os.pathsep.join(
-        p for p in (SRC, full.get("PYTHONPATH")) if p)
-    full.update(env or {})
+    """``python -m repro_torch.launch.probe ARGS`` through its ``main`` in
+    this process (``_run_cli``'s environment, ``env`` added and taken away
+    after); its output and its exit message printed; (exit code,
+    output)."""
+    from repro_torch.launch.probe import main as probe_main
+
+    buf, rc = io.StringIO(), 0
     sys.stdout.flush()
-    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.probe",
-                          *args], env=full, timeout=900, capture_output=True,
-                         text=True)
-    text = out.stdout + out.stderr
+    with _cli_env(), contextlib.redirect_stdout(buf), \
+            contextlib.redirect_stderr(buf):
+        os.environ.update(env or {})
+        try:
+            probe_main(list(args))
+        except SystemExit as e:
+            rc = e.code if isinstance(e.code, int) else 1
+            if not isinstance(e.code, int):
+                print(e.code, file=sys.stderr)
+    text = buf.getvalue()
     print(text, end="" if text.endswith("\n") else "\n", flush=True)
-    return out.returncode, text
+    return rc, text
 
 
 def _save_plan(tmp: str, name: str, targets: list):
@@ -5111,14 +5281,22 @@ def main(argv=None) -> int:
                                - sum(elapsed.values()), 1)
 
     card = phase_env()
-    if 2 in phases:
-        phase_build()
-    lap("1-2")
-    main_args = main_inputs() if {3, 6} & set(phases) else None
-    max_err, launches, rows = {}, {}, []
-    if 3 in phases:
-        max_err = phase_check(main_args)
-        lap("3")
+    build_pool = None
+    try:
+        if 2 in phases:
+            build_pool, finish_build = phase_build()
+        lap("1-2")
+        main_args = main_inputs() if {3, 6} & set(phases) else None
+        max_err, launches, rows = {}, {}, []
+        if 3 in phases:
+            max_err = phase_check(main_args)
+            lap("3")
+        if build_pool is not None:
+            finish_build()
+            lap("2b")
+    finally:
+        if build_pool is not None:  # a failure leaves no build running on
+            build_pool.shutdown(wait=False, cancel_futures=True)
     kernels = Kernels()
     if 4 in phases:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:

@@ -39,10 +39,10 @@ from repro_torch.kernels.region import resolve_device
 from repro_torch.kernels.spmv_ell.ref import make_band_ell
 
 
-def _loop_sass(kernel: str) -> tuple:
+def _loop_sass(kernel: str, unroll: int = 1) -> tuple:
     """The loop region's SASS site: ``kernel`` of the loop_regions.cu static
-    builds."""
-    return ("loop_regions", ((kernel, ""),))
+    builds, whose innermost loop runs ``unroll`` iterations a pass."""
+    return ("loop_regions", ((kernel, ""),), unroll)
 
 
 def _maker(run, plain_run, **kw):
@@ -153,9 +153,11 @@ def matmul_region(n: int = 192, optimized: bool = False, *,
     """Both variants run k-step rank-1 updates. "-O0" (no mem2reg): ONE
     output row round-trips through memory every k-step, loads and stores
     dominate. "-O3" (register blocking): each loaded b-row feeds EIGHT
-    register-resident accumulator rows, FMA-pipe bound. a and b come from
-    ``RandomState(0)`` / ``(1)`` (the reference draws them from
-    ``PRNGKey(0)`` / ``(1)``, whose bits PyTorch cannot give)."""
+    register-resident accumulator rows; on the card bound by FP32 issue
+    (16 unfused FADD/FMUL an iteration), with its loads in flight and its
+    |body| derived per iteration of an unrolled trip (``MM_O3_UNROLL``).
+    a and b come from ``RandomState(0)`` / ``(1)`` (the reference draws
+    them from ``PRNGKey(0)`` / ``(1)``, whose bits PyTorch cannot give)."""
     dev = resolve_device(device)
     a, b = to_torch(tuple(np.random.RandomState(seed).standard_normal((n, n))
                           .astype(np.float32) for seed in (0, 1)), dev)
@@ -166,7 +168,8 @@ def matmul_region(n: int = 192, optimized: bool = False, *,
                                   n_iter=n_iter),
                            lambda: (a, b), body_size=2 * lref.ROWS_O3 + 1,
                            n_iter=n_iter, device=dev,
-                           sass=_loop_sass("mm_o3_kernel"))
+                           sass=_loop_sass("mm_o3_kernel",
+                                           lref.MM_O3_UNROLL))
     n_iter = 32 * n // lref.UNROLL_O0
     out = torch.zeros((1, n), dtype=torch.float32, device=dev)
     return loop_region("matmul_O0",

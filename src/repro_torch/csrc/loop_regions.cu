@@ -44,11 +44,13 @@
 // __fmul_rn (no contraction into FMAs): the plain versions round each
 // operation as the kernels do.
 //
-// The iteration loops are not unrolled (#pragma unroll 1), as XLA keeps a
-// fori_loop: one machine-loop iteration is one reference iteration, and the
-// static-k SASS holds k patterns per region kernel (chip_smoke.py's census
-// counts them; lat_kernel holds its fp patterns twice, as nvcc versions its
-// loop on hops > 0, and each iteration runs one copy).
+// The iteration loops but matmul_O3's are not unrolled (#pragma unroll 1),
+// as XLA keeps a fori_loop: one machine-loop iteration is one reference
+// iteration, and the static-k SASS holds k patterns per region kernel
+// (chip_smoke.py's census counts them; lat_kernel holds its fp patterns
+// twice, as nvcc versions its loop on hops > 0, and each iteration runs one
+// copy). matmul_O3 runs trips of MM_O3_UNROLL iterations, each with its own
+// k patterns, and one iteration at a time across a wrap.
 //
 // One launch a call. Its scratch is the stream's noise_slots workspace
 // (kernels/noise_slots.py `Workspace`): parts, 2 floats a block ([output,
@@ -258,35 +260,61 @@ static cudaError_t launch_spmxv(const float* vals, const int* cols, const float*
   return cudaGetLastError();
 }
 
+// Whether a matmul kernel instance's loop holds the noise slot. The
+// run-time build's k > 0 test is taken once a call, on the host: a run-time
+// call at k = 0 launches the kernel's <MODE, 0> instance, its loop without
+// the slot (the carry initialised and finalised, no pattern), compiled apart
+// as the static builds are, so that its loop is the clean build's and not a
+// branch beside the slot's loop that ptxas schedules with it; the <MODE, -1>
+// instance runs only at k > 0.
+__host__ __device__ constexpr bool slot_runs(int mode, int sk) {
+  return mode != LMODE_NONE && sk != 0;
+}
+
 // ---------------------------------------------------------------------------
 // matmul_O0: thread per column j of the one output row, which makes a round
-// trip through device memory at every step (volatile: "-O0", no mem2reg)
+// trip through device memory at every step (volatile: "-O0", no mem2reg).
+// That round trip is what the region measures, and the loop runs at it (one
+// L2 round trip a step); the run-time build's k > 0 test is taken once a
+// call, on the host (slot_runs), not once an iteration.
 // ---------------------------------------------------------------------------
+template <bool SLOT, int MODE, int SK>
+__device__ __forceinline__ void mm_o0_loop(volatile float* o, const float* __restrict__ a,
+                                           const float* __restrict__ bj, int n, int n_iter,
+                                           LoopNoise<MODE, SK>& nz, int k) {
+  if constexpr (SLOT && SK < 0) __builtin_assume(k > 0);
+#pragma unroll 1
+  for (int i = 0; i < n_iter; ++i) {
+    const int kk = (i * 8) % n;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int ku = min(kk + u, n - 1);   // lax.dynamic_slice clamps its start
+      const float av = __ldg(a + ku);
+      const float bv = __ldg(bj + (size_t)ku * n);
+      *o = __fadd_rn(*o, __fmul_rn(av, bv));
+    }
+    if constexpr (SLOT) nz.emit(k, i);
+  }
+}
+
 template <int MODE, int SK>
 __global__ void __launch_bounds__(LOOP_THREADS)
 mm_o0_kernel(const float* __restrict__ a, const float* __restrict__ b,
              const float* __restrict__ out0, float* ob, int n, int n_iter, NoiseArgs na, int k,
              Reduce rd) {
   __shared__ float sh[LOOP_THREADS];
+  constexpr bool SLOT = slot_runs(MODE, SK);
   const int j = blockIdx.x * LOOP_THREADS + threadIdx.x;
   LoopNoise<MODE, SK> nz;
-  nz.init(na, threadIdx.x & (LOOP_VEC - 1));
+  if constexpr (SLOT) nz.init(na, threadIdx.x & (LOOP_VEC - 1));
   float out = 0.f, aux = 0.f;
   if (j < n) {
     volatile float* o = ob + j;
     *o = out0[j];
-#pragma unroll 1
-    for (int i = 0; i < n_iter; ++i) {
-      const int kk = (i * 8) % n;
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int ku = min(kk + u, n - 1);   // lax.dynamic_slice clamps its start
-        const float av = __ldg(a + ku);
-        const float bv = __ldg(b + (size_t)ku * n + j);
-        *o = __fadd_rn(*o, __fmul_rn(av, bv));
-      }
-      nz.emit(k, i);
-    }
+    mm_o0_loop<SLOT>(o, a, b + j, n, n_iter, nz, k);
+    // without the slot the loop leaves the carry alone: it is read after the
+    // loop, so that it holds no register there (the clean build's loop)
+    if constexpr (!SLOT) nz.init(na, threadIdx.x & (LOOP_VEC - 1));
     out = *o;
     aux = nz.finalize();
   }
@@ -298,48 +326,204 @@ static cudaError_t launch_mm_o0(const float* a, const float* b, const float* out
                                 NoiseArgs na, Reduce rd, int n, int n_iter, int k,
                                 cudaStream_t st) {
   const int blocks = (n + LOOP_THREADS - 1) / LOOP_THREADS;
+  if constexpr (SK < 0) {
+    if (k == 0) {   // the run-time build's k > 0 test, once a call
+      mm_o0_kernel<MODE, 0><<<blocks, LOOP_THREADS, 0, st>>>(a, b, out0, ob, n, n_iter, na, 0,
+                                                             rd);
+      return cudaGetLastError();
+    }
+  }
   mm_o0_kernel<MODE, SK><<<blocks, LOOP_THREADS, 0, st>>>(a, b, out0, ob, n, n_iter, na, k, rd);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// matmul_O3: thread per column j, eight output rows in registers
+// matmul_O3: thread per column j, eight output rows in registers, fed by each
+// loaded b row: acc[r] += a[r][kk] * b[kk][j], kk = i % n, in iteration
+// order. Its floor is FP32 issue: 16 FADD/FMUL a thread and iteration (never
+// contracted), one warp instruction a clock a scheduler, so 16 x n_iter x
+// the warps of the busiest scheduler clocks. A loop that consumes its loads
+// in the iteration that issues them instead waits one L2 round trip an
+// iteration (~330 clocks). So:
+// * a[:8, :n] is staged once a block into shared memory, transposed ((n +
+//   MM_O3_AHEAD) x 8 floats, columns n, n + 1, ... copies of columns 0, 1,
+//   ...; (MM_O3_MAX_N + MM_O3_AHEAD) x 32 bytes at most): an iteration's
+//   eight a values are two 16-byte loads that every lane of the warp reads
+//   at once, issued MM_O3_AHEAD iterations before the adds that take them;
+// * b[kk][j] comes from a ring of MM_O3_RING loads in flight: iteration
+//   i + MM_O3_RING's row is loaded while iteration i adds (a row past the
+//   last iteration is loaded too, and never read: every row is in b);
+// * the body runs in trips of MM_O3_UNROLL iterations, their stage and b
+//   addresses at immediate offsets and one multiple of n from one base, while
+//   neither kk nor the loaded row wraps inside the trip (checked once a
+//   trip); an iteration across a wrap, and the last n_iter % MM_O3_UNROLL,
+//   run one at a time;
+// * the run-time build tests k > 0 once a call, on the host (slot_runs);
+// * blocks of MM_O3_THREADS threads, one a block of the card's SMs: at the
+//   main path's n = 192, three blocks of two warps, one warp a scheduler
+//   (one block of 256 puts two warps on two of its SM's schedulers and ran
+//   slower on the H100).
+// With one warp a scheduler nothing hides a stall but the warp's own loads
+// in flight, and ptxas's schedule of the trip sets how many it keeps: the
+// loop runs well above its issue floor (PERF.md). The ring and the trips
+// change when a value is loaded, never what is added or in what order: the
+// plain version (ref.py matmul_o3_plain) is this arithmetic, its threads
+// summed in blocks of MM_O3_THREADS.
 // ---------------------------------------------------------------------------
-template <int MODE, int SK>
-__global__ void __launch_bounds__(LOOP_THREADS)
-mm_o3_kernel(const float* __restrict__ a, const float* __restrict__ b, int n, int n_iter,
-             NoiseArgs na, int k, Reduce rd) {
-  __shared__ float sh[LOOP_THREADS];
-  const int j = blockIdx.x * LOOP_THREADS + threadIdx.x;
-  LoopNoise<MODE, SK> nz;
-  nz.init(na, threadIdx.x & (LOOP_VEC - 1));
-  float out = 0.f, aux = 0.f;
-  if (j < n) {
-    float acc[8];
+#define MM_O3_ROWS 8
+#define MM_O3_THREADS 64
+#define MM_O3_UNROLL 8   // reference iterations a trip of the loop
+#define MM_O3_RING 8
+#define MM_O3_AHEAD 2   // iterations the stage reads run ahead
+#define MM_O3_MAX_N 1024
+
+// the eight rows' update from a's column kk (a[0..3][kk], a[4..7][kk]) and bv
+__device__ __forceinline__ void mm_o3_step(float (&acc)[MM_O3_ROWS], float4 lo, float4 hi,
+                                           float bv) {
+  acc[0] = __fadd_rn(acc[0], __fmul_rn(lo.x, bv));
+  acc[1] = __fadd_rn(acc[1], __fmul_rn(lo.y, bv));
+  acc[2] = __fadd_rn(acc[2], __fmul_rn(lo.z, bv));
+  acc[3] = __fadd_rn(acc[3], __fmul_rn(lo.w, bv));
+  acc[4] = __fadd_rn(acc[4], __fmul_rn(hi.x, bv));
+  acc[5] = __fadd_rn(acc[5], __fmul_rn(hi.y, bv));
+  acc[6] = __fadd_rn(acc[6], __fmul_rn(hi.z, bv));
+  acc[7] = __fadd_rn(acc[7], __fmul_rn(hi.w, bv));
+}
+
+// One iteration's loads in flight, each a ring moved on by one an iteration
+// (registers renamed in the unrolled trips): b's values MM_O3_RING
+// iterations ahead, the stage's a columns MM_O3_AHEAD ahead.
+struct O3Rings {
+  float r[MM_O3_RING];
+  float4 lo[MM_O3_AHEAD], hi[MM_O3_AHEAD];
+
+  // the oldest iteration's b value and a column (bv, alo, ahi) out; row p's
+  // b value and the stage column at s in
+  __device__ __forceinline__ void next(float& bv, float4& alo, float4& ahi, const float* p,
+                                       const float4* s) {
+    bv = r[0];
+    alo = lo[0];
+    ahi = hi[0];
 #pragma unroll
-    for (int r = 0; r < 8; ++r) acc[r] = 0.f;
-#pragma unroll 1
-    for (int i = 0; i < n_iter; ++i) {
-      const int kk = i % n;
-      const float bv = __ldg(b + (size_t)kk * n + j);
+    for (int d = 0; d + 1 < MM_O3_RING; ++d) r[d] = r[d + 1];
 #pragma unroll
-      for (int r = 0; r < 8; ++r)
-        acc[r] = __fadd_rn(acc[r], __fmul_rn(__ldg(a + (size_t)r * n + kk), bv));
-      nz.emit(k, i);
+    for (int d = 0; d + 1 < MM_O3_AHEAD; ++d) {
+      lo[d] = lo[d + 1];
+      hi[d] = hi[d + 1];
     }
-    out = acc[0];
-#pragma unroll
-    for (int r = 1; r < 8; ++r) out = __fadd_rn(out, acc[r]);
-    aux = nz.finalize();
+    r[MM_O3_RING - 1] = __ldg(p);
+    lo[MM_O3_AHEAD - 1] = s[0];
+    hi[MM_O3_AHEAD - 1] = s[1];
   }
-  reduce_blocks<LOOP_THREADS>(out, aux, rd, sh);
+};
+
+// Iterations 0 .. n_iter-1 of one thread (bj = b + j): c = i % n, l = (i +
+// MM_O3_RING) % n, the row the next b load fetches. The stage's column c +
+// MM_O3_AHEAD is read at iteration i (its columns n, n + 1, ... are copies
+// of columns 0, 1, ..., so that read needs no wrap). SLOT: the noise an
+// iteration, at its global index.
+template <bool SLOT, int MODE, int SK>
+__device__ __forceinline__ void mm_o3_loop(float (&acc)[MM_O3_ROWS], LoopNoise<MODE, SK>& nz,
+                                           const float4* stage, const float* __restrict__ bj,
+                                           int n, int n_iter, int k) {
+  if constexpr (SLOT && SK < 0) __builtin_assume(k > 0);
+  O3Rings g;
+  int l = 0;
+#pragma unroll
+  for (int d = 0; d < MM_O3_RING; ++d) {
+    g.r[d] = __ldg(bj + l * n);
+    l = l + 1 == n ? 0 : l + 1;
+  }
+#pragma unroll
+  for (int d = 0; d < MM_O3_AHEAD; ++d) {
+    g.lo[d] = stage[2 * d];
+    g.hi[d] = stage[2 * d + 1];
+  }
+  int c = 0, i = 0;
+  float bv;
+  float4 alo, ahi;
+#pragma unroll 1
+  while (i < n_iter) {
+#pragma unroll 1
+    while (i + MM_O3_UNROLL <= n_iter && c + MM_O3_UNROLL <= n && l + MM_O3_UNROLL <= n) {
+      const float4* s = stage + 2 * (c + MM_O3_AHEAD);
+      const float* q = bj + l * n;
+#pragma unroll
+      for (int u = 0; u < MM_O3_UNROLL; ++u) {
+        g.next(bv, alo, ahi, q + u * n, s + 2 * u);
+        mm_o3_step(acc, alo, ahi, bv);
+        if constexpr (SLOT) nz.emit(k, i + u);
+      }
+      c += MM_O3_UNROLL;
+      if (c == n) c = 0;
+      l += MM_O3_UNROLL;
+      if (l == n) l = 0;
+      i += MM_O3_UNROLL;
+    }
+    if (i < n_iter) {
+      g.next(bv, alo, ahi, bj + l * n, stage + 2 * (c + MM_O3_AHEAD));
+      mm_o3_step(acc, alo, ahi, bv);
+      if constexpr (SLOT) nz.emit(k, i);
+      c = c + 1 == n ? 0 : c + 1;
+      l = l + 1 == n ? 0 : l + 1;
+      ++i;
+    }
+  }
 }
 
 template <int MODE, int SK>
+__global__ void __launch_bounds__(MM_O3_THREADS)
+mm_o3_kernel(const float* __restrict__ a, const float* __restrict__ b, int n, int n_iter,
+             NoiseArgs na, int k, Reduce rd) {
+  // a[0..3][kk], a[4..7][kk] at 2 kk, 2 kk + 1 for kk = 0 .. n +
+  // MM_O3_AHEAD - 1; column n + d is column d's copy
+  extern __shared__ float4 stage[];
+  __shared__ float sh[MM_O3_THREADS];
+  constexpr bool SLOT = slot_runs(MODE, SK);
+  const int j = blockIdx.x * MM_O3_THREADS + threadIdx.x;
+  LoopNoise<MODE, SK> nz;
+  if constexpr (SLOT) nz.init(na, threadIdx.x & (LOOP_VEC - 1));
+#pragma unroll 2
+  for (int kk = threadIdx.x; kk < n + MM_O3_AHEAD; kk += MM_O3_THREADS) {
+    const int col = kk < n ? kk : kk - n;
+    float v[MM_O3_ROWS];
+#pragma unroll
+    for (int r = 0; r < MM_O3_ROWS; ++r) v[r] = __ldg(a + r * n + col);
+    stage[2 * kk] = make_float4(v[0], v[1], v[2], v[3]);
+    stage[2 * kk + 1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+  __syncthreads();
+  float out = 0.f, aux = 0.f;
+  if (j < n) {
+    float acc[MM_O3_ROWS];
+#pragma unroll
+    for (int r = 0; r < MM_O3_ROWS; ++r) acc[r] = 0.f;
+    mm_o3_loop<SLOT>(acc, nz, stage, b + j, n, n_iter, k);
+    // without the slot the loop leaves the carry alone: it is read after the
+    // loop, so that it holds no register there (the clean build's loop)
+    if constexpr (!SLOT) nz.init(na, threadIdx.x & (LOOP_VEC - 1));
+    out = acc[0];
+#pragma unroll
+    for (int r = 1; r < MM_O3_ROWS; ++r) out = __fadd_rn(out, acc[r]);
+    aux = nz.finalize();
+  }
+  reduce_blocks<MM_O3_THREADS>(out, aux, rd, sh);
+}
+
+// n outside [8, MM_O3_MAX_N] is refused (the wrapper refuses it first)
+template <int MODE, int SK>
 static cudaError_t launch_mm_o3(const float* a, const float* b, NoiseArgs na, Reduce rd, int n,
                                 int n_iter, int k, cudaStream_t st) {
-  const int blocks = (n + LOOP_THREADS - 1) / LOOP_THREADS;
-  mm_o3_kernel<MODE, SK><<<blocks, LOOP_THREADS, 0, st>>>(a, b, n, n_iter, na, k, rd);
+  if (n < MM_O3_ROWS || n > MM_O3_MAX_N) return cudaErrorInvalidValue;
+  const int blocks = (n + MM_O3_THREADS - 1) / MM_O3_THREADS;
+  const size_t stage = (size_t)(n + MM_O3_AHEAD) * MM_O3_ROWS * sizeof(float);
+  if constexpr (SK < 0) {
+    if (k == 0) {   // the run-time build's k > 0 test, once a call
+      mm_o3_kernel<MODE, 0><<<blocks, MM_O3_THREADS, stage, st>>>(a, b, n, n_iter, na, 0, rd);
+      return cudaGetLastError();
+    }
+  }
+  mm_o3_kernel<MODE, SK><<<blocks, MM_O3_THREADS, stage, st>>>(a, b, n, n_iter, na, k, rd);
   return cudaGetLastError();
 }
 

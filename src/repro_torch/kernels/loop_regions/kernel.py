@@ -279,14 +279,23 @@ def matmul_o0(a, b, out0, *, n_iter: int, mode: str = "none", k: int = 0,
                                k=_k(k, static), carry=carry)
 
 
+def _check_o3(n: int) -> None:
+    """n the kernel takes: its 8 rows, and a[:8, :n] in its shared stage
+    ((n + MM_O3_AHEAD) x 32 bytes)."""
+    if not ref.ROWS_O3 <= n <= ref.MM_O3_MAX_N:
+        raise ValueError(f"matmul_O3 takes {ref.ROWS_O3} <= n <= "
+                         f"{ref.MM_O3_MAX_N} (MM_O3_MAX_N: a[:8, :n] staged "
+                         f"in shared memory); got n={n}")
+
+
 def matmul_o3_cuda(a, b, *, n_iter, mode, k, carry, static):
-    """Launch mm_o3_kernel: a thread per column, eight rows in registers."""
+    """Launch mm_o3_kernel: a thread per column, eight rows in registers,
+    blocks of ``MM_O3_THREADS``."""
     dev = _check((a, b), (torch.float32,) * 2)
     n = a.shape[0]
-    if n < ref.ROWS_O3:
-        raise ValueError(f"matmul_O3 needs n >= {ref.ROWS_O3}; got {n}")
+    _check_o3(n)
     res = _launch("mm_o3", dev, (a, b), (n, n_iter), mode, carry, k, static,
-                  _blocks(n, ref.THREADS))
+                  _blocks(n, ref.MM_O3_THREADS))
     matmul_o3_cuda.launches += 1
     return res[0], res[1]
 
@@ -294,8 +303,10 @@ def matmul_o3_cuda(a, b, *, n_iter, mode, k, carry, static):
 def matmul_o3(a, b, *, n_iter: int, mode: str = "none", k: int = 0,
               carry: Optional[dict] = None, static: bool = True):
     """The register-blocked ("-O3") rank-1 loop -> (sum of the eight rows,
-    aux)."""
+    aux). n past the kernel's shared stage (``MM_O3_MAX_N``) is refused on
+    either device."""
     _check_mode(mode)
+    _check_o3(a.shape[0])
     if _build.on_card(a):
         return matmul_o3_cuda(a, b, n_iter=n_iter, mode=mode, k=_k(k, static),
                               carry=carry, static=static)

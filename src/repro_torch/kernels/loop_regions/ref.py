@@ -12,8 +12,9 @@ scalar outputs can be held against it bit for bit:
   the matmuls). Every thread holds lane ``thread % 8`` of its group's carry
   and contributes ((a0 + a1) + a2) + a3 (chase: its index as a float);
 * the thread values summed as the kernels sum them: a tree over each block
-  of 256 threads (32 for lat_mem_rd), then ``final_reduce`` over the block
-  sums, as the last block to finish does in the kernel's epilogue.
+  of 256 threads (32 for lat_mem_rd, ``MM_O3_THREADS`` for matmul_O3), then
+  ``final_reduce`` over the block sums, as the last block to finish does in
+  the kernel's epilogue.
 
 Against the reference (``repro.bench.kernels``) the outputs differ only by
 the order of f32 additions where the reference reduces (SPMXV rows,
@@ -35,6 +36,18 @@ WARPS_PER_BLOCK = THREADS // 32
 N_WARPS_MAX = 132 * 32
 UNROLL_O0 = 8              # matmul_O0's k-steps an iteration
 ROWS_O3 = 8                # matmul_O3's register-blocked output rows
+# mm_o3_kernel's block (its threads are summed in blocks of this size), its
+# trip (reference iterations an unrolled pass of its innermost loop), its
+# ring of b loads in flight, how many iterations ahead it reads a's stage
+# and the largest n that stage of a[:8, :n] takes (csrc/loop_regions.cu
+# MM_O3_THREADS, MM_O3_UNROLL, MM_O3_RING, MM_O3_AHEAD, MM_O3_MAX_N); the
+# trip, the ring and the reads ahead change when it loads, not what it
+# computes
+MM_O3_THREADS = 64
+MM_O3_UNROLL = 8
+MM_O3_RING = 8
+MM_O3_AHEAD = 2
+MM_O3_MAX_N = 1024
 HACC_CHAINS = 6
 
 _MODES = make_loop_modes()
@@ -249,11 +262,10 @@ def matmul_o0_plain(a, b, out0, *, n_iter: int, mode: str = "none",
     return reduce_threads(o), _uniform_aux(mode, carry, k, n_iter, n, a.device)
 
 
-def matmul_o3_plain(a, b, *, n_iter: int, mode: str = "none", k: int = 0,
-                    carry: Optional[dict] = None):
-    """Sum of the eight register-blocked output rows after n_iter rank-1
-    steps; aux."""
-    matmul_o3_plain.launches += 1
+def matmul_o3_threads(a, b, n_iter: int) -> torch.Tensor:
+    """(n,): thread j's value, its eight rows' accumulators after n_iter
+    rank-1 steps (acc[r] += a[r][i % n] * b[i % n][j], in order) summed
+    0..7."""
     n = a.shape[0]
     acc = torch.zeros((ROWS_O3, n), dtype=torch.float32, device=a.device)
     for i in range(n_iter):
@@ -262,8 +274,17 @@ def matmul_o3_plain(a, b, *, n_iter: int, mode: str = "none", k: int = 0,
     per_thread = acc[0]
     for r in range(1, ROWS_O3):
         per_thread = per_thread + acc[r]
-    return (reduce_threads(per_thread),
-            _uniform_aux(mode, carry, k, n_iter, n, a.device))
+    return per_thread
+
+
+def matmul_o3_plain(a, b, *, n_iter: int, mode: str = "none", k: int = 0,
+                    carry: Optional[dict] = None):
+    """Sum of the eight register-blocked output rows after n_iter rank-1
+    steps, the threads summed in blocks of ``MM_O3_THREADS``; aux."""
+    matmul_o3_plain.launches += 1
+    n = a.shape[0]
+    return (reduce_threads(matmul_o3_threads(a, b, n_iter), MM_O3_THREADS),
+            _uniform_aux(mode, carry, k, n_iter, n, a.device, MM_O3_THREADS))
 
 
 for _fn in (stream_triad_plain, lat_mem_rd_plain, haccmk_plain, spmxv_plain,

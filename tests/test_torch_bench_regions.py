@@ -248,11 +248,49 @@ def card():
     return torch.device("cuda")
 
 
+# matmul_O3's (n, n_iter) at the edges of mm_o3_kernel's trips, load ring
+# and shared stage (chip_smoke.py's CHECK_O3_SHAPES)
+CARD_O3_SHAPES = {f"matmul_O3 n={n} n_iter={it}": (n, it)
+                  for n, it in ((8, 128), (33, 531), (192, 8 * 192 + 5),
+                                (384, 4 * 384), (13, 5))}
+
+
+def _o3_edge_against_plain(n: int, n_iter: int) -> None:
+    """mm_o3_kernel at (n, n_iter) on seeded inputs: every mode at k in
+    {0, 5} against the plain version (out and aux bitwise), run-time k
+    equal to static k at k=24."""
+    from repro_torch.core.loopnoise import loop_carry
+    from repro_torch.kernels.loop_regions import kernel as lk
+    from repro_torch.kernels.loop_regions import ref as lref
+
+    rs = np.random.RandomState(n)
+    a, b = to_torch(tuple(rs.standard_normal((n, n)).astype(np.float32)
+                          for _ in range(2)), torch.device("cuda"))
+    for mode in MODES:
+        carry = loop_carry(mode, "cuda")
+        for k in (0, 5):
+            got = lk.matmul_o3(a, b, n_iter=n_iter, mode=mode, k=k,
+                               carry=carry, static=False)
+            want = lref.matmul_o3_plain(a, b, n_iter=n_iter, mode=mode, k=k,
+                                        carry=carry)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]) and \
+                torch.equal(got[1], want[1]), (mode, k)
+        rt, static = (lk.matmul_o3(a, b, n_iter=n_iter, mode=mode, k=24,
+                                   carry=carry, static=s)
+                      for s in (False, True))
+        assert torch.equal(rt[0], static[0]) and torch.equal(rt[1], static[1])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("region", sorted(REGIONS))
+@pytest.mark.parametrize("region", sorted(REGIONS) + list(CARD_O3_SHAPES))
 def test_cuda_loop_kernels_against_plain(card, region):
     """On the card: every mode's run-time and static k=4 kernels against the
-    plain version on the same tensors, bitwise (out and aux)."""
+    plain version on the same tensors, bitwise (out and aux); matmul_O3 at
+    the edges of its kernel's schedule (``CARD_O3_SHAPES``)."""
+    if region in CARD_O3_SHAPES:
+        _o3_edge_against_plain(*CARD_O3_SHAPES[region])
+        return
     builder, kw, _ = REGIONS[region]
     reg = getattr(port_bench, builder)(device="cuda", **kw)
     for mode in MODES:
