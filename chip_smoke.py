@@ -25,7 +25,7 @@ JAX or of the reference package. Phases, each of which fails the run:
    (the FP variant without the loop's LDG, the LS variant without the
    chains' FMUL or FADD); each graph-level noise mode's kernel
    (``graph_noise.cu``) growing by >= 20 of its pattern instruction (FADD,
-   HMMA, LDS, LDG, LDG) from k=4 to k=24; the libraries' SASS dumped in a
+   HGMMA, LDS, LDG, LDG) from k=4 to k=24; the libraries' SASS dumped in a
    thread pool first; the rest of the builds: the static audit's (k = 4, 12
    and clean of every pair phases 4 and 11 audit, the sabotaged probe's)
    and the static builds of phase 4's and 14's payload checks
@@ -67,7 +67,11 @@ JAX or of the reference package. Phases, each of which fails the run:
    variant under every loop mode at k in {0, 5} (Livermore's main path at
    k = 0), bitwise against its plain version (``plain=True``); every graph-level mode at the card's scale, static
    and run-time k in {0, 5}: aux and new state bitwise against the plain
-   version, static equal to run-time k, the input state unchanged;
+   version, static equal to run-time k, the input state unchanged; the
+   mxu and hbm_stream emitters at their edges (``GRAPH_STREAM_TILES``,
+   ``graph_noise.ref.MXU_RANDOM_C_TOL``): mxu at c = I, a permutation and a random c,
+   hbm_stream at five tile counts and k at the edges of its load ring,
+   run-time k = 24 equal to static;
 4. the main path, through the user's entry points, each path driven with
    every launch count set to 0 just before it and read just after (each
    ``python -m`` command below runs through its ``main`` in this process,
@@ -137,7 +141,12 @@ JAX or of the reference package. Phases, each of which fails the run:
    device time over k in {0, 128, 256, 512}, beside
    ``pattern_cost(H100_SXM)``'s: hbm_stream and hbm_latency on lines the
    call before did not leave in the L2 (``studies.fresh_calls``), and
-   beside that on the same lines every call.
+   beside that on the same lines every call; mxu_fma128's and
+   hbm_stream's device time read 5 times in turns at k in {0, 64, 128,
+   256, 512}, their µs a pattern beside the one-SM tensor-core floor
+   (1,024 clocks a pattern at the card's SM clock) and the bytes bound
+   (131,072 B at 3.35 TB/s), mxu_fma128's library call 64 chained
+   ``torch.matmul(m, c)`` in bf16 in one CUDA graph.
 
 7. serving, driven as phase 4's paths are (counts at 0 just before each,
    read just after; the graph-noise kernels' launches here join their
@@ -423,14 +432,31 @@ CHECK_O3_SHAPES = ((8, 128), (33, 531), (192, 8 * 192 + 5), (384, 4 * 384),
 GRAPH_MODES = ("fp_add32", "mxu_fma128", "vmem_ld", "hbm_stream",
                "hbm_latency")
 GRAPH_SASS = {"fp_add32": ("gfp_kernel", "FADD"),
-              "mxu_fma128": ("gmxu_kernel", "HMMA"),
+              "mxu_fma128": ("gmxu_kernel", "HGMMA"),
               "vmem_ld": ("gvmem_kernel", "LDS"),
               "hbm_stream": ("gstream_kernel", "LDG"),
               "hbm_latency": ("gchase_kernel", "LDG")}
 GRAPH_CHECK_KS = (0, 5)
 GRAPH_ROW_K = 64
 GRAPH_SLOPE_KS = (0, 128, 256, 512)
+GRAPH_KS = tuple(sorted({*GRAPH_SLOPE_KS, GRAPH_ROW_K}))   # read in turns
 BF16_FLOPS = 989e12
+# mxu_fma128's floor on the one SM its kernel runs on: a Hopper SM's bf16
+# tensor cores do 4,096 dense operations a clock (989.4 TFLOP/s over 132
+# SMs at 1.83 GHz), so one 2 x 128^3 pattern takes 1,024 clocks
+MXU_PATTERN_CLOCKS = 2 * 128 ** 3 // 4096
+# the two graph emitters whose device time phase 6 reads TARGET_READINGS
+# times in turns (graph_readings; the other modes once)
+GRAPH_TARGET_MODES = ("mxu_fma128", "hbm_stream")
+# phase 3's edge shapes of the two: hbm_stream at these tile counts (one
+# tile; fewer tiles than the 197 step; the step's neighbours; the card's
+# whole 256 MiB buffer), each at run-time k in {0, 1, R - 1, R, 64, K_MAX +
+# 3} (R: its ring of loads in flight, csrc/graph_noise.cu G_STREAM_RING)
+# and static k = 24 against run-time; mxu_fma128 at c = I, a permutation
+# that is not its own transpose (exact products: bitwise) and a random c
+# (seeded, N(0, 1/128) in bf16), within graph_noise.ref.MXU_RANDOM_C_TOL
+# of the largest element a pattern
+GRAPH_STREAM_TILES = (1, 13, 196, 197, 2048)
 
 
 def attention_variant(hd: int, dtype: str) -> tuple:
@@ -467,6 +493,39 @@ def sm_clock_mhz() -> float:
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0])
+
+
+def mxu_sm_floor(k: int, mhz: float) -> dict:
+    """mxu_fma128's floor at k patterns on the one SM its kernel runs on:
+    ``MXU_PATTERN_CLOCKS`` a pattern at the SM clock."""
+    clocks = MXU_PATTERN_CLOCKS * k
+    return {"ms": clocks / (mhz * 1e3), "clocks": clocks,
+            "us_per_pattern": MXU_PATTERN_CLOCKS / mhz, "sm_clock_mhz": mhz,
+            "formula": f"{MXU_PATTERN_CLOCKS} clocks x {k} patterns / "
+                       f"{mhz:g} MHz"}
+
+
+def mxu_library_graph(m, c, k: int):
+    """k chained ``torch.matmul(m, c)`` in bf16 (one mxu_fma128 pattern a
+    call) captured in one CUDA graph; returns its replay. The library's
+    yardstick for the mxu emitter; the port never calls it."""
+    import torch
+
+    def chain():
+        x = m
+        for _ in range(k):
+            x = torch.matmul(x, c)
+        return x
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        chain()
+    return graph.replay
 
 
 def o3_issue_floor(n: int, n_iter: int, threads: int, mhz: float) -> dict:
@@ -755,6 +814,10 @@ def _check_set():
 
     want += [("graph_noise", GRAPH_IDS[m], k, ()) for m in GRAPH_MODES
              for k in sorted({*GRAPH_CHECK_KS, STATIC_CHECK_K})]
+    from repro_torch.analysis import K_LO
+
+    # _check_graph_emitters: the audit's mxu build at the permutation c
+    want += [("graph_noise", GRAPH_IDS["mxu_fma128"], K_LO, ())]
     # phase 7: the serve regions' payload checks, and the largest k of a
     # robust sweep (controller._ks_for)
     want += [("graph_noise", GRAPH_IDS[m], k, ()) for m in GRAPH_MODES[:4]
@@ -971,7 +1034,9 @@ def _growth(source: str, mode_id: int, op: str, fn_prefixes,
             lo: int = 8) -> dict:
     """{function: pattern instructions of ``op`` in the static k=24 build
     minus the k=``lo`` build} for every function of ``source`` whose
-    mangled name starts with one of ``fn_prefixes``."""
+    mangled name starts with one of ``fn_prefixes``. A kernel whose last
+    template argument is the static k (``SK``) is matched across the two
+    builds with that argument written ``Li#E``."""
     from repro_torch.kernels import _build
 
     census = {}
@@ -979,7 +1044,8 @@ def _growth(source: str, mode_id: int, op: str, fn_prefixes,
         c = _build.sass_census(_build.static_lib_path(source, mode_id, k), op)
         if c is None:
             raise RuntimeError("cuobjdump not found: no SASS census")
-        census[k] = c
+        census[k] = {re.sub(rf"Li{k}E(?=Ev)", "Li#E", fn, count=1): ops
+                     for fn, ops in c.items()}
     out = {}
     for fn in census[STATIC_CHECK_K]:
         if fn.startswith(tuple(fn_prefixes)):
@@ -1050,7 +1116,7 @@ def _decan_census() -> None:
 
 def _graph_census() -> None:
     """graph_noise.cu: each mode's static k=24 build holds >= 20 more
-    pattern instructions than k=4 (the audit's K_LO) in its kernel (fp FADD, mxu HMMA, vmem
+    pattern instructions than k=4 (the audit's K_LO) in its kernel (fp FADD, mxu HGMMA, vmem
     LDS, hbm_stream and hbm_latency LDG)."""
     from repro_torch.analysis import K_LO
     from repro_torch.kernels.graph_noise.kernel import MODE_IDS as GRAPH_IDS
@@ -1722,6 +1788,113 @@ def _check_graph(failures: list, max_err: dict) -> None:
           f"plain ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+def _mxu_cs(dev) -> dict:
+    """phase 3's c of mxu_fma128 besides the state's identity: a seeded
+    permutation that is not its own transpose, and a seeded random c."""
+    import torch
+
+    g = torch.Generator().manual_seed(CHECK_DECAN_SEED)
+    perm = torch.randperm(128, generator=g)
+    p = torch.zeros(128, 128)
+    p[torch.arange(128), perm] = 1.0
+    if torch.equal(p, p.T):
+        raise RuntimeError("phase 3's permutation is its own transpose")
+    rand = torch.randn(128, 128, generator=g) / 128 ** 0.5
+    return {"permutation": p.to(torch.bfloat16).to(dev),
+            "random": rand.to(torch.bfloat16).to(dev)}
+
+
+def _check_graph_emitters(failures: list, max_err: dict) -> None:
+    """The mxu and hbm_stream emitters at their edges: mxu_fma128 at the
+    state's m with c = I (its state), a permutation and a random c, static
+    and run-time k in GRAPH_CHECK_KS (I and the permutation bitwise; the
+    random c's m within MXU_RANDOM_C_TOL a pattern of the largest element
+    and its aux bitwise ``one_block_sum`` of the kernel's own m, the aux's
+    order being the plain version's), run-time k = 24 bitwise static, and
+    the audit's static k = K_LO build at the permutation bitwise; the
+    hbm_stream tile at GRAPH_STREAM_TILES tile counts of the state's
+    buffer, run-time k at the edges of the ring bitwise against the plain
+    version, static k in GRAPH_CHECK_KS too and static k = 24 bitwise
+    run-time."""
+    import torch
+
+    from repro_torch.analysis import K_LO
+    from repro_torch.kernels.graph_noise import kernel as gk
+    from repro_torch.kernels.graph_noise.ref import (MXU_RANDOM_C_TOL,
+                                                     STREAM_RING,
+                                                     one_block_sum)
+    from repro_torch.kernels.noise_slots import K_MAX
+
+    t0 = time.perf_counter()
+    states = _graph_states()
+    m, eye = states["mxu_fma128"][1]["m"], states["mxu_fma128"][1]["c"]
+    worst = {}
+    cs = _mxu_cs(m.device)
+    for name, c in {"identity": eye, **cs}.items():
+        for k in GRAPH_CHECK_KS:
+            for static in (True, False):
+                what = (f"mxu_fma128 c={name} {'static' if static else 'runtime'}"
+                        f" k={k}")
+                aux, out = gk.mxu_fma128(m, c, k=k, static=static)
+                paux, pout = gk.mxu_fma128(m, c, k=k, static=static, plain=True)
+                torch.cuda.synchronize()
+                err = _max_err(out, pout)
+                worst[name] = max(worst.get(name, 0.0), err)
+                if name != "random" or k == 0:
+                    _equal((aux, out), (paux, pout), what + " vs plain", failures)
+                    continue
+                tol = k * MXU_RANDOM_C_TOL
+                scale = float(pout.float().abs().max())
+                if err > tol * scale:
+                    failures.append(f"{what}: max|d| {err!r} > {tol!r} x "
+                                    f"{scale!r}")
+                _equal(aux, one_block_sum(out), what + " aux vs "
+                       "one_block_sum of its own m", failures)
+        _equal(gk.mxu_fma128(m, c, k=STATIC_CHECK_K, static=False),
+               gk.mxu_fma128(m, c, k=STATIC_CHECK_K, static=True),
+               f"mxu_fma128 c={name} runtime vs static k={STATIC_CHECK_K}",
+               failures)
+    c = cs["permutation"]
+    _equal(gk.mxu_fma128(m, c, k=K_LO, static=True),
+           gk.mxu_fma128(m, c, k=K_LO, static=True, plain=True),
+           f"mxu_fma128 c=permutation static k={K_LO} vs plain", failures)
+    max_err["graph_mxu_fma128"] = max(max_err.get("graph_mxu_fma128", 0.0),
+                                      worst["identity"], worst["permutation"])
+    buf, acc = states["hbm_stream"][1]["buf"], states["hbm_stream"][1]["acc"]
+    tile = acc.shape[0]
+    g = torch.Generator().manual_seed(CHECK_DECAN_SEED)
+    acc = torch.randn(acc.shape, generator=g).to(acc.device)
+    ks = (0, 1, STREAM_RING - 1, STREAM_RING, GRAPH_ROW_K, K_MAX + 3)
+    for n in GRAPH_STREAM_TILES:
+        b = buf[:n * tile]
+        for k, static in ([(k, False) for k in ks]
+                          + [(k, True) for k in GRAPH_CHECK_KS]):
+            got = gk.hbm_stream(b, acc, k=k, tile_rows=tile, static=static)
+            want = gk.hbm_stream(b, acc, k=k, tile_rows=tile, static=static,
+                                 plain=True)
+            torch.cuda.synchronize()
+            _equal(got, want, f"hbm_stream {n} tiles {'static' if static else 'runtime'}"
+                   f" k={k} vs plain", failures)
+            max_err["graph_hbm_stream"] = max(
+                max_err.get("graph_hbm_stream", 0.0), _max_err(got[1], want[1]))
+        _equal(gk.hbm_stream(b, acc, k=STATIC_CHECK_K, tile_rows=tile,
+                             static=False),
+               gk.hbm_stream(b, acc, k=STATIC_CHECK_K, tile_rows=tile,
+                             static=True),
+               f"hbm_stream {n} tiles runtime vs static k={STATIC_CHECK_K}",
+               failures)
+    print(f"graph emitters at their edges: mxu_fma128 at c = I, a "
+          f"permutation (bitwise) and a random c (m within "
+          f"{MXU_RANDOM_C_TOL!r} x k of the largest element, the aux bitwise "
+          f"one_block_sum of the kernel's m) x k in {list(GRAPH_CHECK_KS)}, "
+          f"static and runtime, runtime = static at k={STATIC_CHECK_K}, "
+          f"static k={K_LO} at the permutation; max|d| "
+          f"{ {n: float(v) for n, v in worst.items()} }; hbm_stream at "
+          f"{list(GRAPH_STREAM_TILES)} tiles x runtime k in {list(ks)} and "
+          f"static k in {list(GRAPH_CHECK_KS)}, runtime = static at "
+          f"k={STATIC_CHECK_K} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def phase_check(main: dict) -> dict:
     import numpy as np
     import torch
@@ -1777,6 +1950,7 @@ def phase_check(main: dict) -> dict:
     _check_loops(_o3_edge_cases(dev), LOOP_MAIN_CHECK_KS, failures, max_err)
     _check_decan(failures, max_err)
     _check_graph(failures, max_err)
+    _check_graph_emitters(failures, max_err)
     if failures:
         raise RuntimeError("kernel check failed:\n  " + "\n  ".join(failures))
     return max_err
@@ -2611,6 +2785,31 @@ def _target_readings(fns: dict) -> dict:
     return out
 
 
+def graph_readings(calls: dict, readings: int = TARGET_READINGS) -> dict:
+    """{name: {"readings": {k: [device ms] * readings}, "median": {k: ms},
+    "device_us_per_pattern": the medians' slope over GRAPH_SLOPE_KS}} of
+    the graph-mode calls ``calls`` (name -> call(k)) at every k of
+    GRAPH_KS, read in turns: each reading takes every name at every k
+    once. A median or slope is None where a trace held no device time."""
+    import numpy as np
+
+    got = {name: {k: [] for k in GRAPH_KS} for name in calls}
+    for _ in range(readings):
+        for name, call in calls.items():
+            for k in GRAPH_KS:
+                got[name][k].append(device_ms(partial(call, k))[0])
+    out = {}
+    for name, by_k in got.items():
+        med = {k: statistics.median(v) if None not in v else None
+               for k, v in by_k.items()}
+        dev = [med[k] for k in GRAPH_SLOPE_KS]
+        out[name] = {"readings": by_k, "median": med,
+                     "device_us_per_pattern": (
+                         float(np.polyfit(GRAPH_SLOPE_KS, dev, 1)[0]) * 1e3
+                         if None not in dev else None)}
+    return out
+
+
 def _graph_work(name: str, state: dict, k: int) -> tuple:
     """(bytes, operations, peak) of one graph-mode call at k: its state read
     once and its new state written once, plus the bytes its patterns read
@@ -2642,7 +2841,11 @@ def _decan_graph_rows():
     that moves every call, the chase going on where it stopped: no call
     reads the L2's lines of the call before), with its µs a pattern (the
     slope of event time over GRAPH_SLOPE_KS) beside
-    ``pattern_cost(H100_SXM)``'s. Returns (rows, extra keys by kernel)."""
+    ``pattern_cost(H100_SXM)``'s; the GRAPH_TARGET_MODES' device time read
+    TARGET_READINGS times in turns, their slope beside the mxu emitter's
+    one-SM tensor-core floor (``mxu_sm_floor``) or hbm_stream's bytes
+    bound a pattern, and the mxu row's library call (``mxu_library_graph``).
+    Returns (rows, extra keys by kernel)."""
     import numpy as np
     import torch
 
@@ -2684,10 +2887,12 @@ def _decan_graph_rows():
         # lines of the call before (studies.fresh_calls)
         call = fresh_calls(name, mode, state)
         ts = [time_ms(partial(call, k)) for k in GRAPH_SLOPE_KS]
-        dev = [device_ms(partial(call, k))[0] for k in GRAPH_SLOPE_KS]
+        targeted = name in GRAPH_TARGET_MODES
+        got = graph_readings({name: call},
+                             TARGET_READINGS if targeted else 1)[name]
+        dev = [got["median"][k] for k in GRAPH_SLOPE_KS]
         slope_us = float(np.polyfit(GRAPH_SLOPE_KS, ts, 1)[0]) * 1e3
-        dev_slope_us = (float(np.polyfit(GRAPH_SLOPE_KS, dev, 1)[0]) * 1e3
-                        if all(d is not None for d in dev) else None)
+        dev_slope_us = got["device_us_per_pattern"]
         model = mode.pattern_cost(H100_SXM).time_on(H100_SXM)
         extra[kernel] = {"mode": name, "slope_ks": list(GRAPH_SLOPE_KS),
                          "slope_event_ms": ts, "slope_device_ms": dev,
@@ -2703,6 +2908,31 @@ def _decan_graph_rows():
             extra[kernel]["same_lines_event_ms"] = warm
             extra[kernel]["same_lines_us_per_pattern"] = float(
                 np.polyfit(GRAPH_SLOPE_KS, warm, 1)[0]) * 1e3
+        lib, lib_what = None, None
+        if targeted:
+            readings = got["readings"]
+            extra[kernel]["target_readings_device_ms"] = readings
+            row_ms = got["median"][GRAPH_ROW_K]
+            if name == "mxu_fma128":
+                floor = mxu_sm_floor(GRAPH_ROW_K, sm_clock_mhz())
+                per = floor["us_per_pattern"]
+                extra[kernel]["sm_floor"] = floor
+                lib = mxu_library_graph(state["m"], state["c"], GRAPH_ROW_K)
+                lib_what = (f"{GRAPH_ROW_K} chained torch.matmul(m, c) in "
+                            "bf16, one CUDA graph")
+            else:
+                per = state["acc"].numel() * 4 / HBM_BYTES_PER_S * 1e6
+            share = per / dev_slope_us if dev_slope_us else None
+            extra[kernel].update(floor_us_per_pattern=per,
+                                 floor_share=share, row_device_ms=row_ms)
+            print(f"graph {name}: device ms, {TARGET_READINGS} readings in "
+                  "turns: " + ", ".join(
+                      f"k={k} {v}" for k, v in readings.items())
+                  + f"; {dev_slope_us!r} us a pattern against the "
+                  + ("one-SM tensor-core floor" if name == "mxu_fma128"
+                     else "bytes bound") + f" {per!r} us ({share!r} of it); "
+                  f"row at k={GRAPH_ROW_K} {row_ms!r} ms; {card_line()}",
+                  flush=True)
         print(f"graph {name}: {slope_us!r} us a pattern by events, "
               f"{dev_slope_us!r} on the device (k in {list(GRAPH_SLOPE_KS)}: "
               f"{ts} ms, {dev} ms); the same lines every call: "
@@ -2714,7 +2944,7 @@ def _decan_graph_rows():
         rows.append((kernel, f"{kernel} ({name}) k={GRAPH_ROW_K}",
                      partial(call, GRAPH_ROW_K),
                      partial(mode.apply_rt, state, GRAPH_ROW_K, plain=True),
-                     None, nbytes, nops, peak, None))
+                     lib, nbytes, nops, peak, lib_what))
     return rows, extra
 
 
@@ -2772,8 +3002,9 @@ SERVE_ARGS = {"requests": 8, "slots": 4, "max_new": 16, "max_seq": 256,
 # 4 slots, max_new 8, page 16)
 SERVE_PROBE = {"slots": 4, "prompt": 128, "max_new": 8, "page_size": 16}
 SERVE_KS = (1, 64)
-# the traced noisy tick: mxu_fma128 at the run-time cap (~2.4 us a pattern,
-# PERF.md, PR 16), long enough to overlap the step's kernels
+# the traced noisy tick: mxu_fma128 at the run-time cap (~0.57 us a pattern
+# on the H100 at 700 W, PERF.md; ~0.29 ms a call), long enough to overlap
+# the step's kernels
 TRACE_MODE, TRACE_K = "mxu_fma128", 512
 # reps of every sweep point (min of reps, the host clock): 5, in one
 # reading (two readings at 10 reps, to show how far a region's values

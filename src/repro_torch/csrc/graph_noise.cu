@@ -14,12 +14,25 @@
 //                     element: one FADD a pattern. Bound by FP32 issue
 //                     (rows*128 adds a pattern). The ici modes' no-mesh
 //                     branch (:290) runs it on (1,128) with c = v[:128] * 1e-3.
-//   mxu_fma128 (:132) m = bf16(m @ c), 128 x 128 x 128, chained: one block
-//                     of 8 warps, warp w the rows 16w..16w+15, mma.sync
-//                     m16n8k16 bf16 with f32 accumulation (a tensor-core
-//                     product, 128 HMMA a warp a pattern), m double-buffered
-//                     in shared memory, c staged transposed. Bound by the
-//                     chain: each product needs the last.
+//   mxu_fma128 (:132) m = bf16(m @ c), 128 x 128 x 128, chained, with f32
+//                     accumulation: 2*128^3 tensor-core operations a
+//                     pattern, one SM's (the noise keeps to one block, as
+//                     the parent's did). Each pattern depends on the last,
+//                     but its 128 rows are independent chains (a row of the
+//                     product needs that row of m and c), so the floor is
+//                     that SM's bf16 tensor-core rate, 4,096 operations a
+//                     clock: 1,024 clocks a pattern. The design: two
+//                     warpgroups, each the chain of 64 rows, wgmma
+//                     m64n128k16 with A from REGISTERS and c staged once in
+//                     shared memory (16-byte copies, in the layout a B
+//                     descriptor reads: MN-major, 128B swizzle). A
+//                     pattern's f32 accumulators, rounded to bf16 pairs,
+//                     are the next pattern's A fragments as they lie: no
+//                     shared-memory traffic, no barrier between patterns,
+//                     the two chains' products interleaved on the tensor
+//                     cores. mma.sync fragments re-read from shared memory
+//                     every pattern would move ~288 KB a pattern, more than
+//                     twice the floor at 128 B a clock.
 //   vmem_ld    (:161) accs[j % 4] += buf[off:off+8, :], off = (j*13) %
 //                     max(rows-8, 1), buf staged in SHARED memory (the
 //                     TPU's VMEM; volatile loads: the offsets repeat, and a
@@ -28,7 +41,12 @@
 //                     thread an element of the (T,128) tile: one coalesced
 //                     ld.global.cg (L2 and beyond, never L1) a pattern, T*512
 //                     bytes a pattern from a buffer larger than the 50 MB L2.
-//                     Bound by device-memory bandwidth.
+//                     Bound by device-memory bandwidth, which needs ~2 MB in
+//                     flight: each thread keeps a ring of G_STREAM_RING
+//                     loads in flight (32,768 threads x 4 B x 16), the tile
+//                     index stepped, not taken modulo a pattern, and the
+//                     run-time k tested once a call (one load at a time
+//                     would wait a round trip a pattern).
 //   hbm_latency(:241) idx = table[idx]; acc += idx: one thread walks a
 //                     single-cycle table, one dependent ld.global.cg a
 //                     pattern. Bound by load latency.
@@ -45,12 +63,14 @@
 // reference's functional semantics).
 #include <cuda_bf16.h>
 
+#include "hopper.cuh"       // wgmma (bf16, B MN-major), its descriptor, fences
 #include "loop_noise.cuh"   // block_tree_sum, Reduce, reduce_blocks, ld_l2, ld_l2_s32
 
 #define G_THREADS 256
 #define MXU_D 128
-#define MXU_LD 136   // shared row stride in bf16 elements: 272 bytes, so the
-                     // fragment loads of a warp's 8 rows hit 32 banks
+#define MXU_LD 136   // the final m's row stride in bf16 elements: 272 bytes, so
+                     // a warp's fragment stores of 8 rows hit 32 banks
+#define G_STREAM_RING 16   // hbm_stream's loads in flight a thread
 #define VMEM_MAX_ROWS 448   // vmem_ld's buffer in shared memory: 224 KiB at most
 
 // mode ids (kernels/graph_noise/kernel.py MODE_IDS); macros, as the static
@@ -156,8 +176,60 @@ gvmem_kernel(const float* __restrict__ buf, Accs ac, int rows, int k, int lit0, 
 }
 
 // ---------------------------------------------------------------------------
-// hbm_stream: a thread an element of the (T,128) tile, E = T*128
+// hbm_stream: a thread an element of the (T,128) tile, E = T*128, a ring of
+// G_STREAM_RING loads in flight
 // ---------------------------------------------------------------------------
+// acc + the k tiles' elements, each added in pattern order. The load of
+// pattern j + R is issued where pattern j's value is added; the tile index
+// t_j = (j*197) % n_tiles is stepped (t += 197 % n_tiles, wrapped once: the
+// card has no integer divider, and a modulo a pattern would cost more than
+// the load). Full trips of R patterns run while two trips remain (j + 2R
+// <= k); the last < 2R patterns take the ring's remaining loads.
+template <int SK>
+__device__ __forceinline__ float stream_patterns(const float* p, int E, int n_tiles, int k,
+                                                 float a) {
+  constexpr int R = G_STREAM_RING;
+  const int step = 197 % n_tiles;
+  int t = 0;   // the tile of the next load
+  auto next = [&]() {
+    const float v = ld_l2(p + (size_t)t * E);
+    t += step;
+    if (t >= n_tiles) t -= n_tiles;
+    return v;
+  };
+  float r[R];   // r[i]: pattern j + i
+#pragma unroll
+  for (int i = 0; i < R; ++i) r[i] = i < k ? next() : 0.f;
+  auto trip = [&]() {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const float v = r[i];
+      r[i] = next();   // pattern j + R + i
+      a = __fadd_rn(a, v);
+    }
+  };
+  int j = 0;
+  if constexpr (SK >= 0) {
+#pragma unroll
+    for (; j + 2 * R <= SK; j += R) trip();
+  } else {
+#pragma unroll 1
+    for (; j + 2 * R <= k; j += R) trip();
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (j + i < k) {
+      const float v = r[i];
+      if (j + R + i < k) r[i] = next();
+      a = __fadd_rn(a, v);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    if (j + R + i < k) a = __fadd_rn(a, r[i]);
+  return a;
+}
+
 template <int SK>
 __global__ void __launch_bounds__(G_THREADS)
 gstream_kernel(const float* __restrict__ buf, const float* __restrict__ acc0,
@@ -167,39 +239,35 @@ gstream_kernel(const float* __restrict__ buf, const float* __restrict__ acc0,
   float a = 0.f;
   if (e < E) {
     a = acc0[e];
-    repeat_k<SK>(k, [&](int j) {
-      const int t = (j * 197) % n_tiles;
-      a = __fadd_rn(a, ld_l2(buf + (size_t)t * E + e));
-    });
+    if constexpr (SK > 0) {
+      a = stream_patterns<SK>(buf + e, E, n_tiles, SK, a);
+    } else if constexpr (SK < 0) {
+      if (k > 0) a = stream_patterns<SK>(buf + e, E, n_tiles, k, a);   // once a call
+    }
     out[e] = a;
   }
   reduce_blocks<G_THREADS>(0.f, a, rd, sh);
 }
 
 // ---------------------------------------------------------------------------
-// mxu_fma128: one block, warp w the output rows 16w .. 16w+15
+// mxu_fma128: one block, two warpgroups, warpgroup h the rows 64h..64h+63 of
+// m, their chains in registers
 // ---------------------------------------------------------------------------
-// d += A(16x16, row) * B(16x8, col), bf16 inputs, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const uint32_t l = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
   const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
   return l | (h << 16);
 }
 
-#define MXU_SMEM (3 * MXU_D * MXU_LD * 2)   // m twice, c transposed
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+
+// c: two 16 KiB halves (columns 0..63, 64..127), each 128 K-rows of 128
+// bytes in the 128B swizzle (hopper.cuh desc_sw128_mn); then the final m,
+// row stride MXU_LD, for the aux; 1 KiB for the swizzle's alignment
+#define MXU_HALF_BYTES (MXU_D * 64 * 2)
+#define MXU_SMEM (1024 + 2 * MXU_HALF_BYTES + MXU_D * MXU_LD * 2)
 
 template <int SK>
 __global__ void __launch_bounds__(G_THREADS)
@@ -207,60 +275,76 @@ gmxu_kernel(const __nv_bfloat16* __restrict__ m0, const __nv_bfloat16* __restric
             __nv_bfloat16* __restrict__ mout, float* __restrict__ res, int k) {
   extern __shared__ __align__(16) unsigned char smraw[];
   __shared__ float sh[G_THREADS];
-  __nv_bfloat16* smx = reinterpret_cast<__nv_bfloat16*>(smraw);   // m, twice
-  __nv_bfloat16* ct = smx + 2 * MXU_D * MXU_LD;   // ct[n][kk] = c[kk][n]
+  uint8_t* cs = align_1024(smraw);
+  __nv_bfloat16* ms = reinterpret_cast<__nv_bfloat16*>(cs + 2 * MXU_HALF_BYTES);
   const int tid = threadIdx.x;
-  for (int i = tid; i < MXU_D * MXU_D / 8; i += G_THREADS) {   // 16-byte rows pieces
-    const int r = i >> 4, c8 = (i & 15) * 8;
-    *reinterpret_cast<uint4*>(smx + r * MXU_LD + c8) =
-        __ldg(reinterpret_cast<const uint4*>(m0) + i);
+  const int w = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * w;   // warp w's rows: 16w..16w+15 (warpgroup w / 4)
+  // a[4s..4s+3]: this thread's A fragment of k-step s (columns 16s..16s+15)
+  uint32_t a[32];
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const __nv_bfloat16* p = m0 + (r0 + g) * MXU_D + 16 * s + 2 * t;
+    a[4 * s] = ld_pair(p);
+    a[4 * s + 1] = ld_pair(p + 8 * MXU_D);
+    a[4 * s + 2] = ld_pair(p + 8);
+    a[4 * s + 3] = ld_pair(p + 8 * MXU_D + 8);
   }
-  for (int i = tid; i < MXU_D * MXU_D; i += G_THREADS) {
-    const int kk = i >> 7, n = i & 127;
-    ct[n * MXU_LD + kk] = c[i];
+  if (SK > 0 || (SK < 0 && k > 0)) {
+    // c in 16-byte pieces: piece i is row i / 16, columns 8(i % 16) ..
+    for (int i = tid; i < MXU_D * MXU_D / 8; i += G_THREADS) {
+      const int kk = i >> 4, q = i & 15;
+      *reinterpret_cast<uint4*>(cs + (q >> 3) * MXU_HALF_BYTES + kk * 128 +
+                                (((q & 7) ^ (kk & 7)) << 4)) =
+          __ldg(reinterpret_cast<const uint4*>(c) + i);
+    }
+    fence_proxy_async();   // the stores visible to wgmma
+    __syncthreads();
+    // k-step s reads c's K-rows 16s..16s+15: 2048 bytes on
+    const uint64_t db = desc_sw128_mn(cs, MXU_HALF_BYTES, 1024);
+    auto pattern = [&]() {
+      float d[64];
+      wgmma_fence();   // a was written since the last product read it
+#pragma unroll
+      for (int s = 0; s < 8; ++s)
+        wgmma_m64n128k16_rs_bf16(d, a[4 * s], a[4 * s + 1], a[4 * s + 2], a[4 * s + 3],
+                                 db + (uint64_t)(s * (2048 >> 4)), s);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(d);
+      // the product's columns 16s..16s+15 are the next A fragment of k-step s
+#pragma unroll
+      for (int i = 0; i < 32; ++i) a[i] = pack_bf16(d[2 * i], d[2 * i + 1]);
+    };
+    if constexpr (SK >= 0) {
+      // unrolled, each pattern behind a test of the run-time k (the static
+      // entry passes SK): a basic block a pattern keeps ptxas's time near
+      // linear in k (on the H100's machine, nvcc end to end: one block of
+      // all the patterns 384.9 s at k = 64; a block a pattern 30.0 s, and
+      // 97.4 s at k = 128; tools/torch_graph_bench.py --build-times)
+#pragma unroll
+      for (int j = 0; j < SK; ++j)
+        if (j < k) pattern();
+    } else {
+      for (int j = 0; j < k; ++j) pattern();
+    }
+  }
+  // m to shared memory once, then out and the aux in one_block_sum's order
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    __nv_bfloat16* p = ms + (r0 + g) * MXU_LD + 16 * s + 2 * t;
+    *reinterpret_cast<uint32_t*>(p) = a[4 * s];
+    *reinterpret_cast<uint32_t*>(p + 8 * MXU_LD) = a[4 * s + 1];
+    *reinterpret_cast<uint32_t*>(p + 8) = a[4 * s + 2];
+    *reinterpret_cast<uint32_t*>(p + 8 * MXU_LD + 8) = a[4 * s + 3];
   }
   __syncthreads();
-  const int w = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = 16 * w;
-  int cur = 0;
-  repeat_k<SK>(k, [&](int) {
-    const __nv_bfloat16* A = smx + cur * (MXU_D * MXU_LD);
-    __nv_bfloat16* D = smx + (cur ^ 1) * (MXU_D * MXU_LD);
-    float d[16][4];
-#pragma unroll
-    for (int nt = 0; nt < 16; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) d[nt][q] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < MXU_D / 16; ++ks) {
-      const int kc = ks * 16;
-      const uint32_t a[4] = {ld_pair(A + (r0 + g) * MXU_LD + kc + 2 * t),
-                             ld_pair(A + (r0 + g + 8) * MXU_LD + kc + 2 * t),
-                             ld_pair(A + (r0 + g) * MXU_LD + kc + 2 * t + 8),
-                             ld_pair(A + (r0 + g + 8) * MXU_LD + kc + 2 * t + 8)};
-#pragma unroll
-      for (int nt = 0; nt < 16; ++nt) {
-        const __nv_bfloat16* B = ct + (nt * 8 + g) * MXU_LD + kc + 2 * t;
-        mma_bf16(d[nt], a, ld_pair(B), ld_pair(B + 8));
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < 16; ++nt) {
-      const int col = nt * 8 + 2 * t;
-      *reinterpret_cast<uint32_t*>(D + (r0 + g) * MXU_LD + col) = pack_bf16(d[nt][0], d[nt][1]);
-      *reinterpret_cast<uint32_t*>(D + (r0 + g + 8) * MXU_LD + col) =
-          pack_bf16(d[nt][2], d[nt][3]);
-    }
-    __syncthreads();   // D complete before it is read; A read before it is rewritten
-    cur ^= 1;
-  });
-  const __nv_bfloat16* M = smx + cur * (MXU_D * MXU_LD);
+  for (int i = tid; i < MXU_D * MXU_D / 8; i += G_THREADS)
+    reinterpret_cast<uint4*>(mout)[i] =
+        *reinterpret_cast<const uint4*>(ms + (i >> 4) * MXU_LD + (i & 15) * 8);
   float s = 0.f;
-  for (int e = tid; e < MXU_D * MXU_D; e += G_THREADS) {
-    const __nv_bfloat16 x = M[(e >> 7) * MXU_LD + (e & 127)];
-    mout[e] = x;
-    s = __fadd_rn(s, __bfloat162float(x));
-  }
+  for (int e = tid; e < MXU_D * MXU_D; e += G_THREADS)
+    s = __fadd_rn(s, __bfloat162float(ms[(e >> 7) * MXU_LD + (e & 127)]));
   s = block_tree_sum<G_THREADS>(s, sh);
   if (tid == 0) res[1] = s;
 }

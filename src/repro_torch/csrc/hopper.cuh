@@ -1,7 +1,8 @@
-// Hopper building blocks shared by noisy_matmul.cu and flash_attention.cu:
-// mbarriers, TMA tile loads described by a CUtensorMap, and warpgroup
-// matrix products (wgmma) in TF32 with f32 accumulators, all as inline PTX
-// for sm_90a (no CUTLASS headers: each source builds in seconds).
+// Hopper building blocks shared by noisy_matmul.cu, flash_attention.cu and
+// graph_noise.cu: mbarriers, TMA tile loads described by a CUtensorMap, and
+// warpgroup matrix products (wgmma) in TF32, and in bf16 for graph_noise.cu,
+// with f32 accumulators, all as inline PTX for sm_90a (no CUTLASS headers:
+// each source builds in seconds).
 //
 // Shared-memory tiles are 128-byte rows of 32 floats in the 128B swizzle
 // that TMA writes and wgmma reads (CU_TENSOR_MAP_SWIZZLE_128B, descriptor
@@ -250,4 +251,51 @@ __device__ __forceinline__ void wgmma_m64n128k8_rs(float (&d)[64], const uint32_
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// ---------------------------------------------------------------------------
+// bf16 wgmma with B MN-major (N contiguous: a row-major K x N matrix as it
+// lies in memory, no transpose), in the 128B swizzle: 8 K-rows of 64 bf16
+// (128 bytes each) make a 1024-byte atom, the 16-byte chunk c of K-row r at
+// chunk c ^ (r % 8). Atoms of the next 8 K-rows lie `sbo` bytes on, those
+// of the next 64 columns `lbo` bytes on (the descriptor's leading and
+// stride byte offsets for an MN-major operand).
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint64_t desc_sw128_mn(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// D(64 x 128) (+)= A(64 x 16) * B(16 x 128), bf16 in, f32 accumulate; A from
+// registers in the m16n8k16 A-fragment layout of each warp's 16 rows (a0:
+// row g, columns 2t, 2t+1; a1: row g+8; a2, a3: the same 8 columns on), B
+// MN-major (imm-trans-b = 1); D as the TF32 products' fragment above.
+__device__ __forceinline__ void wgmma_m64n128k16_rs_bf16(float (&d)[64], uint32_t a0, uint32_t a1,
+                                                         uint32_t a2, uint32_t a3, uint64_t db,
+                                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43,"
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57,"
+      "%58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
 }

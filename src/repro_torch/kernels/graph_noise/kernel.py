@@ -125,7 +125,11 @@ def vmem_ld(buf, accs, *, k: int, static: bool, plain: bool = False):
 # ---------------------------------------------------------------------------
 
 def hbm_stream_cuda(buf, acc, *, k, tile_rows, static):
-    """Launch gstream_kernel: a thread an element of the tile."""
+    """Launch gstream_kernel: a thread an element of the tile. Bound by
+    device-memory bandwidth (tile_rows x 512 bytes a pattern from a buffer
+    beyond the L2), which wants ~2 MB in flight: each thread keeps a ring
+    of ``ref.STREAM_RING`` loads in flight, the load of pattern j + R issued
+    where pattern j is added, its tile index stepped, not taken modulo."""
     dev = _check((buf, acc), (torch.float32,) * 2)
     if tuple(acc.shape) != (tile_rows, 128) or buf.shape[0] < tile_rows:
         raise ValueError("hbm_stream: acc must be (tile_rows, 128) and buf "
@@ -155,7 +159,12 @@ def hbm_stream(buf, acc, *, k: int, tile_rows: int, static: bool,
 # ---------------------------------------------------------------------------
 
 def mxu_fma128_cuda(m, c, *, k, static):
-    """Launch gmxu_kernel: one block, the tensor cores."""
+    """Launch gmxu_kernel: one block on one SM. Bound by that SM's bf16
+    tensor-core rate (1,024 clocks a 128^3 pattern): each pattern needs the
+    last, but the rows are independent chains, so each of two warpgroups
+    keeps 64 rows of m in registers and runs its pattern as 8 wgmma with
+    A from those registers and c, staged once, from shared memory; the
+    rounded product is the next pattern's A as it lies."""
     dev = _check((m, c), (torch.bfloat16,) * 2)
     if tuple(m.shape) != (MXU_DIM, MXU_DIM) or m.shape != c.shape:
         raise ValueError(f"mxu_fma128 on the card takes {MXU_DIM}x{MXU_DIM} "

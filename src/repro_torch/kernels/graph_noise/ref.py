@@ -23,8 +23,18 @@ from repro_torch.core.loopnoise import _wrap32
 from repro_torch.kernels.loop_regions.ref import reduce_threads, tree_sum
 
 THREADS = 256        # a block of the graph-noise kernels
+STREAM_RING = 16     # hbm_stream's loads in flight a thread (G_STREAM_RING):
+                     # its adds stay in pattern order, so its aux is this
+                     # file's whatever the ring
 N_CHAINS = 4
 ICI_SCALE = 1e-3     # the ici modes' no-mesh fallback: c = v[:128] * 1e-3
+# mxu_fma128 at a c whose products are not exact (any but the states'
+# identity or a permutation): the kernel's f32 sums run in the tensor
+# cores' order, so a pattern may round to the neighbouring bf16 value, 2^-8
+# of the largest element, and the next pattern carries that on; the card
+# is held within MXU_RANDOM_C_TOL * k of the largest element, and its aux
+# bitwise to one_block_sum of its own m (the aux's order is this file's)
+MXU_RANDOM_C_TOL = 2.0 ** -8
 
 
 def _f32(v: float, like: torch.Tensor) -> torch.Tensor:

@@ -135,11 +135,33 @@ def _split_operands(text: str) -> list[str]:
     return out
 
 
+# warpgroup products (``wgmma``): HGMMA (f16, bf16, tf32), IGMMA (int8),
+# QGMMA (fp8); the first modifier is the shape, MxNxK
+GMMA = frozenset({"HGMMA", "IGMMA", "QGMMA"})
+_GMMA_SHAPE_RE = re.compile(r"64x(\d+)x\d+")
+
+
+def gmma_acc_width(opcode: str) -> int:
+    """Registers of a warpgroup product's accumulator a thread: 64 x N
+    results over the warpgroup's 128 threads, N/2 32-bit values (F32, S32)
+    or N/4 pairs of f16 (F16)."""
+    mods = opcode.split(".")[1:]
+    for i, mod in enumerate(mods):
+        m = _GMMA_SHAPE_RE.fullmatch(mod)
+        if m:
+            n = int(m.group(1))
+            return n // 4 if mods[i + 1:i + 2] == ["F16"] else n // 2
+    return 1
+
+
 def dest_width(opcode: str) -> int:
     """Registers one destination operand of ``opcode`` spans (pairs for
-    64-bit results, quads for 128-bit loads and tensor-core tiles)."""
+    64-bit results, quads for 128-bit loads and tensor-core tiles, a
+    warpgroup product's whole accumulator)."""
     parts = opcode.split(".")
     op, mods = parts[0], parts[1:]
+    if op in GMMA:
+        return gmma_acc_width(opcode)
     if "128" in mods:
         return 4
     if op == "HMMA":
@@ -170,7 +192,20 @@ def source_width(opcode: str, index: int, n_operands: int) -> int:
         return 2
     if op in ("HMMA", "IMMA"):
         return 4
+    if op in GMMA:      # A's fragment from registers (4), else the accumulator
+        return 4 if index == 1 else gmma_acc_width(opcode)
     return 1
+
+
+def gdesc_regs(operand: str, a_in_registers: bool) -> list[str]:
+    """The uniform registers a warpgroup product's ``gdesc[URn]`` operand
+    reads: an aligned quad, A's descriptor in URn, URn+1 and B's in URn+2,
+    URn+3; with A from registers only B's half is read."""
+    m = re.search(r"gdesc\[UR(\d+)\]", operand)
+    if not m:
+        return _regs(operand)
+    n = int(m.group(1))
+    return [f"UR{n + j}" for j in range(2 if a_in_registers else 0, 4)]
 
 
 def _regs(operand: str, width: int = 1) -> list[str]:
@@ -223,6 +258,9 @@ def parse_instr(addr: int, text: str) -> Instr:
         rest_ops = ops[i:]
     first = len(ops) - len(rest_ops)
     for j, operand in enumerate(rest_ops, start=first):
+        if op in GMMA and operand.startswith("gdesc["):
+            src.extend(gdesc_regs(operand, j > 1))
+            continue
         inside = "[" in operand
         src.extend(_regs(operand, 1 if inside
                          else source_width(opcode, j, len(ops))))

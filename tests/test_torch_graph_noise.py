@@ -288,17 +288,45 @@ def card():
     return torch.device("cuda")
 
 
+def _mxu_cs():
+    """mxu_fma128's c besides the identity: a permutation that is not its
+    own transpose (exact products) and a random c, N(0, 1/128) in bf16."""
+    rng = np.random.default_rng(5)
+    p = np.zeros((128, 128), np.float32)
+    p[np.arange(128), rng.permutation(128)] = 1.0
+    assert not np.array_equal(p, p.T)
+    rand = rng.standard_normal((128, 128), dtype=np.float32) / 128 ** 0.5
+    return {"permutation": p, "random": rand}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", MODES)
 def test_cuda_graph_kernels_against_reference(card, modes, name):
     """On the card: each mode's static and run-time kernels at k=5 on the
-    reference's state, the state bitwise the reference's."""
+    reference's state, the state bitwise the reference's; mxu_fma128 also
+    at a permutation c (bitwise) and a random c (m within k x
+    ``MXU_RANDOM_C_TOL`` of the largest element: the f32 sums' order is
+    the tensor cores'; the aux bitwise ``one_block_sum`` of the card's m)."""
+    from repro_torch.kernels.graph_noise.ref import (MXU_RANDOM_C_TOL,
+                                                     one_block_sum)
+
     ref, port, rs, _ = modes[name]
-    ps = noise_state_to_torch(name, _np_state(rs), device=card)
-    for static in (True, False):
-        aux, state = (port.apply if static else port.apply_rt)(ps, 5)
-        torch.cuda.synchronize()
-        want = (ref.apply if static else ref.apply_rt)(rs, 5)
-        _assert_state({k: (tuple(t.cpu() for t in v) if isinstance(v, tuple)
-                           else v.cpu()) for k, v in state.items()},
-                      _np_state(want[1]), f"{name} cuda")
+    cases = {"state": rs}
+    if name == "mxu_fma128":
+        cases.update({c: dict(rs, c=jax.numpy.asarray(v, jax.numpy.bfloat16))
+                      for c, v in _mxu_cs().items()})
+    for case, rstate in cases.items():
+        ps = noise_state_to_torch(name, _np_state(rstate), device=card)
+        for static in (True, False):
+            aux, state = (port.apply if static else port.apply_rt)(ps, 5)
+            torch.cuda.synchronize()
+            want = (ref.apply if static else ref.apply_rt)(rstate, 5)
+            got = {k: (tuple(t.cpu() for t in v) if isinstance(v, tuple)
+                       else v.cpu()) for k, v in state.items()}
+            if case != "random":
+                _assert_state(got, _np_state(want[1]), f"{name} {case} cuda")
+                continue
+            wm = np.asarray(want[1]["m"], np.float32)
+            err = np.abs(got["m"].to(torch.float32).numpy() - wm).max()
+            assert err <= 5 * MXU_RANDOM_C_TOL * np.abs(wm).max(), err
+            assert torch.equal(aux.cpu(), one_block_sum(got["m"]))
