@@ -71,7 +71,11 @@ JAX or of the reference package. Phases, each of which fails the run:
    mxu and hbm_stream emitters at their edges (``GRAPH_STREAM_TILES``,
    ``graph_noise.ref.MXU_RANDOM_C_TOL``): mxu at c = I, a permutation and a random c,
    hbm_stream at five tile counts and k at the edges of its load ring,
-   run-time k = 24 equal to static;
+   run-time k = 24 equal to static; the fp_add32 and vmem_ld emitters at
+   their edges (``GRAPH_VMEM_ROWS``, ``GRAPH_FP_ES``, ``GRAPH_EDGE_KS``):
+   vmem at five buffer heights, fp on one block (the ici fallback), four,
+   eight (one cluster) and twelve (the ticket), run-time and static k,
+   states and aux bitwise against the plain version;
 4. the main path, through the user's entry points, each path driven with
    every launch count set to 0 just before it and read just after (each
    ``python -m`` command below runs through its ``main`` in this process,
@@ -141,11 +145,12 @@ JAX or of the reference package. Phases, each of which fails the run:
    device time over k in {0, 128, 256, 512}, beside
    ``pattern_cost(H100_SXM)``'s: hbm_stream and hbm_latency on lines the
    call before did not leave in the L2 (``studies.fresh_calls``), and
-   beside that on the same lines every call; mxu_fma128's and
-   hbm_stream's device time read 5 times in turns at k in {0, 64, 128,
-   256, 512}, their µs a pattern beside the one-SM tensor-core floor
-   (1,024 clocks a pattern at the card's SM clock) and the bytes bound
-   (131,072 B at 3.35 TB/s), mxu_fma128's library call 64 chained
+   beside that on the same lines every call; the fp_add32, mxu_fma128,
+   vmem_ld and hbm_stream emitters' device time read 5 times in turns at
+   k in {0, 64, 128, 256, 512}, their k = 0 call and µs a pattern beside
+   the pattern's floor (fp 2 and vmem 8 clocks, mxu's one-SM tensor-core
+   1,024 clocks at the card's SM clock; hbm_stream's bytes bound, 131,072
+   B at 3.35 TB/s), mxu_fma128's library call 64 chained
    ``torch.matmul(m, c)`` in bf16 in one CUDA graph.
 
 7. serving, driven as phase 4's paths are (counts at 0 just before each,
@@ -445,9 +450,25 @@ BF16_FLOPS = 989e12
 # tensor cores do 4,096 dense operations a clock (989.4 TFLOP/s over 132
 # SMs at 1.83 GHz), so one 2 x 128^3 pattern takes 1,024 clocks
 MXU_PATTERN_CLOCKS = 2 * 128 ** 3 // 4096
-# the two graph emitters whose device time phase 6 reads TARGET_READINGS
-# times in turns (graph_readings; the other modes once)
-GRAPH_TARGET_MODES = ("mxu_fma128", "hbm_stream")
+# the per-pattern floors of the fp_add32 and vmem_ld emitters on each of
+# the four SMs they run on (a block of 8 warps an SM), in SM clocks: fp one
+# FADD a warp, 8 warps over 4 schedulers that issue one a clock: 2 clocks;
+# vmem one conflict-free LDS.32 a warp, 8 x 128 B at 128 B a clock: 8
+GRAPH_PATTERN_CLOCKS = {"fp_add32": 2, "vmem_ld": 8}
+# the graph emitters whose device time phase 6 reads TARGET_READINGS times
+# in turns (graph_readings; the chase once)
+GRAPH_TARGET_MODES = ("fp_add32", "mxu_fma128", "vmem_ld", "hbm_stream")
+# phase 3's edges of fp_add32 and vmem_ld: vmem at these buffer heights
+# (m = max(rows - 8, 1) is 1 twice, 13 (the stride's own), 56 and the
+# largest), fp at these E (the ici fallback's one block, the default
+# scale's four, the largest cluster's eight, twelve through the ticket),
+# each at run-time k in GRAPH_EDGE_KS (a ring of 8 loads: one partial
+# trip, whole trips, the most) and at the static builds phase 2 makes
+# first among them (GRAPH_EDGE_STATIC_KS)
+GRAPH_VMEM_ROWS = (8, 9, 21, 64, 448)
+GRAPH_FP_ES = (128, 1024, 2048, 3072)
+GRAPH_EDGE_KS = (0, 1, 3, 4, 5, 13, 64, 512)
+GRAPH_EDGE_STATIC_KS = (0, 1, 5, 64)
 # phase 3's edge shapes of the two: hbm_stream at these tile counts (one
 # tile; fewer tiles than the 197 step; the step's neighbours; the card's
 # whole 256 MiB buffer), each at run-time k in {0, 1, R - 1, R, 64, K_MAX +
@@ -503,6 +524,20 @@ def mxu_sm_floor(k: int, mhz: float) -> dict:
             "us_per_pattern": MXU_PATTERN_CLOCKS / mhz, "sm_clock_mhz": mhz,
             "formula": f"{MXU_PATTERN_CLOCKS} clocks x {k} patterns / "
                        f"{mhz:g} MHz"}
+
+
+def graph_floor_us(name: str, state: dict, mhz: float) -> tuple:
+    """(µs, what) of the least time one pattern of a graph emitter takes on
+    the card: mxu_fma128's one-SM tensor-core floor, fp_add32's and
+    vmem_ld's GRAPH_PATTERN_CLOCKS at the SM clock ``mhz``, hbm_stream's
+    tile over the device-memory rate."""
+    if name == "mxu_fma128":
+        return mxu_sm_floor(1, mhz)["us_per_pattern"], "one-SM tensor-core floor"
+    if name in GRAPH_PATTERN_CLOCKS:
+        what = "FP32 issue" if name == "fp_add32" else "shared-memory"
+        return (GRAPH_PATTERN_CLOCKS[name] / mhz,
+                f"{what} floor ({GRAPH_PATTERN_CLOCKS[name]} clocks)")
+    return state["acc"].numel() * 4 / HBM_BYTES_PER_S * 1e6, "bytes bound"
 
 
 def mxu_library_graph(m, c, k: int):
@@ -1895,6 +1930,73 @@ def _check_graph_emitters(failures: list, max_err: dict) -> None:
           f"k={STATIC_CHECK_K} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+def _bitwise(a, b) -> bool:
+    """Equal bit for bit, the signs of zero included."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _check_graph_fp_vmem(failures: list, max_err: dict) -> None:
+    """The fp_add32 and vmem_ld emitters at their edges on seeded states:
+    vmem_ld at GRAPH_VMEM_ROWS, fp_add32 at GRAPH_FP_ES (E = 128 through
+    the ici fallback's c = v[:128] * 1e-3), run-time k in GRAPH_EDGE_KS and
+    static k in GRAPH_EDGE_STATIC_KS, the aux and the new accumulators bit
+    for bit against the plain version (the aux's sign of zero too), static
+    equal to run-time at k >= 1."""
+    import torch
+
+    from repro_torch.kernels.graph_noise import kernel as gk
+
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(CHECK_DECAN_SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g).cuda()
+
+    cases = {}
+    for rows in GRAPH_VMEM_ROWS:
+        buf, accs = randn(rows, 128), tuple(randn(8, 128) for _ in range(4))
+        cases[f"vmem_ld rows={rows}"] = (
+            "graph_vmem_ld", partial(gk.vmem_ld, buf, accs))
+    for E in GRAPH_FP_ES:
+        ici = E == 128
+        rows = E // 128
+        c = randn(4096) if ici else randn(rows, 128)
+        accs = tuple(randn(rows, 128) for _ in range(4))
+        path = "cluster" if gk.fp_cluster(E) else "ticket"
+        cases[f"fp_add32 E={E} ({path})"] = (
+            "graph_fp_add32", partial(gk.fp_add32, c, accs, ici=ici))
+    for what, (kernel, fn) in cases.items():
+        runs = ([(k, False) for k in GRAPH_EDGE_KS]
+                + [(k, True) for k in GRAPH_EDGE_STATIC_KS])
+        for k, static in runs:
+            aux, new = fn(k=k, static=static)
+            paux, pnew = fn(k=k, static=static, plain=True)
+            torch.cuda.synchronize()
+            label = f"{what} {'static' if static else 'runtime'} k={k}"
+            if not _bitwise(aux, paux):
+                failures.append(f"{label}: aux {float(aux)!r} against "
+                                f"{float(paux)!r}, not bitwise")
+            _equal(new, pnew, label + " accs vs plain", failures)
+            max_err[kernel] = max(max_err.get(kernel, 0.0), max(
+                _max_err(x, y) for x, y in zip(new, pnew)))
+            if static and k:
+                raux, rnew = fn(k=k, static=False)
+                if not _bitwise(aux, raux):
+                    failures.append(f"{label}: static aux differs from "
+                                    "run-time")
+                _equal(new, rnew, label + " static vs runtime", failures)
+    print(f"graph emitters at their edges: {', '.join(cases)} x run-time k "
+          f"in {list(GRAPH_EDGE_KS)} and static k in "
+          f"{list(GRAPH_EDGE_STATIC_KS)}: aux and accumulators bitwise the "
+          f"plain version's ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def phase_check(main: dict) -> dict:
     import numpy as np
     import torch
@@ -1951,6 +2053,7 @@ def phase_check(main: dict) -> dict:
     _check_decan(failures, max_err)
     _check_graph(failures, max_err)
     _check_graph_emitters(failures, max_err)
+    _check_graph_fp_vmem(failures, max_err)
     if failures:
         raise RuntimeError("kernel check failed:\n  " + "\n  ".join(failures))
     return max_err
@@ -2712,6 +2815,14 @@ def _loop_rows():
                             mode="fp_add", k=0, carry=carry)
             nbytes = 4 * (n + n * n)
             nops = 2 * it * lref.UNROLL_O0 * n
+            # one dependent chain: each step's volatile round trip to the
+            # L2, at lat_mem_rd's hop above
+            steps = it * lref.UNROLL_O0
+            extra[name].update(chain_steps=steps, latency_bound_ms=(
+                steps * ns_hop * 1e-6))
+            print(f"{name}: latency bound {steps} dependent steps x "
+                  f"{ns_hop!r} ns (lat_mem_rd's L2 hop) = "
+                  f"{extra[name]['latency_bound_ms']!r} ms", flush=True)
         rows.append((name, f"{name} n={n}", kern, plain, None, nbytes, nops,
                      FP32_FLOPS, None))
     return rows, extra
@@ -2842,9 +2953,11 @@ def _decan_graph_rows():
     reads the L2's lines of the call before), with its µs a pattern (the
     slope of event time over GRAPH_SLOPE_KS) beside
     ``pattern_cost(H100_SXM)``'s; the GRAPH_TARGET_MODES' device time read
-    TARGET_READINGS times in turns, their slope beside the mxu emitter's
-    one-SM tensor-core floor (``mxu_sm_floor``) or hbm_stream's bytes
-    bound a pattern, and the mxu row's library call (``mxu_library_graph``).
+    TARGET_READINGS times in turns, their k = 0 call and slope beside
+    ``graph_floor_us`` (the mxu emitter's one-SM tensor-core floor, the fp
+    and vmem emitters' issue and shared-memory floors, hbm_stream's bytes
+    bound a pattern), and the mxu row's library call
+    (``mxu_library_graph``).
     Returns (rows, extra keys by kernel)."""
     import numpy as np
     import torch
@@ -2915,24 +3028,22 @@ def _decan_graph_rows():
             row_ms = got["median"][GRAPH_ROW_K]
             if name == "mxu_fma128":
                 floor = mxu_sm_floor(GRAPH_ROW_K, sm_clock_mhz())
-                per = floor["us_per_pattern"]
                 extra[kernel]["sm_floor"] = floor
                 lib = mxu_library_graph(state["m"], state["c"], GRAPH_ROW_K)
                 lib_what = (f"{GRAPH_ROW_K} chained torch.matmul(m, c) in "
                             "bf16, one CUDA graph")
-            else:
-                per = state["acc"].numel() * 4 / HBM_BYTES_PER_S * 1e6
+            per, floor_what = graph_floor_us(name, state, sm_clock_mhz())
             share = per / dev_slope_us if dev_slope_us else None
             extra[kernel].update(floor_us_per_pattern=per,
-                                 floor_share=share, row_device_ms=row_ms)
+                                 floor_share=share, row_device_ms=row_ms,
+                                 k0_device_ms=got["median"][0])
             print(f"graph {name}: device ms, {TARGET_READINGS} readings in "
                   "turns: " + ", ".join(
                       f"k={k} {v}" for k, v in readings.items())
-                  + f"; {dev_slope_us!r} us a pattern against the "
-                  + ("one-SM tensor-core floor" if name == "mxu_fma128"
-                     else "bytes bound") + f" {per!r} us ({share!r} of it); "
-                  f"row at k={GRAPH_ROW_K} {row_ms!r} ms; {card_line()}",
-                  flush=True)
+                  + f"; k=0 {got['median'][0]!r} ms; {dev_slope_us!r} us a "
+                  f"pattern against the {floor_what} {per!r} us ({share!r} "
+                  f"of it); row at k={GRAPH_ROW_K} {row_ms!r} ms; "
+                  f"{card_line()}", flush=True)
         print(f"graph {name}: {slope_us!r} us a pattern by events, "
               f"{dev_slope_us!r} on the device (k in {list(GRAPH_SLOPE_KS)}: "
               f"{ts} ms, {dev} ms); the same lines every call: "
@@ -2940,6 +3051,13 @@ def _decan_graph_rows():
               f"({extra[kernel].get('same_lines_event_ms')} ms); "
               f"pattern_cost(H100_SXM): {max(model.values()) * 1e6!r} us "
               f"{model}", flush=True)
+        if name == "hbm_latency":
+            # one dependent chain of k hops whose lines are not the L2's
+            bound = GRAPH_ROW_K * H100_SXM.hbm_latency_s * 1e3
+            extra[kernel]["latency_bound_ms"] = bound
+            print(f"graph {name}: latency bound {GRAPH_ROW_K} hops x "
+                  f"{H100_SXM.hbm_latency_s!r} s (H100_SXM.hbm_latency_s) "
+                  f"= {bound!r} ms", flush=True)
         nbytes, nops, peak = _graph_work(name, state, GRAPH_ROW_K)
         rows.append((kernel, f"{kernel} ({name}) k={GRAPH_ROW_K}",
                      partial(call, GRAPH_ROW_K),

@@ -80,6 +80,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// One thread copies `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device memory to this block's shared memory; the bytes
+// complete on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // TMA: one thread copies a box of a 2-D tensor into shared memory and the
 // bytes complete on `bar`. `map` is a __grid_constant__ kernel parameter.

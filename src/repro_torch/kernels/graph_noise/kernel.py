@@ -38,8 +38,8 @@ _WS_FLOATS = ns.NOISE_SHAPE[0] * ns.NOISE_SHAPE[1]
 
 def _launch(entry, mode, dev, tensors, ints, k, static, n_blocks=0):
     """Launch ``repro_<entry>_{static,rt}``. With ``n_blocks`` the kernel
-    sums its blocks in its epilogue: their sums and its ticket counter are
-    the stream's workspace, passed after ``tensors`` with ``res`` (2
+    may sum its blocks through a ticket: their sums and its ticket counter
+    are the stream's workspace, passed after ``tensors`` with ``res`` (2
     floats, the aux in [1]); returns res."""
     stream = _build.stream_handle(dev.index)
     res = None
@@ -56,12 +56,21 @@ def _blocks(n: int) -> int:
     return max(1, -(-n // ref.THREADS))
 
 
+def fp_cluster(E: int) -> bool:
+    """Does gfp_kernel launch its blocks as one cluster and add their sums
+    in rank 0 (``ref.CLUSTER_MAX`` blocks at most: every E of the default
+    noise scale, and the ici modes' E = 128)? A larger grid sums them
+    through the ticket of ``reduce_blocks``."""
+    return _blocks(E) <= ref.CLUSTER_MAX
+
+
 # ---------------------------------------------------------------------------
 # fp_add32 (and the ici modes' no-mesh fallback)
 # ---------------------------------------------------------------------------
 
 def fp_add32_cuda(c, accs, *, k, static, ici):
-    """Launch gfp_kernel: a thread an element."""
+    """Launch gfp_kernel: a thread an element, its blocks one cluster where
+    ``fp_cluster(E)``."""
     dev = _check((c, *accs), (torch.float32,) * 5)
     E = c.numel()
     if ici:
@@ -69,8 +78,8 @@ def fp_add32_cuda(c, accs, *, k, static, ici):
     elif any(a.numel() != E for a in accs):
         raise ValueError("fp_add32: c and the accumulators differ in shape")
     out = torch.empty((4, *accs[0].shape), dtype=torch.float32, device=dev)
-    res = _launch("gfp", "fp_add32", dev, (c, *accs, out), (E, int(ici)), k,
-                  static, _blocks(E))
+    res = _launch("gfp", "fp_add32", dev, (c, *accs, out),
+                  (E, int(ici), int(fp_cluster(E))), k, static, _blocks(E))
     fp_add32_cuda.launches += 1
     aux = res[1]
     return aux, tuple(out[j] for j in range(4))
@@ -95,8 +104,10 @@ def fp_add32(c, accs, *, k: int, static: bool, ici: bool = False,
 # ---------------------------------------------------------------------------
 
 def vmem_ld_cuda(buf, accs, *, k, static):
-    """Launch gvmem_kernel: buf in shared memory, a thread an element of the
-    (8,128) accumulators."""
+    """Launch gvmem_kernel: four blocks as one cluster, a thread an element
+    of the (8,128) accumulators; the rows of buf that the k patterns read
+    staged in shared memory by one bulk copy, each thread's offset stepped
+    (``ref.vmem_offsets``) and ``ref.VMEM_RING`` of its loads in flight."""
     dev = _check((buf, *accs), (torch.float32,) * 5)
     rows = buf.shape[0]
     if buf.shape[1:] != (128,) or not 8 <= rows <= MAX_VMEM_ROWS:
@@ -105,8 +116,9 @@ def vmem_ld_cuda(buf, accs, *, k, static):
     if any(tuple(a.shape) != (8, 128) for a in accs):
         raise ValueError("vmem_ld: the accumulators must be (8, 128)")
     out = torch.empty((4, 8, 128), dtype=torch.float32, device=dev)
-    res = _launch("gvmem", "vmem_ld", dev, (buf, *accs, out), (rows,), k,
-                  static, 1024 // ref.THREADS)
+    res = torch.empty(2, dtype=torch.float32, device=dev)
+    _launch("gvmem", "vmem_ld", dev, (buf, *accs, out, res), (rows,), k,
+            static)
     vmem_ld_cuda.launches += 1
     return res[1], tuple(out[j] for j in range(4))
 

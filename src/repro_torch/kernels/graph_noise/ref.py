@@ -9,8 +9,9 @@ the card the new state and the aux can be held against it bit for bit:
 * the f32 aux: one value a thread (a thread an element: the chains' sum
   ((a0 + a1) + a2) + a3, or the element), summed as the kernel's epilogue
   sums them (``loop_regions.ref.reduce_threads``: a tree over each block of
-  256 threads, then the block sums in order); the one-block kernel (mxu)
-  has thread t add elements t, t + 256, ... in order, then the tree.
+  256 threads, then the block sums in order, whether the blocks add them
+  through a ticket or, as one cluster, in rank 0); the one-block kernel
+  (mxu) has thread t add elements t, t + 256, ... in order, then the tree.
 
 Against the reference the states are bitwise equal; the aux differs only
 by the order of f32 additions (the reference's ``jnp.sum``).
@@ -26,6 +27,10 @@ THREADS = 256        # a block of the graph-noise kernels
 STREAM_RING = 16     # hbm_stream's loads in flight a thread (G_STREAM_RING):
                      # its adds stay in pattern order, so its aux is this
                      # file's whatever the ring
+VMEM_RING = 8        # vmem_ld's loads in flight a thread (G_VMEM_RING)
+VMEM_STRIDE = 13     # vmem_ld's offset step: off_j = (j * 13) % m
+CLUSTER_MAX = 8      # the most blocks fp_add32 and vmem_ld sum as one
+                     # cluster (G_CLUSTER_MAX, the portable cluster size)
 N_CHAINS = 4
 ICI_SCALE = 1e-3     # the ici modes' no-mesh fallback: c = v[:128] * 1e-3
 # mxu_fma128 at a c whose products are not exact (any but the states'
@@ -76,14 +81,38 @@ def fp_add32_plain(c, accs, *, k: int, lit0: bool = False,
     return aux, tuple(new)
 
 
-def vmem_ld_plain(buf, accs, *, k: int, lit0: bool = False):
-    """k re-reads of (8,128) slices of buf at (j*13) % max(rows-8, 1), round
-    robin into the four accumulators -> (aux, new accs)."""
-    vmem_ld_plain.launches += 1
-    m = max(buf.shape[0] - 8, 1)
-    new = [a.clone() for a in accs]
+def vmem_offsets(rows: int, k: int) -> list:
+    """vmem_ld's k slice offsets as gvmem_kernel steps them, with no modulo
+    a pattern (m = max(rows - 8, 1); a step that reaches m loses m once):
+    pattern j is ring slot j % VMEM_RING's; slot i starts at (13 i) % m,
+    the slots' starts stepped by 13 % m, and steps by (13 VMEM_RING) % m a
+    pattern of its own. They are the reference's (j * 13) % m."""
+    m = max(rows - 8, 1)
+
+    def stepped(off: int, step: int) -> int:
+        off += step
+        return off - m if off >= m else off
+
+    slots, off = [], 0
+    for _ in range(VMEM_RING):
+        slots.append(off)
+        off = stepped(off, VMEM_STRIDE % m)
+    step = VMEM_STRIDE * VMEM_RING % m
+    out = []
     for j in range(k):
-        off = (j * 13) % m
+        i = j % VMEM_RING
+        out.append(slots[i])
+        slots[i] = stepped(slots[i], step)
+    return out
+
+
+def vmem_ld_plain(buf, accs, *, k: int, lit0: bool = False):
+    """k re-reads of (8,128) slices of buf at (j*13) % max(rows-8, 1)
+    (``vmem_offsets``), round robin into the four accumulators -> (aux,
+    new accs)."""
+    vmem_ld_plain.launches += 1
+    new = [a.clone() for a in accs]
+    for j, off in enumerate(vmem_offsets(buf.shape[0], k)):
         new[j % N_CHAINS] = new[j % N_CHAINS] + buf[off:off + 8]
     aux = (torch.zeros((), dtype=torch.float32, device=buf.device) if lit0
            else chains_aux(new))

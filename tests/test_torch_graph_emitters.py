@@ -1,6 +1,20 @@
-"""The mxu and hbm_stream graph-noise emitters (``gmxu_kernel``,
-``gstream_kernel``, ``csrc/graph_noise.cu``) on the CPU:
+"""The graph-noise emitters (``csrc/graph_noise.cu``) on the CPU:
 
+* vmem_ld's stepped offsets (``ref.vmem_offsets``: a chain a ring slot,
+  each step wrapped once) are the reference's (j * 13) % max(rows - 8, 1)
+  for every rows the kernel takes and every k up to ``LOOP_K_MAX``; the
+  rows ``gvmem_kernel`` stages hold every row its patterns read; its ring
+  of ``ref.VMEM_RING`` loads (``vmem_patterns``, ``stream_patterns``'
+  schedule) loads every pattern's offset once and in order and adds each
+  pattern once in order into chain j % 4, so its accumulators are
+  ``vmem_ld_plain``'s bit for bit;
+* the cluster epilogue of ``gfp_kernel`` and ``gvmem_kernel``: mirrors of
+  ``warp0_tree_sum`` (the block tree behind one barrier) and
+  ``cluster_aux`` (rank 0's sum of one to eight block sums) are
+  ``reduce_threads`` and its block-sum stage bit for bit, on random
+  values and on signed zeros (all -0 included); ``fp_cluster`` picks the
+  cluster for grids of at most ``ref.CLUSTER_MAX`` blocks and the ticket
+  beyond;
 * a Python model of ``gstream_kernel``'s schedule (``stream_patterns``: a
   ring of ``ref.STREAM_RING`` loads in flight a thread, full trips of R
   patterns while two trips remain, the tile index stepped by 197 %
@@ -43,15 +57,19 @@ STEP = 197
 
 
 def _stream_schedule(k: int, n_tiles: int, ring: int = R,
-                     trip_bound: int = 2 * R) -> dict:
+                     trip_bound: int = 2 * R, stride: int = STEP,
+                     add_first: bool = False) -> dict:
     """``stream_patterns`` as one thread runs it: the loads in issue order
     as (pattern, tile, the pattern added just before it was issued; -1 in
-    the prologue), the patterns in the order they are added, and the most
-    loads in flight. ``trip_bound``: a full trip runs while j + trip_bound
-    <= k (the kernel's 2R)."""
-    step = STEP % n_tiles
+    the prologue), the patterns in the order they are added (with the ring
+    slot that held each), and the most loads in flight. ``trip_bound``: a
+    full trip runs while j + trip_bound <= k (the kernel's 2R).
+    ``vmem_patterns`` runs the same schedule with its ring, stride 13 over
+    m = n_tiles, and each slot's add before its next load
+    (``add_first``)."""
+    step = stride % n_tiles
     st = {"t": 0, "issued": 0, "added": -1, "loads": [], "adds": [],
-          "in_flight": 0, "most": 0}
+          "slots": [], "in_flight": 0, "most": 0}
 
     def next_load():
         j = st["issued"]
@@ -68,27 +86,35 @@ def _stream_schedule(k: int, n_tiles: int, ring: int = R,
         st["in_flight"] -= 1
         return j
 
-    def add(j):
+    def add(j, slot):
         st["adds"].append(j)
+        st["slots"].append(slot)
         st["added"] = j
 
     r = [next_load() if i < k else None for i in range(ring)]
     j = 0
     while j + trip_bound <= k:
         for i in range(ring):
+            if add_first:
+                add(take(r[i]), i)
+                r[i] = next_load()
+                continue
             v = take(r[i])
             r[i] = next_load()
-            add(v)
+            add(v, i)
         j += ring
     for i in range(ring):
         if j + i < k:
             v = take(r[i])
+            if add_first:
+                add(v, i)
             if j + ring + i < k:
                 r[i] = next_load()
-            add(v)
+            if not add_first:
+                add(v, i)
     for i in range(ring):
         if j + ring + i < k:
-            add(take(r[i]))
+            add(take(r[i]), i)
     return st
 
 
@@ -139,6 +165,144 @@ def test_stream_schedule_model_catches_a_short_ring_bound(k):
         _check_schedule(st, k, 13)
 
 
+# vmem_ld: the buffer rows the kernel takes, and its k up to LOOP_K_MAX
+VMEM_ROWS = range(8, gk.MAX_VMEM_ROWS + 1)
+K_MAX = 512
+VR = ref.VMEM_RING
+
+
+def _stage_rows(rows: int, k: int) -> int:
+    """``vmem_stage_rows``: the rows gvmem_kernel stages for k >= 1
+    patterns, min(13 (k - 1), m - 1) + 8."""
+    m = max(rows - 8, 1)
+    return min(13 * (k - 1), m - 1) + 8
+
+
+@pytest.mark.parametrize("lo", range(VMEM_ROWS.start, VMEM_ROWS.stop, 64))
+def test_vmem_offsets_step_to_the_references(lo):
+    """For every rows of the kernel (a block of 64 a case) and every k up
+    to LOOP_K_MAX: the offsets stepped as gvmem_kernel steps them (a
+    chain a ring slot, ``ref.vmem_offsets``) are the reference's (i * 13)
+    % max(rows - 8, 1) (``src/repro/core/noise.py`` `_vmem_apply` and
+    `_vmem_apply_rt`), and the staged rows hold every row the k patterns
+    read, within the buffer."""
+    from repro_torch.kernels.noise_slots import K_MAX as CARD_K_MAX
+
+    assert CARD_K_MAX == K_MAX
+    for rows in range(lo, min(lo + 64, VMEM_ROWS.stop)):
+        got = ref.vmem_offsets(rows, K_MAX)
+        assert got == [(i * 13) % max(rows - 8, 1) for i in range(K_MAX)]
+        top = 0
+        for k in range(1, K_MAX + 1):
+            top = max(top, got[k - 1] + 8)
+            assert top <= _stage_rows(rows, k) <= rows
+
+
+@pytest.mark.parametrize("rows", (8, 9, 21, 64, 448))
+@pytest.mark.parametrize("k", (0, 1, 3, VR - 1, VR, 2 * VR - 1, 2 * VR, 64,
+                               K_MAX))
+def test_vmem_schedule_is_the_references(k, rows):
+    """``vmem_patterns`` (the stream schedule with a ring of VMEM_RING, each
+    slot's add before its next load): every pattern's slice loaded once,
+    in order, at the reference's offset, the load of pattern j >= R issued
+    just after pattern j - R's add, R loads in flight at most, each
+    pattern added once in order by ring slot j % R, so into chain j % 4;
+    run on a seeded buffer that order gives ``vmem_ld_plain``'s
+    accumulators and aux bit for bit."""
+    assert VR % ref.N_CHAINS == 0
+    m = max(rows - 8, 1)
+    st = _stream_schedule(k, m, ring=VR, trip_bound=2 * VR, stride=13,
+                          add_first=True)
+    assert [j for j, _, _ in st["loads"]] == list(range(k))
+    assert [t for _, t, _ in st["loads"]] == ref.vmem_offsets(rows, k)
+    assert [at for _, _, at in st["loads"]] == [
+        j - VR if j >= VR else -1 for j in range(k)]
+    assert st["adds"] == list(range(k))
+    assert st["slots"] == [j % VR for j in range(k)]
+    assert st["most"] <= VR and st["in_flight"] == 0
+    rng = np.random.default_rng(k * 7919 + rows)
+    buf = torch.from_numpy(rng.standard_normal((rows, 128), dtype=np.float32))
+    accs = tuple(torch.from_numpy(rng.standard_normal((8, 128),
+                                                      dtype=np.float32))
+                 for _ in range(ref.N_CHAINS))
+    offs = dict((j, t) for j, t, _ in st["loads"])
+    new = list(accs)
+    for j, slot in zip(st["adds"], st["slots"]):
+        ch = slot % ref.N_CHAINS
+        new[ch] = new[ch] + buf[offs[j]:offs[j] + 8]
+    aux, want = ref.vmem_ld_plain(buf, accs, k=k)
+    assert all(torch.equal(a, b) for a, b in zip(new, want))
+    assert torch.equal(ref.chains_aux(new), aux)
+
+
+def _warp0_tree_sum(v: torch.Tensor) -> torch.Tensor:
+    """``warp0_tree_sum`` over each row of 256 values: lane t of warp 0 adds
+    ((v[t] + v[t+128]) + (v[t+64] + v[t+192])) + ((v[t+32] + v[t+160]) +
+    (v[t+96] + v[t+224])), then the five shuffle levels s = 16, ..., 1."""
+    c = [v[..., 32 * q:32 * (q + 1)] for q in range(8)]
+    lane = (((c[0] + c[4]) + (c[2] + c[6]))
+            + ((c[1] + c[5]) + (c[3] + c[7])))
+    return ref.tree_sum(lane)
+
+
+def _cluster_sum(block_sums: torch.Tensor) -> torch.Tensor:
+    """``cluster_aux`` in rank 0: lane t < C holds 0 + s_t, lanes up to 7
+    hold +0, then the levels s = 4, 2, 1."""
+    lanes = torch.zeros(8, dtype=torch.float32)
+    lanes[:block_sums.shape[0]] = torch.zeros(()) + block_sums
+    return ref.tree_sum(lanes)
+
+
+def _bits(t: torch.Tensor) -> int:
+    return int(t.reshape(()).view(torch.int32))
+
+
+def _values(kind: str, n: int, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    if kind == "random":      # magnitudes over twelve decades: order matters
+        v = rng.standard_normal(n) * 10.0 ** rng.uniform(-6, 6, n)
+    elif kind == "signed zeros":
+        v = rng.choice([0.0, -0.0, 1.5, -1.5, 2.0 ** -20], n)
+    else:                     # all -0
+        v = np.full(n, -0.0)
+    return torch.from_numpy(v.astype(np.float32))
+
+
+@pytest.mark.parametrize("kind", ("random", "signed zeros", "all -0"))
+@pytest.mark.parametrize("blocks", range(1, ref.CLUSTER_MAX + 1))
+def test_cluster_epilogue_is_reduce_threads(blocks, kind):
+    """The cluster epilogue's two stages bit for bit (signs of zero
+    included): rank 0's sum of ``blocks`` block sums against
+    ``final_reduce`` (``reduce_blocks``' last block: ``reduce_threads``'
+    block-sum stage), and the whole (each block's ``warp0_tree_sum``,
+    then rank 0's) against ``reduce_threads`` of the threads' values."""
+    from repro_torch.kernels.loop_regions.ref import final_reduce
+
+    for seed in range(4):
+        sums = _values(kind, blocks, seed)
+        assert _bits(_cluster_sum(sums)) == _bits(
+            final_reduce(sums, ref.THREADS))
+        v = _values(kind, blocks * ref.THREADS, 100 + seed)
+        trees = _warp0_tree_sum(v.reshape(blocks, ref.THREADS))
+        assert all(_bits(a) == _bits(b) for a, b in zip(
+            trees, ref.tree_sum(v.reshape(blocks, ref.THREADS))))
+        assert _bits(_cluster_sum(trees)) == _bits(
+            ref.reduce_threads(v, ref.THREADS))
+    if kind == "all -0":     # 0 + (-0) is +0: the aux of -0s is +0
+        assert _bits(_cluster_sum(_values(kind, blocks, 0))) == 0
+
+
+@pytest.mark.parametrize("E,blocks,cluster", (
+    (128, 1, True), (1024, 4, True), (2048, 8, True), (2049, 9, False),
+    (24 * 128, 12, False)))
+def test_fp_epilogue_path_by_E(E, blocks, cluster):
+    """gfp_kernel's epilogue by shape: one cluster up to CLUSTER_MAX blocks
+    (the ici modes' E = 128, the default scale's 1,024), the ticket of
+    ``reduce_blocks`` beyond (a ``NoiseScale`` with vpu_rows > 16)."""
+    assert gk._blocks(E) == blocks
+    assert gk.fp_cluster(E) is cluster
+
+
 def _define(name: str) -> int:
     with open(CSRC) as f:
         m = re.search(rf"^#define {name} (\d+)", f.read(), re.M)
@@ -147,13 +311,17 @@ def _define(name: str) -> int:
 
 
 def test_source_constants_are_refs():
-    """The block and ring of graph_noise.cu are the plain versions' (the
-    aux order follows the block; the schedule model above follows the
-    ring), and the mxu kernel's width is the wrapper's."""
+    """The block, rings and cluster bound of graph_noise.cu are the plain
+    versions' (the aux order follows the block; the schedule models above
+    follow the rings; the path choice the bound), and the mxu kernel's
+    width and vmem_ld's buffer bound are the wrapper's."""
     assert _define("G_THREADS") == ref.THREADS
     assert _define("G_STREAM_RING") == ref.STREAM_RING
+    assert _define("G_VMEM_RING") == ref.VMEM_RING
+    assert _define("G_CLUSTER_MAX") == ref.CLUSTER_MAX
+    assert _define("VMEM_MAX_ROWS") == gk.MAX_VMEM_ROWS
     assert _define("MXU_D") == gk.MXU_DIM
-    assert ref.STREAM_RING >= 8
+    assert ref.STREAM_RING >= 8 and ref.VMEM_RING % ref.N_CHAINS == 0
 
 
 def _permutation(n: int, seed: int) -> np.ndarray:
