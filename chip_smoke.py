@@ -14,8 +14,10 @@ JAX or of the reference package. Phases, each of which fails the run:
    (below) go on building while phase 3 runs, and the census waits for
    them (printed as 2b, after phase 3): the registers of every
    kernel (``nvcc -Xptxas -v``, no spills allowed), ``loop_regions.cu``
-   included; the SASS FADD count of the static fp probe, matmul and
-   attention at k=4 and k=24 (the fp adds must survive); the loop regions'
+   included, and of every ``fa_kernel_h256`` instance, run-time and
+   static; the SASS FADD count of the static fp probe, matmul and
+   attention (hd 128 and 256) at k=4 and k=24 (the fp adds must survive);
+   the loop regions'
    SASS census between static k=8 and k=24: FADD for fp_add, FFMA for
    fp_fma, LDG for l1_ld, mem_ld and chase, at least 16 more in each of the
    six region kernels, and l1_ld's extra loads neither .STRONG nor volatile
@@ -33,9 +35,11 @@ JAX or of the reference package. Phases, each of which fails the run:
 3. check: every kernel, mode and k in {0, 1, 24, K_MAX+7} against its plain
    PyTorch version on the card at moderate sizes (attention: B=2, H=8,
    KH=2, S=512, hd 64, 128 and 256, causal / non-causal / window 128, f32
-   and bf16, and seq 24), and every mode at k in {0, 1} at the main path's
-   shapes; the K_MAX clamp; runtime k bitwise equal to static k at k=24
-   (attention: hd 128 f32, hd 256 f32 and bf16). The outputs of attention
+   and bf16, and seq 24, hd 256 at seq 24 and window 128 too), and every
+   mode at k in {0, 1} at the main path's shapes (attention at gemma-2b's
+   widths too: 8 heads on 1 KV head, hd 256, seq 4096, f32 and bf16); the
+   K_MAX clamp; runtime k bitwise equal to static k at k=24 (attention:
+   hd 128 f32, hd 256 f32 and bf16). The outputs of attention
    and the matmul are held row by row (``row_excess``); the same check must
    refuse each kernel fed bf16-rounded operands (a control that the
    tolerance is tight enough). The one-launch reduction of the probe and
@@ -82,15 +86,16 @@ JAX or of the reference package. Phases, each of which fails the run:
    ``_run_cli``; only 4b's shards are processes of their own):
    a. the main fleet plan: Qwen3-30B-A3B's attention (32 query heads, 4
       KV heads, head_dim 128, batch 1, seq 4096, causal), the probe at
-      1056 steps, spmxv n=2^21 L=16 q=0 and the matmul at n=4096, one
-      shard, run by ``python -m repro_torch.fleet run --in-process`` (the
-      shard in the fleet's process) under the default ``--audit gate``
-      (every pair audited
+      1056 steps, spmxv n=2^21 L=16 q=0, the matmul at n=4096 and
+      gemma-2b's attention (8 heads on 1 KV head, head_dim 256, seq 4096:
+      ``fa_kernel_h256``), one shard, run by ``python -m
+      repro_torch.fleet run --in-process`` (the shard in the fleet's
+      process) under the default ``--audit gate`` (every pair audited
       first), then ``run --resume --expect-no-measure`` (must audit and
       measure nothing), ``fleet audit --expect-clean`` (every pair
-      intact), then ``status``; then ``fleet doctor --explain`` in this
-      process (exit 0, a decision path for each of the four regions, its
-      label the report's);
+      intact), then ``status``, each region's sweep seconds printed; then
+      ``fleet doctor --explain`` in this process (exit 0, a decision path
+      for each of the five regions, its label the report's);
    b. an attention family at seq 256 and 512 (the region's default widths)
       on two subprocess shards writing segmented stores
       (``store_format="segments"``), merged incrementally (one new segment
@@ -123,7 +128,9 @@ JAX or of the reference package. Phases, each of which fails the run:
    (spmv at q=0 and q=1): kernel, plain version, bound, and one PyTorch
    library call where one computes the same function (spmv: CSR ``@ x`` on
    the same matrix; attention: SDPA in f32 as ``library_ms``, and beside it
-   SDPA with TF32 allowed and SDPA in bf16); the kernel's and the library
+   SDPA with TF32 allowed and SDPA in bf16, at Qwen3-30B-A3B's widths and,
+   as the row ``flash_attention_h256``, at gemma-2b's); the kernel's and
+   the library
    call's device time from a ``torch.profiler`` trace (each kernel averaged
    over its own records), the kernels each call launches (1 for the probe,
    spmv and the loop regions, or the run fails), each
@@ -373,6 +380,11 @@ MAIN_PROBE_STEPS = 1056
 # Qwen3-30B-A3B's attention widths (src/repro/configs/qwen3_moe_30b_a3b.py)
 MAIN_ATTENTION = {"batch": 1, "heads": 32, "kv_heads": 4, "seq": 4096,
                   "head_dim": 128}
+# gemma-2b's attention widths (src/repro/configs/gemma_2b.py: 8 heads on 1
+# KV head, hd 256): phase 4a's fifth target, phase 3's MQA case and phase
+# 6's hd-256 row
+GEMMA_ATTENTION = {"batch": 1, "heads": 8, "kv_heads": 1, "seq": 4096,
+                   "head_dim": 256}
 # (label, hd, dtype, seq, causal, window, static): the attention cases of
 # phase 3 at B=2, H=8, KH=2; ``static`` also checks the clamp and static k
 ATTENTION_CASES = (
@@ -386,6 +398,9 @@ ATTENTION_CASES = (
     ("hd128 f32 causal seq 24", 128, "float32", 24, True, 0, False),
     ("hd256 f32 causal", 256, "float32", 512, True, 0, True),
     ("hd256 bf16 causal", 256, "bfloat16", 512, True, 0, True),
+    ("hd256 f32 causal seq 24", 256, "float32", 24, True, 0, False),
+    ("hd256 f32 window 128", 256, "float32", 512, True, 128, False),
+    ("hd256 bf16 window 128", 256, "bfloat16", 512, True, 128, False),
 )
 
 
@@ -709,6 +724,12 @@ class Kernels:
                 "plain": fa_k.flash_attention_plain,
                 "source": "src/repro_torch/csrc/flash_attention.cu",
                 "replaces": "src/repro/kernels/flash_attention/kernel.py:157"},
+            # the wrapper's calls at hd 256: fa_kernel_h256
+            "flash_attention_h256": {
+                "cuda": fa_k.h256_launches,
+                "plain": fa_k.flash_attention_plain,
+                "source": "src/repro_torch/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention/kernel.py:157"},
         }
         from repro_torch.kernels.loop_regions.kernel import REGION_KERNELS
 
@@ -795,7 +816,8 @@ PAYLOAD_KS = {"probe": (("fp", 320), ("vmem", 320)),
               "matmul": (("fp", 320), ("mxu", 8), ("vmem", 64)),
               "attention": (("fp", 320), ("mxu", 8), ("vmem", 64)),
               "attention hd64": (("fp", 320), ("fp", 64), ("mxu", 24),
-                                 ("vmem", 320), ("vmem", 64))}
+                                 ("vmem", 320), ("vmem", 64)),
+              "attention hd256": (("fp", 320), ("mxu", 16), ("vmem", 64))}
 
 
 # phase 14's payload checks, built in the same pool: the quickstart's
@@ -817,7 +839,9 @@ def _payload_set():
            "matmul": ("noisy_matmul", ()),
            "attention": ("flash_attention", attention_variant(128, "float32")),
            "attention hd64": ("flash_attention",
-                              attention_variant(64, "float32"))}
+                              attention_variant(64, "float32")),
+           "attention hd256": ("flash_attention",
+                               attention_variant(256, "float32"))}
     ids = {"loop_regions": LOOP_IDS, "graph_noise": GRAPH_IDS}
     return [(src[kern][0], MODE_IDS[m], k, src[kern][1])
             for kern, pairs in PAYLOAD_KS.items() for m, k in pairs] + [
@@ -875,7 +899,9 @@ def _audit_set():
            "matmul": ("noisy_matmul", ()),
            "attention": ("flash_attention", attention_variant(128, "float32")),
            "attention hd64": ("flash_attention",
-                              attention_variant(64, "float32"))}
+                              attention_variant(64, "float32")),
+           "attention hd256": ("flash_attention",
+                               attention_variant(256, "float32"))}
     want = []
     for kern, (source, defines) in src.items():
         want.append((source, 0, 0, defines))
@@ -908,6 +934,45 @@ def _fadd_grows(kernel: str, defines: tuple, per_pattern: int) -> None:
                            f"than k={K_LO}, want >= {want}")
 
 
+def _h256_builds() -> list:
+    """The static builds of ``fa_kernel_h256`` phase 2 makes: phase 3's at
+    k=24, and the audit's and payload checks' of phase 4a's gemma-2b
+    target."""
+    want = dict(attention_variant(256, "float32")), dict(
+        attention_variant(256, "bfloat16"))
+    return [b for b in _static_set() if b[0] == "flash_attention"
+            and dict(b[3]) in want]
+
+
+def _h256_registers() -> None:
+    """Registers and spills of every ``fa_kernel_h256`` instance (``nvcc
+    -Xptxas -v``): the run-time library's (each dtype and mode) and each
+    static build's; a spill fails the run."""
+    from repro_torch.kernels import _build
+
+    def short(entry):   # fa_kernel_h256<float, MODE, SK>
+        name = entry.replace("(int)", "").replace("void ", "")
+        return name[:name.find(">") + 1]
+
+    usage = {short(name): u for name, u in
+             _build.ptxas_usage("flash_attention").items()
+             if "fa_kernel_h256" in name}
+    for source, mode_id, k, defines, *_ in _h256_builds():
+        path = _build.static_lib_path(source, mode_id, k, defines,
+                                      sabotage=False)
+        usage.update({short(name): u for name, u in
+                      _build.static_ptxas_usage(path).items()
+                      if "fa_kernel_h256" in name})
+    print(f"ptxas registers, fa_kernel_h256 ({len(usage)} instances): "
+          + "; ".join(f"{name} {regs}" + (f" SPILLS {st}/{ld}" if st or ld
+                                           else "")
+                      for name, (regs, st, ld) in sorted(usage.items())))
+    spilled = [name for name, (_, st, ld) in usage.items() if st or ld]
+    if spilled or not usage:
+        raise RuntimeError(f"fa_kernel_h256: spills in {spilled}"
+                           if spilled else "fa_kernel_h256: no instance")
+
+
 def _census_paths() -> list:
     """The libraries phase 2's SASS census reads: the run-time library,
     the fp kernels' and the graph modes' static builds at K_LO and k=24,
@@ -919,7 +984,8 @@ def _census_paths() -> list:
     from repro_torch.kernels.graph_noise.kernel import MODE_IDS as GRAPH_IDS
 
     fp = [("noise_probes", ()), ("noisy_matmul", ()),
-          ("flash_attention", attention_variant(128, "float32"))]
+          ("flash_attention", attention_variant(128, "float32")),
+          ("flash_attention", attention_variant(256, "float32"))]
     libs = [(src, 1, k, d) for src, d in fp for k in (K_LO, STATIC_CHECK_K)]
     libs += [("graph_noise", GRAPH_IDS[m], k, ()) for m in GRAPH_MODES
              for k in (K_LO, STATIC_CHECK_K)]
@@ -981,25 +1047,32 @@ def phase_build():
     rest = [s for s in _static_set() if s not in set(first)]
     pool = ThreadPoolExecutor(max_workers=BUILD_WORKERS)
     rt = pool.submit(timed, _build.runtime_lib)
-    statics = [pool.submit(timed, static, *s) for s in first]
-    later = [pool.submit(timed, static, *s) for s in rest]
+    statics = {s: pool.submit(timed, static, *s) for s in first}
+    later = {s: pool.submit(timed, static, *s) for s in rest}
     rt_s = rt.result()
-    static_s = [f.result() for f in statics]
+    static_s = [f.result() for f in statics.values()]
     print(f"runtime-k library ({len(_build.KERNEL_SOURCES)} sources, "
           f"parallel nvcc + link): {rt_s:.1f} s; {len(statics)} static-k "
           f"builds of phases 3 and 7 alongside (slowest {max(static_s):.1f} "
           f"s), {BUILD_WORKERS} builds at a time: {time.perf_counter() - t0:.1f}"
           f" s; {len(later)} more building while phase 3 runs", flush=True)
-    return pool, partial(_finish_build, later, t0)
+    return pool, partial(_finish_build, statics, later, t0)
 
 
-def _finish_build(later: list, t0: float) -> None:
+def _finish_build(statics: dict, later: dict, t0: float) -> None:
     """Wait for the static builds phase 2 left running, then read the SASS
     census of the libraries and the registers of every kernel."""
     from repro_torch.kernels import _build
 
     banner("2b. the rest of the static builds, and the SASS census")
-    static_s = [f.result() for f in later]
+    static_s = [f.result() for f in later.values()]
+    h256 = [(statics | later)[b].result() for b in _h256_builds()]
+    gemma = [(statics | later)[b].result() for b in _h256_builds()
+             if b not in statics]
+    print(f"fa_kernel_h256's {len(h256)} static builds: {sum(h256):.1f} s of "
+          f"nvcc (slowest {max(h256):.1f} s), {sum(gemma):.1f} s of them for "
+          f"phase 4a's gemma-2b target ({len(gemma)} builds, in the pool "
+          f"beside the rest)", flush=True)
     n_audit = len(set(_audit_set()) - set(_check_set()))
     print(f"{len(later)} static-k builds ({n_audit} of them for the audit, "
           f"{len(later) - n_audit} for phase 4's and 14's payload checks; "
@@ -1017,6 +1090,8 @@ def _finish_build(later: list, t0: float) -> None:
     _fadd_grows("noise_probes", (), 4)
     _fadd_grows("noisy_matmul", (), 4)
     _fadd_grows("flash_attention", attention_variant(128, "float32"), 4)
+    _fadd_grows("flash_attention", attention_variant(256, "float32"), 4)
+    _h256_registers()
     _loop_census()
     _decan_census()
     _graph_census()
@@ -1997,6 +2072,24 @@ def _check_graph_fp_vmem(failures: list, max_err: dict) -> None:
           f"plain version's ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+def _check_gemma_attention(failures: list, max_err: dict) -> None:
+    """The hd-256 kernel at gemma-2b's widths (8 heads on 1 KV head, seq
+    4096, causal) in f32 and bf16, every mode at k in {0, 1}, and the
+    bf16-operand control in f32."""
+    import torch
+
+    from repro_torch.kernels.region import pallas_region
+
+    gq, gk, gv, noise = pallas_region(
+        "attention", **GEMMA_ATTENTION).args_for_rt("fp")
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t.to(dtype) for t in (gq, gk, gv))
+        _check_cases({f"flash_attention_h256 (gemma-2b widths, {dtype})":
+                      _attention_case(q, k, v, noise)}, (0, 1), failures,
+                     max_err, full=False)
+    _attention_control(gq, gk, gv, noise, "gemma-2b widths", failures)
+
+
 def phase_check(main: dict) -> dict:
     import numpy as np
     import torch
@@ -2024,15 +2117,25 @@ def phase_check(main: dict) -> dict:
     _check_cases(_cases(noise, noise, 64, vals, cols, x, a, b), all_ks,
                  failures, max_err, full=True)
     _matmul_control(a, b, noise, "n=512", failures)
+    h256_s = 0.0
     for i, (label, hd, dtype, seq, causal, window, static) in enumerate(
             ATTENTION_CASES):
+        t0 = time.perf_counter()
         q, k, v = _attention_inputs(dev, 2, 8, 2, seq, hd,
                                     getattr(torch, dtype), seed=i)
-        _check_cases({f"flash_attention ({label})": _attention_case(
+        kern = "flash_attention_h256" if hd == 256 else "flash_attention"
+        _check_cases({f"{kern} ({label})": _attention_case(
                          q, k, v, noise, causal=causal, window=window)},
                      all_ks, failures, max_err, full=static)
         if i == 0:
             _attention_control(q, k, v, noise, label, failures)
+        if hd == 256:
+            h256_s += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _check_gemma_attention(failures, max_err)
+    print(f"hd-256 attention checks: {h256_s:.1f} s at B=2 H=8 KH=2, "
+          f"{time.perf_counter() - t0:.1f} s at gemma-2b's widths",
+          flush=True)
     print(f"main path's shapes: probe {MAIN_PROBE_STEPS} steps, spmv "
           f"n={MAIN_SPMXV_N} L=16 q=0, matmul n={MAIN_MATMUL_N}, attention "
           f"{MAIN_ATTENTION}")
@@ -2278,21 +2381,52 @@ def _fleet_plan_run(tmp: str, name: str, targets: list, shards: int,
 
 def main_targets() -> list:
     """Phase 4's main fleet plan: the four kernels at the main path's
-    shapes (Qwen3-30B-A3B's attention widths at seq 4096)."""
+    shapes (Qwen3-30B-A3B's attention widths at seq 4096), and gemma-2b's
+    attention (hd 256, ``fa_kernel_h256``)."""
     from repro_torch.fleet.plan import TargetSpec
 
     fmv = ("fp", "mxu", "vmem")
+
+    def attention(widths):
+        return TargetSpec("pallas", fmv, {
+            "kernel": "attention", "sizes": [widths["seq"]],
+            **{k: v for k, v in widths.items() if k != "seq"}})
+
     return [
-        TargetSpec("pallas", fmv, {
-            "kernel": "attention", "sizes": [MAIN_ATTENTION["seq"]],
-            **{k: v for k, v in MAIN_ATTENTION.items() if k != "seq"}}),
+        attention(MAIN_ATTENTION),
         TargetSpec("pallas", fmv, {"kernel": "probe",
                                    "sizes": [MAIN_PROBE_STEPS]}),
         TargetSpec("pallas", ("fp", "vmem"), {
             "kernel": "spmxv", "sizes": [MAIN_SPMXV_N], "nnz_per_row": 16}),
         TargetSpec("pallas", fmv, {"kernel": "matmul",
                                    "sizes": [MAIN_MATMUL_N]}),
+        attention(GEMMA_ATTENTION),
     ]
+
+
+@contextlib.contextmanager
+def _sweep_seconds(out: dict):
+    """Add each (region, mode) sweep's wall seconds to ``out[region]``
+    while the block runs (``Campaign.sweep_mode``: the sweeps of a fleet
+    run in this process, its payload checks included; the audit gate's
+    census before them is not)."""
+    from repro_torch.core.campaign import Campaign
+
+    orig = Campaign.sweep_mode
+
+    def timed(self, target, mode):
+        t0 = time.perf_counter()
+        try:
+            return orig(self, target, mode)
+        finally:
+            out[target.name] = (out.get(target.name, 0.0)
+                                + time.perf_counter() - t0)
+
+    Campaign.sweep_mode = timed
+    try:
+        yield out
+    finally:
+        Campaign.sweep_mode = orig
 
 
 def _static_libs() -> set:
@@ -2345,15 +2479,21 @@ def phase_main(tmp: str, kernels: Kernels) -> dict:
 
     print(f"== 4a. the main fleet plan: Qwen3-30B-A3B attention "
           f"{MAIN_ATTENTION}, probe {MAIN_PROBE_STEPS} steps, spmxv "
-          f"n={MAIN_SPMXV_N} L=16 q=0, matmul n={MAIN_MATMUL_N}; one shard "
-          f"in the fleet's process, audited at the gate; card before (SM "
-          f"clock, power, "
+          f"n={MAIN_SPMXV_N} L=16 q=0, matmul n={MAIN_MATMUL_N}, gemma-2b "
+          f"attention {GEMMA_ATTENTION}; one shard in the fleet's process, "
+          f"audited at the gate; card before (SM clock, power, "
           f"temperature): {card_state()}", flush=True)
-    report = timed("main_plan", ("flash_attention", "noise_probes",
-                                 "spmv_ell", "noisy_matmul"),
-                   lambda: _fleet_plan_run(tmp, "main_plan", main_targets(),
-                                           1, kernels, "--in-process"))
-    print(f"  card after: {card_state()}", flush=True)
+    with _sweep_seconds({}) as sweeps:
+        report = timed("main_plan", ("flash_attention", "noise_probes",
+                                     "spmv_ell", "noisy_matmul",
+                                     "flash_attention_h256"),
+                       lambda: _fleet_plan_run(tmp, "main_plan",
+                                               main_targets(), 1, kernels,
+                                               "--in-process"))
+    print(f"  card after: {card_state()}; sweep seconds a region (its "
+          f"three or two modes, payload checks included): "
+          + json.dumps({k: round(v, 1) for k, v in sweeps.items()}),
+          flush=True)
     added = {}      # the in-process store and doctor calls' seconds
     _explain_check(os.path.join(tmp, "main_plan.plan.json"), report, added)
     for region, rep in report.items():
@@ -2485,11 +2625,52 @@ def _map_encode_us(a, n: int, iters: int = 10000) -> float:
     return us
 
 
-def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
+def _attention_row(name, q, k, v, noise) -> tuple:
+    """Phase 6's row of an attention kernel (causal, k = 0, fp) on q, k, v:
+    SDPA in f32 as the library call, and beside it SDPA with TF32 allowed
+    and in bf16, each timed here."""
     import torch
 
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_plain, flash_attention_rt)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_err = _max_err(sdpa(q, k, v, is_causal=True, enable_gqa=True),
+                       flash_attention_plain(q, k, v, noise)[0])
+    fa_bytes, fa_ops = _attention_work(q, k)
+
+    def tf32_sdpa():
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    qh, kh, vh = (t.bfloat16() for t in (q, k, v))
+
+    def bf16_sdpa():
+        return sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)
+
+    tf32_ms, tf32_dev = time_ms(tf32_sdpa), device_ms(tf32_sdpa)[0]
+    bf16_ms, bf16_dev = time_ms(bf16_sdpa), device_ms(bf16_sdpa)[0]
+    B, H, S, hd = q.shape
+    return (name, f"{name} (B={B} H={H} KH={k.shape[1]} S={S} hd={hd})",
+            lambda: flash_attention_rt(0, q, k, v, noise, mode="fp"),
+            lambda: flash_attention_plain(q, k, v, noise, mode="fp",
+                                          k_noise=0),
+            lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+            fa_bytes, fa_ops, TF32_FLOPS,
+            "scaled_dot_product_attention f32, is_causal, enable_gqa "
+            f"(max|d| vs plain {lib_err:.3g}); beside it the same call "
+            f"with TF32 allowed {tf32_ms!r} ms, {tf32_dev!r} ms on the "
+            f"device (the like-for-like yardstick: TF32 products, as "
+            f"the kernel's) and in bf16 {bf16_ms!r} ms, {bf16_dev!r} ms "
+            f"on the device")
+
+
+def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
+    import torch
+
     from repro_torch.kernels.noise_probes.kernel import probe_plain, probe_rt
     from repro_torch.kernels.noisy_matmul.kernel import matmul_plain, matmul_rt
     from repro_torch.kernels.region import pallas_region
@@ -2548,39 +2729,14 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
                                      n_steps=MAIN_PROBE_STEPS),
                  None, 4 * (128 * 128 + 1024), 0, FP32_FLOPS, None))
 
-    # flash_attention, Qwen3-30B-A3B widths, seq 4096, causal
-    q, k, v = main["q"], main["k"], main["v"]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_err = _max_err(sdpa(q, k, v, is_causal=True, enable_gqa=True),
-                       flash_attention_plain(q, k, v, noise)[0])
-    fa_bytes, fa_ops = _attention_work(q, k)
-
-    def tf32_sdpa():
-        torch.backends.cuda.matmul.allow_tf32 = True
-        try:
-            return sdpa(q, k, v, is_causal=True, enable_gqa=True)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = False
-
-    qh, kh, vh = (t.bfloat16() for t in (q, k, v))
-
-    def bf16_sdpa():
-        return sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)
-
-    tf32_ms, tf32_dev = time_ms(tf32_sdpa), device_ms(tf32_sdpa)[0]
-    bf16_ms, bf16_dev = time_ms(bf16_sdpa), device_ms(bf16_sdpa)[0]
-    rows.append(("flash_attention", "flash_attention",
-                 lambda: flash_attention_rt(0, q, k, v, noise, mode="fp"),
-                 lambda: flash_attention_plain(q, k, v, noise, mode="fp",
-                                               k_noise=0),
-                 lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
-                 fa_bytes, fa_ops, TF32_FLOPS,
-                 "scaled_dot_product_attention f32, is_causal, enable_gqa "
-                 f"(max|d| vs plain {lib_err:.3g}); beside it the same call "
-                 f"with TF32 allowed {tf32_ms!r} ms, {tf32_dev!r} ms on the "
-                 f"device (the like-for-like yardstick: TF32 products, as "
-                 f"the kernel's) and in bf16 {bf16_ms!r} ms, {bf16_dev!r} ms "
-                 f"on the device"))
+    # flash_attention, Qwen3-30B-A3B widths, seq 4096, causal; and its
+    # hd-256 kernel at gemma-2b's widths
+    rows.append(_attention_row("flash_attention", main["q"], main["k"],
+                               main["v"], noise))
+    t0 = time.perf_counter()
+    rows.append(_attention_row("flash_attention_h256", *pallas_region(
+        "attention", **GEMMA_ATTENTION).args_for_rt("fp")))
+    h256_s = time.perf_counter() - t0
 
     def all_rows():
         """The rows above, then the loop kernels' (built, and their slot
@@ -2598,6 +2754,7 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
     one_launch = []
     for (name, label, kern, plain, lib, nbytes, nops, peak,
          lib_what) in all_rows():
+        t0 = time.perf_counter()
         kernel_ms = time_ms(kern)
         kernel_host_ms = host_ms(kern)
         dev_ms, per_kernel, n_kernels, dev_whole = device_ms(kern)
@@ -2685,6 +2842,10 @@ def phase_timing(main: dict, max_err: dict, launches: dict) -> list:
                "bound_share": share, "vs_library": vs_lib,
                "kernels_per_call": n_kernels, **issue,
                **extra.get(name, {})}
+        if name == "flash_attention_h256":
+            print(f"  (the hd-256 row's inputs and SDPA yardsticks "
+                  f"{h256_s:.1f} s, its readings "
+                  f"{time.perf_counter() - t0:.1f} s)", flush=True)
         if name in out:     # spmv at q=1: beside the q=0 row
             out[name]["q1"] = {k: v for k, v in row.items()
                                if k not in ("name", "route", "source",

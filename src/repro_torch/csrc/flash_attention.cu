@@ -16,7 +16,8 @@
 // 1.375e11 operations, 0.278 ms at the 495 TFLOP/s TF32 dense peak (its
 // 32 x 2080 live 64 x 64 blocks also compute the masked half of each
 // diagonal block, 1.5% more). Its bytes (q + out 128 MiB, k + v 16 MiB)
-// take 0.045 ms at 3.35 TB/s.
+// take 0.045 ms at 3.35 TB/s. gemma-2b's (B=1, H=8, KH=1, S=4096, causal,
+// hd=256): 6.87e10 operations, 0.139 ms; 72 MiB, 0.022 ms.
 //
 // Design for hd 64 and 128 (f32 and bf16): wgmma fed by a TMA ring.
 // * One CTA per (bh, qi), 256 threads = two warpgroups, issued
@@ -47,10 +48,11 @@
 // * Blocks smaller than 64 (seq 8..63): spare Q rows are zero, spare S
 //   columns take no part in the max and get p = 0, spare K/V rows are zero,
 //   spare output rows are not stored.
-// hd 256 keeps the mma.sync kernel below (fa_kernel_mma): two K and two V
-// stages would take 256 KiB, over the 227 KiB a block may hold, and Q's A
-// fragments (128 registers a thread) beside the 64 x 256 output
-// accumulator (128 more) exceed the 255 registers a thread may have.
+// hd 256 takes fa_kernel_h256 below, the same design with hd split between
+// the warpgroups: two 64-row K and two V^T stages would take 256 KiB, over
+// the 227 KiB a block may hold, and Q's A fragments over all of hd (128
+// registers a thread) beside a 64 x 256 output accumulator (128 more)
+// exceed the 255 registers a thread may have.
 #include <cuda_bf16.h>
 
 #include <cmath>
@@ -59,7 +61,6 @@
 #include "noise_slots.cuh"
 
 #define FA_BLOCK 64       // the largest bq and bk the kernel takes
-#define FA_SS 68          // S/P row stride (floats): A-fragment reads conflict-free
 #define FA_NEG_INF -1e30f
 
 // 4 consecutive elements in and 2 out, for each element type
@@ -111,17 +112,25 @@ __host__ __device__ constexpr int fa_wgmma_bytes() {
 // One block per (kv head, kv block): kp = K rounded to TF32, 64 rows of hd
 // (rows >= bk zero); vt = V^T rounded to TF32, hd rows of 64 kv columns,
 // column 8j + e holding kv row 8j + 2e (e < 4) or 8j + 2(e-4) + 1 (e >= 4),
-// the order in which P's accumulator fragments hold the columns.
+// the order in which P's accumulator fragments hold the columns. At hd 256
+// two blocks share a (kv head, kv block), 128 columns each (blockIdx.y), so
+// V's tile stays within the 48 KiB of static shared memory; a launch of few
+// kv blocks (a short sequence) splits their rows in two too (gridDim.z), so
+// they spread over more SMs.
 template <typename T, int HD>
 __global__ void __launch_bounds__(REPRO_THREADS)
 fa_prep(const T* __restrict__ k, const T* __restrict__ v, float* __restrict__ kp,
         float* __restrict__ vt, int Sk, int bk, int nk) {
-  __shared__ float vs[FA_BLOCK][HD + 1];
+  constexpr int CW = HD > 128 ? 128 : HD;              // columns a block takes
+  const int RW = HD > 128 ? FA_BLOCK / gridDim.z : FA_BLOCK;   // rows a block takes
+  __shared__ float vs[FA_BLOCK][CW + 1];
   const int blk = blockIdx.x, kvh = blk / nk, ki = blk % nk;
-  const size_t src = ((size_t)kvh * Sk + (size_t)ki * bk) * HD;
-  float* kd = kp + (size_t)blk * FA_BLOCK * HD;
-  for (int i = threadIdx.x; i < FA_BLOCK * HD / 4; i += REPRO_THREADS) {
-    const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
+  const int c0 = HD > 128 ? blockIdx.y * CW : 0, r0 = HD > 128 ? blockIdx.z * RW : 0;
+  const size_t src = ((size_t)kvh * Sk + (size_t)ki * bk) * HD + c0;
+  float* kd = kp + (size_t)blk * FA_BLOCK * HD + c0;
+  float* vd = vt + (size_t)blk * HD * FA_BLOCK + (size_t)c0 * FA_BLOCK + r0;
+  for (int i = threadIdx.x; i < RW * CW / 4; i += REPRO_THREADS) {
+    const int r = r0 + i / (CW / 4), c = (i % (CW / 4)) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
     if (r < bk) {
       x = Elem<T>::load4(k + src + (size_t)r * HD + c);
@@ -129,13 +138,13 @@ fa_prep(const T* __restrict__ k, const T* __restrict__ v, float* __restrict__ kp
     }
     *reinterpret_cast<float4*>(kd + r * HD + c) =
         make_float4(tf32f(x.x), tf32f(x.y), tf32f(x.z), tf32f(x.w));
-    vs[r][c] = y.x; vs[r][c + 1] = y.y; vs[r][c + 2] = y.z; vs[r][c + 3] = y.w;
+    float* vr = vs[r - r0];
+    vr[c] = y.x; vr[c + 1] = y.y; vr[c + 2] = y.z; vr[c + 3] = y.w;
   }
   __syncthreads();
-  float* vd = vt + (size_t)blk * HD * FA_BLOCK;
-  for (int i = threadIdx.x; i < HD * FA_BLOCK; i += REPRO_THREADS) {
-    const int c = i / FA_BLOCK, pos = i % FA_BLOCK, e = pos & 7;
-    vd[i] = tf32f(vs[(pos & ~7) + (e < 4 ? 2 * e : 2 * e - 7)][c]);
+  for (int i = threadIdx.x; i < CW * RW; i += REPRO_THREADS) {
+    const int c = i / RW, pos = i % RW, e = pos & 7;
+    vd[c * FA_BLOCK + pos] = tf32f(vs[(pos & ~7) + (e < 4 ? 2 * e : 2 * e - 7)][c]);
   }
 }
 
@@ -415,75 +424,126 @@ static cudaError_t launch_fa_wgmma(const void* q, const void* k, const void* v,
 }
 
 // ===========================================================================
-// mma.sync design, kept for hd 256
+// wgmma design: hd 256
 // ===========================================================================
-// * 256 threads = 8 warps; running max and sum in shared memory, one float
-//   per row; the output accumulator in mma C fragments (warp w owns rows
-//   16*(w%4).. and half of the hd columns). S = Q K^T and O += P V run as
-//   mma.sync m16n8k8 TF32 from shared memory; softmax in IEEE f32 (expf),
-//   four threads per row through an S/P tile in shared memory.
-// * Shared memory: Q (scaled, f32) 64 x (hd+4), one K/V buffer 64 x (hd+8)
-//   that holds K for S and then V for P V, S/P 64 x 68, and for mxu/vmem
-//   the 128 x 132 noise operand: 215 KiB at hd=256. bf16 q/k/v are
-//   widened to f32 when they are staged.
+// * One CTA per (bh, qi) as above; the two warpgroups split hd. Warpgroup w
+//   holds Q[:, 128w .. 128w+127] as A fragments (64 registers a thread) and
+//   computes its half of every S = Q K^T (wgmma m64n32k8, a partial sum over
+//   its 128 hd columns); the halves are summed through a 16 KiB exchange in
+//   shared memory, so both warpgroups hold the same S, the same row maxima
+//   and sums, and compute O[:, 128w .. 128w+127] += P V[:, the same
+//   columns] (wgmma m64n128k8, P from registers): 64 accumulator registers,
+//   no partial output to sum at the end.
+// * The kv loop walks sub-blocks of 32 rows of each live 64-row block
+//   (FA_H_SUB): K and V^T stages of 32 KiB in a ring of FA_DEPTH each (64 KiB
+//   stages would leave room for one of each beside the noise operand).
+//   Sub-block j + 2's K and j + 1's V^T are loaded by TMA while sub-block j
+//   runs, each warpgroup's first warp loading the half its warpgroup reads,
+//   after issuing P V's products. Two block barriers a sub-block: after S
+//   (both halves done with the K stage, the previous P V with its V^T
+//   stage, the exchange read), and after the exchange is written.
+// * Sub-block j + 1's S products (a second 16-register S) are issued once
+//   j's row maxima are known and O is rescaled, before j's exponentials;
+//   then j's P V products. Issuing products with A in registers holds the
+//   warps for about the products' own time, so little of the softmax runs
+//   beside them. No product is in flight while O is rescaled (see
+//   fa_h256_s).
+// * The online softmax runs per sub-block (the reference's per-block maximum
+//   and sum, taken in two steps: equal up to rounding), on the accumulator
+//   fragments; the noise slot of a live block runs once, after the P V
+//   products of its last sub-block are issued.
+// * CTAs start heaviest first over the whole grid (every head's last q
+//   block, then the one before, ...), so the lightest start last; at
+//   gemma-2b's 8 heads x 64 q blocks, head by head left a tail of about a
+//   fifth of the run.
+// * Shared memory: 2 x 32 KiB of K (Q passes through them on its way to
+//   registers), 2 x 32 KiB of V^T, the exchange, the noise operand in mxu and
+//   vmem (211 KiB in all).
+#define FA_H_SUB 32                                  // kv rows of a sub-block
+#define FA_H_STAGE (FA_H_SUB * 256 * 4)              // one K or V^T stage: 32 KiB
+#define FA_H_SLICE (FA_H_SUB * HOP_ROW_BYTES)        // 32 kv rows x 32 floats of K
+#define FA_H_XCH (2 * 128 * 16 * 4)                  // each thread's 16 floats of S, twice
+// A static build's mxu and vmem slots unroll at most 12 patterns (the
+// static audit's K_HI): beside the 64 + 64 + 32 registers the loop keeps,
+// 64 unrolled vmem patterns spilled. Past 12 they loop over the static k,
+// passed at run time, and add as the unrolled patterns do.
+#define FA_H_SLOT_SK(SK) ((SK) > 12 ? -1 : (SK))
 
-template <int HD> __host__ __device__ constexpr int fa_qs() { return HD + 4; }   // Q row stride
-template <int HD> __host__ __device__ constexpr int fa_kvs() { return HD + 8; }  // K/V row stride
-
-template <int HD, int MODE>
-__host__ __device__ constexpr int fa_mma_bytes() {
-  return (FA_BLOCK * fa_qs<HD>() + FA_BLOCK * fa_kvs<HD>() + FA_BLOCK * FA_SS + 3 * FA_BLOCK +
-          ((MODE == MODE_MXU || MODE == MODE_VMEM) ? 128 * REPRO_NZ_STRIDE : 0)) *
-         (int)sizeof(float);
+// mirrored by kernels/flash_attention/kernel.py smem_bytes: FA_DEPTH K and
+// V^T stages, the noise operand (mxu, vmem), the exchange, the K and V
+// barriers, and slack to align to 1024
+template <int MODE>
+__host__ __device__ constexpr int fa_h256_bytes() {
+  return FA_H_STAGE * 2 * FA_DEPTH + (fa_staged_noise<MODE>() ? FA_NZ_BYTES : 0) + FA_H_XCH +
+         16 * FA_DEPTH + 1024;
 }
 
-// Copy `rows` rows of HD elements (row-major, contiguous) into a 64-row f32
-// tile with row stride `stride`, multiplied by `mul`; rows >= `rows` are zero.
-template <typename T, int HD>
-__device__ __forceinline__ void stage_tile(const T* __restrict__ src, int rows, float* dst,
-                                           int stride, float mul, int tid) {
-  constexpr int C4 = HD / 4;
-  for (int i = tid; i < FA_BLOCK * C4; i += REPRO_THREADS) {
-    const int r = i / C4, c4 = i % C4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows) {
-      x = Elem<T>::load4(src + (size_t)r * HD + c4 * 4);
-      x.x *= mul; x.y *= mul; x.z *= mul; x.w *= mul;
-    }
-    *reinterpret_cast<float4*>(dst + r * stride + c4 * 4) = x;
-  }
+// s = this warpgroup's half of S over K stage ks (its half of hd), once the
+// stage's barrier `full` completes phase `par`; committed, not waited. The
+// first product ignores s's old value (scale-d 0) in place of zeroing it:
+// an instruction that writes an accumulator while a product group is in
+// flight makes ptxas serialize every wgmma of the kernel (C7515).
+__device__ __forceinline__ void fa_h256_s(float (&s)[16], const uint32_t (&qa)[16][4],
+                                          const uint8_t* ks, uint64_t* full, uint32_t par) {
+  mbar_wait(full, par);
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < 16; ++kc)
+    wgmma_m64n32k8_rs(s, qa[kc], desc_sw128(ks + (kc >> 2) * FA_H_SLICE) + (kc & 3) * 2, kc > 0);
+  wgmma_commit();
 }
 
-template <typename T, int HD, int MODE, int SK>
-__global__ void __launch_bounds__(REPRO_THREADS)
-fa_kernel_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          const float* __restrict__ noise, T* __restrict__ out, float* __restrict__ partials,
-          int H, int KH, int Sq, int Sk, int bq, int bk, int causal, int window, float scale,
-          int kn) {
-  constexpr int QS = fa_qs<HD>(), KVS = fa_kvs<HD>();
-  constexpr int NT = HD / 16;  // 8-column output tiles per warp (half of hd)
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                       // 64 x QS, q * scale
-  float* KVs = Qs + FA_BLOCK * QS;        // 64 x KVS: K, then V
-  float* Ss = KVs + FA_BLOCK * KVS;       // 64 x FA_SS: S, then P
-  float* m_s = Ss + FA_BLOCK * FA_SS;     // running max per row
-  float* l_s = m_s + FA_BLOCK;            // running sum per row
-  float* c_s = l_s + FA_BLOCK;            // this block's correction per row
-  float* Ns = c_s + FA_BLOCK;             // mxu / vmem: 128 x REPRO_NZ_STRIDE
+template <typename T, int MODE, int SK>
+__global__ void __launch_bounds__(REPRO_THREADS, 1)
+fa_kernel_h256(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+               const T* __restrict__ q, const float* __restrict__ noise, T* __restrict__ out,
+               float* __restrict__ partials, int H, int KH, int Sq, int Sk, int bq, int bk,
+               int causal, int window, float scale, int kn) {
+  constexpr int HD = 256, D = FA_DEPTH;
+  static_assert(fa_h256_bytes<MODE>() <= REPRO_SMEM_MAX, "shared memory");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Ks = align_1024(smem_raw);              // D stages of K: 8 swizzled 32 x 32 slices
+  uint8_t* Qs = Ks;                                // Q, 8 swizzled 64 x 32 slices, until it is in registers
+  uint8_t* Vs = Ks + D * FA_H_STAGE;               // D stages of V^T: 256 rows of 32 kv columns
+  float* Ns = reinterpret_cast<float*>(Vs + D * FA_H_STAGE);   // mxu / vmem: noise operand
+  float4* xch = reinterpret_cast<float4*>(reinterpret_cast<uint8_t*>(Ns) +
+                                          (fa_staged_noise<MODE>() ? FA_NZ_BYTES : 0));
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(reinterpret_cast<uint8_t*>(xch) + FA_H_XCH);
+  uint64_t* vfull = kfull + D;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int mt = warp & 3, nh = warp >> 2;  // warp tile: rows 16*mt.., column half nh
-  const int nq = Sq / bq, nk = Sk / bk;
-  const int bh = blockIdx.x / nq;
-  const int qi = nq - 1 - blockIdx.x % nq;  // heaviest causal blocks first
+  const int wg = warp >> 2, wt = tid & 127, g = lane >> 2, t = lane & 3;
+  const int nq = Sq / bq, nk = Sk / bk, n_bh = gridDim.x / nq;
+  // heaviest causal blocks first over the whole grid (every head's qi =
+  // nq - 1, then nq - 2, ...): the last CTAs to start are the lightest
+  const int bh = blockIdx.x % n_bh;
+  const int qi = nq - 1 - blockIdx.x / n_bh;
   const int kvh = (bh / H) * KH + (bh % H) / (H / KH);
   const int q0 = qi * bq;
+  int hi = nk - 1, lo = 0;
+  if (causal) hi = min(hi, (q0 + bq - 1) / bk);
+  if (window)
+    while (lo <= hi && q0 - (lo * bk + bk - 1) >= window) ++lo;
+  const int nsub = bk > FA_H_SUB ? 2 : 1;   // a block of 32 rows or fewer is one sub-block
+  const int n_sub = (hi - lo + 1) * nsub;
 
-  stage_tile<T, HD>(q + ((size_t)bh * Sq + q0) * HD, bq, Qs, QS, scale, tid);
-  if (tid < FA_BLOCK) {
-    m_s[tid] = FA_NEG_INF;
-    l_s[tid] = 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < D; ++s) {   // each warpgroup loads its half of a stage
+      mbar_init(&kfull[s], 2);
+      mbar_init(&vfull[s], 2);
+    }
+    fence_barrier_init();
+  }
+  for (int i = tid; i < FA_BLOCK * HD / 4; i += REPRO_THREADS) {   // Q * scale, TF32
+    const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < bq) {
+      x = Elem<T>::load4(q + ((size_t)bh * Sq + q0 + r) * HD + c);
+      x = make_float4(tf32f(x.x * scale), tf32f(x.y * scale), tf32f(x.z * scale),
+                      tf32f(x.w * scale));
+    }
+    *reinterpret_cast<float4*>(reinterpret_cast<float*>(Qs + (c >> 5) * FA_SLICE_BYTES) +
+                               swz(r, c & 31)) = x;
   }
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   float fc[4];
@@ -491,153 +551,237 @@ fa_kernel_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 #pragma unroll
     for (int r = 0; r < 4; ++r) fc[r] = __ldg(noise + own_row(tid, r) * 128 + own_col(tid));
   }
-  if constexpr (MODE == MODE_MXU || MODE == MODE_VMEM) stage_noise(noise, Ns, tid);
+  if constexpr (fa_staged_noise<MODE>()) stage_noise(noise, Ns, tid);
+  __syncthreads();
 
-  float o[NT][4];
+  // this warpgroup's half of Q as A fragments: k-step kc is hd columns
+  // 128w + 8kc + t and + 4 of rows r0 = 16(warp % 4) + g and r1 = r0 + 8
+  const int r0 = (warp & 3) * 16 + g, r1 = r0 + 8;
+  uint32_t qa[16][4];
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
-
-  for (int ki = 0; ki < nk; ++ki) {
-    const int k0 = ki * bk;
-    if (causal && k0 > q0 + bq - 1) continue;             // entirely above the diagonal
-    if (window && q0 - (k0 + bk - 1) >= window) continue;  // entirely out of the window
-
-    __syncthreads();  // the previous block's P V is done with KVs and Ss
-    stage_tile<T, HD>(k + ((size_t)kvh * Sk + k0) * HD, bk, KVs, KVS, 1.f, tid);
-    __syncthreads();
-
-    // S = (q * scale) K^T: warp tile 16 x 32
-    float s[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll 4
-    for (int kc = 0; kc < HD; kc += 8) {
-      const float* ar = Qs + (mt * 16 + g) * QS + kc + t;
-      const uint32_t a0 = to_tf32(ar[0]), a1 = to_tf32(ar[8 * QS]);
-      const uint32_t a2 = to_tf32(ar[4]), a3 = to_tf32(ar[8 * QS + 4]);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const float* br = KVs + (nh * 32 + nt * 8 + g) * KVS + kc + t;
-        mma_tf32(s[nt], a0, a1, a2, a3, to_tf32(br[0]), to_tf32(br[4]));
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      float* sr = Ss + (mt * 16 + g) * FA_SS + nh * 32 + nt * 8 + 2 * t;
-      *reinterpret_cast<float2*>(sr) = make_float2(s[nt][0], s[nt][1]);
-      *reinterpret_cast<float2*>(sr + 8 * FA_SS) = make_float2(s[nt][2], s[nt][3]);
-    }
-    __syncthreads();
-
-    // online softmax: four threads per row, 16 columns each
-    {
-      const int r = tid >> 2, c0 = (tid & 3) * 16;
-      const int qpos = q0 + r;
-      float* sr = Ss + r * FA_SS + c0;
-      float x[16];
-      float mloc = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const int kpos = k0 + c0 + c;
-        x[c] = sr[c];
-        if (c0 + c < bk) {
-          const bool keep = (!causal || qpos >= kpos) && (!window || qpos - kpos < window);
-          x[c] = keep ? x[c] : FA_NEG_INF;
-          mloc = fmaxf(mloc, x[c]);
-        }
-      }
-      mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, 1));
-      mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, 2));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mloc);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const float p = (c0 + c < bk) ? expf(x[c] - m_new) : 0.f;
-        sr[c] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if ((tid & 3) == 0) {   // every lane of the row read m_prev before the shuffles
-        const float corr = expf(m_prev - m_new);
-        c_s[r] = corr;
-        l_s[r] = corr * l_s[r] + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();  // P and the corrections are in; K is no longer read
-    stage_tile<T, HD>(v + ((size_t)kvh * Sk + k0) * HD, bk, KVs, KVS, 1.f, tid);
-    __syncthreads();
-
-    // O = O * corr + P V: warp tile 16 x hd/2
-    {
-      const float cl = c_s[mt * 16 + g], ch = c_s[mt * 16 + g + 8];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        o[nt][0] *= cl; o[nt][1] *= cl;
-        o[nt][2] *= ch; o[nt][3] *= ch;
-      }
-      for (int kc = 0; kc < bk; kc += 8) {
-        const float* ar = Ss + (mt * 16 + g) * FA_SS + kc + t;
-        const uint32_t a0 = to_tf32(ar[0]), a1 = to_tf32(ar[8 * FA_SS]);
-        const uint32_t a2 = to_tf32(ar[4]), a3 = to_tf32(ar[8 * FA_SS + 4]);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const float* br = KVs + (kc + t) * KVS + nh * (HD / 2) + nt * 8 + g;
-          mma_tf32(o[nt], a0, a1, a2, a3, to_tf32(br[0]), to_tf32(br[4 * KVS]));
-        }
-      }
-    }
-
-    // noise slot of this live block
-    const int step = bh * 131 + qi * 17 + ki;
-    if constexpr (MODE == MODE_FP) fp_noise<SK>(acc, fc, kn);
-    else if constexpr (MODE == MODE_VMEM) vmem_noise<SK>(acc, Ns, REPRO_NZ_STRIDE, 128, 128, step, kn, tid);
-    else if constexpr (MODE == MODE_MXU) mxu_noise<SK>(acc, Ns, REPRO_NZ_STRIDE, kn, tid);
+  for (int kc = 0; kc < 16; ++kc) {
+    const uint32_t* qs =
+        reinterpret_cast<const uint32_t*>(Qs + (4 * wg + (kc >> 2)) * FA_SLICE_BYTES);
+    const int col = (kc & 3) * 8 + t;
+    qa[kc][0] = qs[swz(r0, col)];
+    qa[kc][1] = qs[swz(r1, col)];
+    qa[kc][2] = qs[swz(r0, col + 4)];
+    qa[kc][3] = qs[swz(r1, col + 4)];
   }
-  __syncthreads();  // l_s is final (also when no block was live)
+  fence_proxy_async();   // Q's slots in the K stages go back to TMA
+  __syncthreads();
 
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = mt * 16 + g + 8 * half;
-    if (row < bq) {
-      const float l = l_s[row];
-      const float safe = l == 0.f ? 1.f : l;
-      T* orow = out + ((size_t)bh * Sq + q0 + row) * HD + nh * (HD / 2) + 2 * t;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        Elem<T>::store2(orow + nt * 8, o[nt][2 * half] / safe, o[nt][2 * half + 1] / safe);
+  const CUtensorMap* mk = &tk;
+  const CUtensorMap* mv = &tv;
+  // The first warp of each warpgroup loads the half of a stage its
+  // warpgroup reads (K's hd slices 4w..4w+3, V^T's rows 128w..), its lanes
+  // issuing the copies at once: an issuing thread stalls until the SM's
+  // copy queue takes them (~600 clocks a sub-block for all nine from one
+  // thread), so they are issued where the warp would wait anyway.
+  const bool loader = (warp & 3) == 0;
+  auto load_k = [=](int j) {   // sub-block j into K stage j % D: lane c, slice 4w + c
+    const int s = j % D, c = 4 * wg + lane;
+    const int row = (kvh * nk + lo + j / nsub) * FA_BLOCK + (j % nsub) * FA_H_SUB;
+    if (lane == 0) mbar_expect_tx(&kfull[s], FA_H_STAGE / 2);
+    if (lane < 4) tma_load_2d(Ks + s * FA_H_STAGE + c * FA_H_SLICE, mk, &kfull[s], c * 32, row);
+  };
+  auto load_v = [=](int j) {   // and its V^T into V stage j % D: lane 4
+    const int s = j % D;
+    if (lane == 4) {
+      mbar_expect_tx(&vfull[s], FA_H_STAGE / 2);
+      tma_load_2d(Vs + s * FA_H_STAGE + wg * 128 * HOP_ROW_BYTES, mv, &vfull[s],
+                  (j % nsub) * FA_H_SUB, (kvh * nk + lo + j / nsub) * HD + 128 * wg);
     }
+  };
+  if (loader) {
+    for (int j = 0; j < D && j < n_sub; ++j) load_k(j);
+    for (int j = 0; j < D - 1 && j < n_sub; ++j) load_v(j);
+  }
+
+  float o[64];
+#pragma unroll
+  for (int j = 0; j < 64; ++j) o[j] = 0.f;
+  fence_regs(o);   // zeroed ahead of the first S products
+  const int qp0 = q0 + r0, qp1 = q0 + r1;
+  float m0 = FA_NEG_INF, m1 = FA_NEG_INF, l0 = 0.f, l1 = 0.f;
+  float4* xmine = xch + wg * 4 * 128 + wt;        // [warpgroup][4][128] float4
+  const float4* xother = xch + (1 - wg) * 4 * 128 + wt;
+  const uint8_t* kwg = Ks + 4 * wg * FA_H_SLICE;  // this warpgroup's half of a K stage
+
+  // this warpgroup's half of S = (q * scale) K^T over the 32 kv rows of a
+  // sub-block: sn holds the next sub-block's while this one's softmax runs
+  float sn[16];
+  if (n_sub > 0) fa_h256_s(sn, qa, kwg, &kfull[0], 0);
+  for (int j = 0; j < n_sub; ++j) {
+    const int ki = lo + j / nsub, h = j % nsub, s = j % D;
+    wgmma_wait<0>();   // this sub-block's S and the previous one's P V
+    fence_regs(sn);
+    fence_regs(o);
+    float sc[16];
+#pragma unroll
+    for (int x = 0; x < 16; ++x) sc[x] = sn[x];
+    __syncthreads();   // K stage s, V stage (j+1) % D and the exchange are free
+
+    // S = S_0 + S_1: the same sum, bitwise, in both warpgroups
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      xmine[x * 128] = make_float4(sc[4 * x], sc[4 * x + 1], sc[4 * x + 2], sc[4 * x + 3]);
+    __syncthreads();
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const float4 y = xother[x * 128];
+      sc[4 * x] += y.x;
+      sc[4 * x + 1] += y.y;
+      sc[4 * x + 2] += y.z;
+      sc[4 * x + 3] += y.w;
+    }
+
+    // mask (only a sub-block on the diagonal, at the window's edge or with
+    // spare columns has one: the same for every thread); row maxima over
+    // the sub-block's columns
+    const int kb = ki * bk + h * FA_H_SUB;
+    const bool edge = h * FA_H_SUB + FA_H_SUB > bk || (causal && kb + FA_H_SUB - 1 > q0) ||
+                      (window && q0 + bq - 1 - kb >= window);
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = h * FA_H_SUB + x * 8 + 2 * t + e, kpos = ki * bk + col;
+        if (edge) {
+          const bool keep0 = (!causal || qp0 >= kpos) && (!window || qp0 - kpos < window);
+          const bool keep1 = (!causal || qp1 >= kpos) && (!window || qp1 - kpos < window);
+          sc[4 * x + e] = keep0 ? sc[4 * x + e] : FA_NEG_INF;
+          sc[4 * x + 2 + e] = keep1 ? sc[4 * x + 2 + e] : FA_NEG_INF;
+        }
+        if (!edge || col < bk) {
+          mx0 = fmaxf(mx0, sc[4 * x + e]);
+          mx1 = fmaxf(mx1, sc[4 * x + 2 + e]);
+        }
+      }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+
+    // the corrections; O rescaled while no product is in flight, then the
+    // next sub-block's S products issued to run beside P = exp(S - m)
+    const float cr0 = expf(m0 - mn0), cr1 = expf(m1 - mn1);
+    if (__any_sync(0xffffffffu, cr0 != 1.f || cr1 != 1.f)) {   // x 1 is exact: skipped
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        o[4 * x] *= cr0; o[4 * x + 1] *= cr0;
+        o[4 * x + 2] *= cr1; o[4 * x + 3] *= cr1;
+      }
+    }
+    fence_regs(o);   // the rescale stays ahead of the next S products
+    if (j + 1 < n_sub)
+      fa_h256_s(sn, qa, kwg + ((j + 1) % D) * FA_H_STAGE, &kfull[(j + 1) % D], ((j + 1) / D) & 1);
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool valid = !edge || h * FA_H_SUB + x * 8 + 2 * t + e < bk;
+        const float p0 = valid ? expf(sc[4 * x + e] - mn0) : 0.f;
+        const float p1 = valid ? expf(sc[4 * x + 2 + e] - mn1) : 0.f;
+        sc[4 * x + e] = p0;
+        sc[4 * x + 2 + e] = p1;
+        sum0 += p0;
+        sum1 += p1;
+      }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      sum0 += __shfl_xor_sync(0xffffffffu, sum0, x);
+      sum1 += __shfl_xor_sync(0xffffffffu, sum1, x);
+    }
+    l0 = cr0 * l0 + sum0;
+    l1 = cr1 * l1 + sum1;
+    m0 = mn0;
+    m1 = mn1;
+
+    // O[:, this half] += P V[:, this half]: P's fragment columns t and t+4
+    // are S columns 2t, 2t+1
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      pa[x][0] = to_tf32(sc[4 * x]);
+      pa[x][1] = to_tf32(sc[4 * x + 2]);
+      pa[x][2] = to_tf32(sc[4 * x + 1]);
+      pa[x][3] = to_tf32(sc[4 * x + 3]);
+    }
+    mbar_wait(&vfull[s], (j / D) & 1);
+    wgmma_fence();
+    const uint64_t dv = desc_sw128(Vs + s * FA_H_STAGE + wg * 128 * HOP_ROW_BYTES);
+#pragma unroll
+    for (int x = 0; x < 4; ++x) wgmma_m64n128k8_rs(o, pa[x], dv + 2 * x, 1);
+    wgmma_commit();
+    // the stages the first barrier freed, refilled while P V runs
+    if (loader) {
+      if (j + D < n_sub) load_k(j + D);
+      if (j + D - 1 < n_sub) load_v(j + D - 1);
+    }
+
+    // noise slot of the live block, once, overlapping its last P V products
+    if (h == nsub - 1) {
+      const int step = bh * 131 + qi * 17 + ki;
+      if constexpr (MODE == MODE_FP) fp_noise<SK>(acc, fc, kn);
+      else if constexpr (MODE == MODE_VMEM) vmem_noise<FA_H_SLOT_SK(SK)>(acc, Ns, REPRO_NZ_STRIDE, 128, 128, step, kn, tid);
+      else if constexpr (MODE == MODE_MXU) mxu_noise_lean<FA_H_SLOT_SK(SK)>(acc, Ns, REPRO_NZ_STRIDE, kn, tid);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(o);
+
+  // out[:, this half] = O / l (both warpgroups hold the same l)
+  const float sf0 = l0 == 0.f ? 1.f : l0, sf1 = l1 == 0.f ? 1.f : l1;
+  T* orow = out + ((size_t)bh * Sq + q0) * HD + wg * 128;
+#pragma unroll
+  for (int x = 0; x < 16; ++x) {
+    const int col = x * 8 + 2 * t;
+    if (r0 < bq) Elem<T>::store2(orow + (size_t)r0 * HD + col, o[4 * x] / sf0, o[4 * x + 1] / sf0);
+    if (r1 < bq)
+      Elem<T>::store2(orow + (size_t)r1 * HD + col, o[4 * x + 2] / sf1, o[4 * x + 3] / sf1);
   }
   write_partial<MODE>(partials + ((size_t)bh * nq + qi) * REPRO_NACC, acc, tid);
 }
 
-template <typename T, int HD, int MODE, int SK>
-static cudaError_t launch_fa_mma(const void* q, const void* k, const void* v,
-                                 const float* noise, void* out, float* partials, float* scratch,
-                                 float* nacc, int B, int H, int KH, int Sq, int Sk, int bq, int bk,
-                                 int causal, int window, int smem, int kn, cudaStream_t st) {
-  if (smem != fa_mma_bytes<HD, MODE>()) return cudaErrorInvalidValue;
-  cudaError_t e = allow_smem(fa_kernel_mma<T, HD, MODE, SK>, smem);
+// kp, vt: f32 scratch of B*KH*(Sk/bk)*64*256 floats each
+template <typename T, int MODE, int SK>
+static cudaError_t launch_fa_h256(const void* q, const void* k, const void* v,
+                                  const float* noise, void* out, float* kp, float* vt,
+                                  float* partials, float* scratch, float* nacc, int B, int H,
+                                  int KH, int Sq, int Sk, int bq, int bk, int causal, int window,
+                                  int smem, int kn, cudaStream_t st) {
+  constexpr int HD = 256;
+  if (smem != fa_h256_bytes<MODE>()) return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(fa_kernel_h256<T, MODE, SK>, smem);
   if (e != cudaSuccess) return e;
+  const int nk = Sk / bk, blocks = B * KH * nk;
+  CUtensorMap tk, tv;
+  if ((e = make_map_f32(&tk, kp, HD, blocks * FA_BLOCK, FA_H_SUB)) != cudaSuccess) return e;
+  if ((e = make_map_f32(&tv, vt, FA_BLOCK, blocks * HD, HD / 2)) != cudaSuccess) return e;
+  // a prep of 16 kv blocks or fewer (seq 24 at B = 2, KH = 2: 4) takes their
+  // rows in halves as well: one block a kv block took 0.006 ms there, and
+  // halving the rows of gemma-2b's 64 slowed the attention kernel after it
+  // by 4% (H100)
+  fa_prep<T, HD><<<dim3(blocks, HD / 128, blocks <= 16 ? 2 : 1), REPRO_THREADS, 0, st>>>(
+      (const T*)k, (const T*)v, kp, vt, Sk, bk, nk);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
   // the reference's scale: 1.0 / math.sqrt(hd) in double, used as an f32
   const float scale = (float)(1.0 / std::sqrt((double)HD));
   const int n_cta = B * H * (Sq / bq);
-  fa_kernel_mma<T, HD, MODE, SK><<<n_cta, REPRO_THREADS, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, noise, (T*)out, partials, H, KH, Sq, Sk, bq, bk,
-      causal, window, scale, kn);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  fa_kernel_h256<T, MODE, SK><<<n_cta, REPRO_THREADS, smem, st>>>(
+      tk, tv, (const T*)q, noise, (T*)out, partials, H, KH, Sq, Sk, bq, bk, causal, window, scale,
+      kn);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
   return reduce_partials(partials, n_cta, scratch, nacc, st);
 }
 
-// dtype: 0 = float32, 1 = bfloat16; hd 64 and 128 take the wgmma kernel,
-// hd 256 the mma.sync one
+// dtype: 0 = float32, 1 = bfloat16; hd 64 and 128 take fa_kernel_wgmma,
+// hd 256 fa_kernel_h256
 template <int MODE, int SK>
 static cudaError_t dispatch_fa(const void* q, const void* k, const void* v, const float* noise,
                                void* out, float* kp, float* vt, float* partials, float* scratch,
@@ -646,8 +790,8 @@ static cudaError_t dispatch_fa(const void* q, const void* k, const void* v, cons
                                cudaStream_t st) {
 #define FA_CASE(TYPE, HDV)                                                                       \
   if constexpr (HDV == 256)                                                                      \
-    return launch_fa_mma<TYPE, HDV, MODE, SK>(q, k, v, noise, out, partials, scratch, nacc, B, H, \
-                                              KH, Sq, Sk, bq, bk, causal, window, smem, kn, st); \
+    return launch_fa_h256<TYPE, MODE, SK>(q, k, v, noise, out, kp, vt, partials, scratch, nacc, B, \
+                                          H, KH, Sq, Sk, bq, bk, causal, window, smem, kn, st);   \
   else                                                                                           \
     return launch_fa_wgmma<TYPE, HDV, MODE, SK>(q, k, v, noise, out, kp, vt, partials, scratch,   \
                                                 nacc, B, H, KH, Sq, Sk, bq, bk, causal, window,  \
@@ -674,7 +818,7 @@ static cudaError_t dispatch_fa(const void* q, const void* k, const void* v, cons
 #undef FA_CASE
 }
 
-// kp, vt: scratch for the wgmma kernel's K and V^T (unused at hd 256);
+// kp, vt: scratch for the kernels' K and V^T;
 // smem: the wrapper's mirror of the kernel's shared memory (refused if it
 // disagrees)
 #ifdef REPRO_STATIC_K

@@ -267,8 +267,9 @@ __device__ __forceinline__ void mxu_noise(float (&acc)[4], const float* nz, int 
 // wgmma matmul and attention): the same loads and products in the same
 // order per 8-column tile, with the K loop unrolled by two only, so at most
 // two k-steps' operands are in flight and nothing spills. mxu_noise stays
-// where it fits: in the same kernel on the H100 this slot costs 7% (probe)
-// to 22% (hd-256 attention) more a pattern (src/repro_torch/launch/slot_cost.py).
+// where it fits (the probe): in the same kernel on the H100 this slot cost
+// 7% (probe) to 22% (hd-256 attention's first, mma.sync, kernel) more a
+// pattern (src/repro_torch/launch/slot_cost.py).
 template <int SK>
 __device__ __forceinline__ void mxu_noise_lean(float (&acc)[4], const float* nz, int stride, int k,
                                                int tid) {

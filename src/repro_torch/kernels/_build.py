@@ -243,7 +243,8 @@ def static_lib_path(kernel: str, mode_id: int, k: int,
 def static_build(kernel: str, mode_id: int, k: int, defines: tuple = (), *,
                  sabotage: Optional[bool] = None) -> str:
     """Build (if it is not there) the static-k library of one (kernel, mode,
-    k[, variant]) without loading it; returns its path."""
+    k[, variant]) without loading it; returns its path. Its ``-Xptxas -v``
+    output is kept beside it (``static_ptxas_usage``)."""
     if kernel not in KERNEL_SOURCES:
         raise ValueError(f"unknown kernel source {kernel!r}")
     path = static_lib_path(kernel, mode_id, k, defines, sabotage=sabotage)
@@ -251,13 +252,25 @@ def static_build(kernel: str, mode_id: int, k: int, defines: tuple = (), *,
         if not os.path.exists(path):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
-            _run([[nvcc_path(), *NVCC_FLAGS, "-shared",
-                   f"-DREPRO_STATIC_MODE={mode_id}", f"-DREPRO_STATIC_K={k}",
-                   *(f"-D{name}={value}"
-                     for name, value in _with_sabotage(defines, sabotage)),
-                   "-o", tmp, os.path.join(CSRC, f"{kernel}.cu")]])
+            nvcc = nvcc_path()
+            (out,) = _run([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-shared",
+                            f"-DREPRO_STATIC_MODE={mode_id}",
+                            f"-DREPRO_STATIC_K={k}",
+                            *(f"-D{name}={value}" for name, value
+                              in _with_sabotage(defines, sabotage)),
+                            "-o", tmp, os.path.join(CSRC, f"{kernel}.cu")]])
+            with open(f"{tmp}.ptxas", "w") as f:
+                json.dump(_parse_ptxas(out, nvcc), f)
+            os.replace(f"{tmp}.ptxas", _usage_path(path))
             os.replace(tmp, path)   # atomic: no reader sees a partial file
     return path
+
+
+def static_ptxas_usage(path: str) -> dict:
+    """{kernel entry: [registers, spill store bytes, spill load bytes]} of
+    the static-k library at ``path`` (``static_build``'s ``-Xptxas -v``)."""
+    with open(_usage_path(path)) as f:
+        return json.load(f)
 
 
 def static_lib(kernel: str, mode_id: int, k: int,

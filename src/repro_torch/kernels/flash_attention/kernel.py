@@ -12,12 +12,14 @@ window) compute, and each live block adds k noise patterns at
 return ``(out, nacc)``. For tensors on the CPU they take the plain version
 ``flash_attention_plain``; for CUDA tensors they launch
 ``csrc/flash_attention.cu`` (f32 or bf16, hd in ``HEAD_DIMS``, blocks of at
-most 64, TF32 tensor cores: wgmma fed by a TMA ring at hd 64 and 128,
-mma.sync at hd 256) or raise.
+most 64, TF32 tensor cores: wgmma fed by a TMA ring, ``fa_kernel_wgmma`` at
+hd 64 and 128, ``fa_kernel_h256`` with hd split between its two warpgroups
+at hd 256) or raise.
 """
 from __future__ import annotations
 
 import math
+import types
 
 import torch
 
@@ -27,31 +29,39 @@ from repro_torch.kernels.noisy_matmul.ref import default_noise_operand
 
 TILE = 64                       # the CUDA kernel's largest bq and bk
 HEAD_DIMS = (64, 128, 256)      # the head dims the CUDA kernel is built for
-WGMMA_HEAD_DIMS = (64, 128)     # ... by its wgmma design; hd 256 by mma.sync
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 NEG_INF = -1e30
 
 # csrc/flash_attention.cu's shared-memory layouts, mirrored (f32 in shared
 # memory whatever the input type, so the dtype does not enter).
 NZ_BYTES = 128 * 132 * 4     # the staged noise operand (mxu, vmem)
-KV_DEPTH = 2                 # K and V^T stages in the wgmma kernel's ring
+KV_DEPTH = 2                 # K and V^T stages in the kernels' rings
+H256_SUB = 32                # kv rows of an hd-256 K or V^T stage
+H256_XCH = 2 * 128 * 16 * 4  # hd 256: the S exchange, 16 floats a thread
+
+
+def kernel_name(hd: int) -> str:
+    """The CUDA kernel that computes attention at head dim ``hd``."""
+    return "fa_kernel_h256" if hd == 256 else "fa_kernel_wgmma"
 
 
 def smem_bytes(hd: int, mode: str) -> int:
     """Dynamic shared memory the CUDA kernel takes at head dim ``hd`` in
     ``mode``; the launch passes it and the kernel refuses a value other
-    than its own. hd 64 and 128 (wgmma): ``KV_DEPTH`` K and V^T stages of
-    64 x hd f32 (Q passes through the first K stage on its way to
-    registers), the noise operand in mxu and vmem, the row-max exchange
-    (2 x 2 x 64 f32), a K and a V mbarrier per stage, and slack to align
-    the tiles to 1024. hd 256 (mma.sync): Q (hd+4), one K/V buffer (hd+8)
-    and S/P (68) row strides over 64 rows, m, l and the correction, the
-    noise operand in mxu and vmem."""
+    than its own. hd 64 and 128 (``fa_kernel_wgmma``): ``KV_DEPTH`` K and
+    V^T stages of 64 x hd f32 (Q passes through the first K stage on its
+    way to registers), the noise operand in mxu and vmem, the row-max
+    exchange (2 x 2 x 64 f32), a K and a V mbarrier per stage, and slack to
+    align the tiles to 1024. hd 256 (``fa_kernel_h256``): ``KV_DEPTH`` K
+    and V^T stages of ``H256_SUB`` x 256 f32 (Q passes through the K
+    stages), the noise operand in mxu and vmem, the S exchange, the
+    mbarriers and the slack."""
     noise = NZ_BYTES if mode in ("mxu", "vmem") else 0
-    if hd in WGMMA_HEAD_DIMS:
-        return (TILE * hd * 4 * 2 * KV_DEPTH + noise + 1024 + 16 * KV_DEPTH
-                + 1024)
-    return 4 * (TILE * (hd + 4) + TILE * (hd + 8) + TILE * 68 + 3 * TILE) + noise
+    if hd == 256:
+        return (H256_SUB * hd * 4 * 2 * KV_DEPTH + noise + H256_XCH
+                + 16 * KV_DEPTH + 1024)
+    return (TILE * hd * 4 * 2 * KV_DEPTH + noise + 1024 + 16 * KV_DEPTH
+            + 1024)
 
 
 def _shapes(q, k, v, bq, bk):
@@ -186,8 +196,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"noise must be a float32 {ns.NOISE_REF_SHAPE}")
     q, k, v, noise = (t.contiguous() for t in (q, k, v, noise))
     out = torch.empty_like(q)
-    # the wgmma kernel's K and V^T, rounded to TF32, per 64-row kv block
-    n_kv = B * KH * (Sk // bk) * TILE * hd if hd in WGMMA_HEAD_DIMS else 0
+    # the kernels' K and V^T, rounded to TF32, per 64-row kv block
+    n_kv = B * KH * (Sk // bk) * TILE * hd
     kp = torch.empty(n_kv, dtype=torch.float32, device=q.device)
     vt = torch.empty(n_kv, dtype=torch.float32, device=q.device)
     stream = _build.stream_handle(q.device.index)
@@ -202,10 +212,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   defines=(("REPRO_STATIC_HD", hd),
                            ("REPRO_STATIC_BF16", dtype_id)), stream=stream)
     flash_attention_cuda.launches += 1
+    if hd == 256:
+        h256_launches.launches += 1
     return out, nacc
 
 
 flash_attention_cuda.launches = 0
+# the calls of flash_attention_cuda at hd 256, each of which launches
+# fa_kernel_h256 (the wrapper's own ``launches`` counts every call)
+h256_launches = types.SimpleNamespace(launches=0)
 
 
 def _check_mode(mode: str) -> None:

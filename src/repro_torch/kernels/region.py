@@ -42,9 +42,9 @@ from repro_torch.core.controller import RegionTarget
 from repro_torch.core.payload import InjectionReport
 from repro_torch.kernels import noise_slots as ns
 from repro_torch.kernels._build import SassSite
-from repro_torch.kernels.flash_attention.kernel import (WGMMA_HEAD_DIMS,
-                                                        flash_attention,
+from repro_torch.kernels.flash_attention.kernel import (flash_attention,
                                                         flash_attention_rt,
+                                                        kernel_name,
                                                         live_blocks)
 from repro_torch.kernels.noise_probes.kernel import probe, probe_rt
 from repro_torch.kernels.noise_probes.ref import probe_ref
@@ -259,10 +259,8 @@ def _attention_spec(device, *, batch: int = 1, heads: int = 2,
                        grid_steps, body_size=12,
                        steps_per_cta=int(live.max()),
                        n_cta=batch * heads * nq, source="flash_attention",
-                       kernels=(("fa_kernel_wgmma" if head_dim in
-                                 WGMMA_HEAD_DIMS else "fa_kernel_mma", ""),),
-                       aux=((("fa_prep", ""),) if head_dim in WGMMA_HEAD_DIMS
-                            else ()) + (("nacc_reduce", ""),),
+                       kernels=((kernel_name(head_dim), ""),),
+                       aux=(("fa_prep", ""), ("nacc_reduce", "")),
                        defines=(("REPRO_STATIC_HD", head_dim),
                                 ("REPRO_STATIC_BF16", 0)))
 
@@ -302,7 +300,9 @@ def launch_counts() -> dict[str, list[int]]:
     plain-version calls]}, read from the wrappers' counters (a fleet worker
     reports them in its stats file). The loop regions' kernels (all in
     ``csrc/loop_regions.cu``) count one by one, under their region names;
-    the DECAN loops and the graph-noise modes under their kernel names."""
+    the DECAN loops and the graph-noise modes under their kernel names;
+    attention's hd-256 kernel (``fa_kernel_h256``) apart as well, beside
+    the wrapper's every call."""
     from repro_torch.kernels.decan_loops.kernel import DECAN_KERNELS
     from repro_torch.kernels.flash_attention import kernel as fa_k
     from repro_torch.kernels.graph_noise.kernel import GRAPH_KERNELS
@@ -320,6 +320,8 @@ def launch_counts() -> dict[str, list[int]]:
                          matmul_k.matmul_plain.launches],
         "flash_attention": [fa_k.flash_attention_cuda.launches,
                             fa_k.flash_attention_plain.launches],
+        "flash_attention_h256": [fa_k.h256_launches.launches,
+                                 fa_k.flash_attention_plain.launches],
         **{name: [cuda.launches, plain.launches]
            for name, (cuda, plain) in (*REGION_KERNELS.items(),
                                        *DECAN_KERNELS.items(),

@@ -79,6 +79,34 @@ def test_sources_carry_the_constants_the_mirrors_use():
     assert "partials + ((size_t)bh * nq + qi) * REPRO_NACC" in attention
 
 
+def _source_ints(text, *names):
+    return [int(re.search(rf"#define {n} (\d+)\b", text).group(1))
+            for n in names]
+
+
+@pytest.mark.parametrize("mode", ns.MODES)
+def test_hd256_mirror_is_the_source_layout(mode):
+    """``smem_bytes(256, mode)`` rebuilt from ``fa_kernel_h256``'s own
+    constants: ``FA_DEPTH`` K and V^T stages of ``FA_H_SUB`` x 256 f32, the
+    noise operand (128 x ``REPRO_NZ_STRIDE`` f32) in mxu and vmem, the S
+    exchange (16 floats of each of 256 threads), two mbarriers a stage and
+    the 1024-byte alignment slack; inside the budget in every mode."""
+    with open(os.path.join(CSRC, "flash_attention.cu")) as f:
+        attention = " ".join(f.read().split())
+    with open(os.path.join(CSRC, "noise_slots.cuh")) as f:
+        (stride,) = _source_ints(f.read(), "REPRO_NZ_STRIDE")
+    sub, depth = _source_ints(attention, "FA_H_SUB", "FA_DEPTH")
+    assert "#define FA_H_STAGE (FA_H_SUB * 256 * 4)" in attention
+    assert "#define FA_H_XCH (2 * 128 * 16 * 4)" in attention
+    assert ("FA_H_STAGE * 2 * FA_DEPTH + (fa_staged_noise<MODE>() ? "
+            "FA_NZ_BYTES : 0) + FA_H_XCH + 16 * FA_DEPTH + 1024") in attention
+    staged = mode in ("mxu", "vmem")
+    want = (sub * 256 * 4 * 2 * depth + (128 * stride * 4 if staged else 0)
+            + 2 * 128 * 16 * 4 + 16 * depth + 1024)
+    assert fa.smem_bytes(256, mode) == want
+    assert want == (216096 if staged else 148512) <= LIMIT
+
+
 def _orders_differ(parts, order, want):
     """``want`` is the in-order reduction; the same partials reduced in
     ``order`` must give other bits, or the test could not tell."""
