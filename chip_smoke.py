@@ -4789,7 +4789,9 @@ MESH_JOIN_TIMEOUT_S = 600
 # gemma-2b and qwen3-moe-30b-a3b at full width, depth cut to 2 layers (the
 # phase's budget; gemma-2b's 18 train in phase 10), bf16 with f32 masters,
 # TrainConfig's defaults with warmup 1 (lr 3e-4 at the first update), one
-# step of 4 x 512 tokens (the lcg pipeline's step 0)
+# step of 4 x 512 tokens (the lcg pipeline's step 0); gemma-2b on (W, 1)
+# and, at W = 4, on (2, 2) and (1, 4), where its heads, ff and vocabulary
+# split over model (tensor parallelism)
 MESH_TRAIN = {"arch": "gemma_2b", "moe_arch": "qwen3_moe_30b_a3b",
               "layers": 2, "batch": 4, "seq": 512}
 # W > 1 against the one-rank step on the same global batch: the gradients
@@ -4959,7 +4961,9 @@ def _state_bytes_local(state) -> int:
 
 def _mesh_train(rank: int, world: int, dev) -> dict:
     """(a) gemma-2b's mesh step, plain and int8, on (W, 1) and, at W = 4,
-    (2, 2); (b) qwen3-moe-30b-a3b's plain step on (W, 1)."""
+    (2, 2) and (1, 4) (its attention, MLP and vocabulary split over
+    ``model``: tensor parallelism); (b) qwen3-moe-30b-a3b's plain step on
+    (W, 1)."""
     import torch
 
     from repro_torch.configs import (MeshConfig, ShapeConfig, TrainConfig,
@@ -4971,7 +4975,7 @@ def _mesh_train(rank: int, world: int, dev) -> dict:
 
     c = MESH_TRAIN
     tcfg = TrainConfig(warmup_steps=1)
-    shapes = [(world, 1)] + ([(2, 2)] if world == 4 else [])
+    shapes = [(world, 1)] + ([(2, 2), (1, 4)] if world == 4 else [])
     out = {}
     for arch, cases in ((c["arch"], [(s, comp) for s in shapes
                                      for comp in (None, "int8")]),

@@ -8,9 +8,15 @@ cache for decode) without allocating anything.
 PyTorch port of the reference's ``repro.launch.steps``. The reference
 builds abstract values (``jax.eval_shape``, ``ShapeDtypeStruct``) and
 hands GSPMD the global program with ``NamedSharding``s; the port has no
-GSPMD, so its programs are explicit per-rank ones (ZeRO-3: the state and
-cache are held as this rank's shards, the weights gathered at use;
-``train/trainer.py``, ``serve/mesh.py``). ``args`` hold tensors: meta
+GSPMD, so its programs are explicit per-rank ones (``train/trainer.py``,
+``serve/mesh.py``): the state and cache are held as this rank's shards
+and the weights gathered at use, ZeRO-3 style; for the transformer
+family the leaves that the rules split over ``model`` (heads, ``ff``,
+vocabulary, as far as they divide) are gathered over the other axes only
+and each rank computes its own part of those layers (tensor
+parallelism), as GSPMD splits the reference's program; the MoE's experts
+and the ssm, hybrid and encdec families compute replicated over
+``model``. ``args`` hold tensors: meta
 tensors for the dry-run (``device="meta"``), or real ones on the card
 (``chip_smoke.py`` runs the same ``fn`` there on a one-rank group).
 ``in_shardings`` hold the ``P`` trees that ``resolve_tree`` gives, as the

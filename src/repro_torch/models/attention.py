@@ -29,6 +29,20 @@ Whisper's cross-attention (``cross_kv``, ``attn_cross``) attends over K/V
 precomputed from the encoder's output: no rope on q or on the cross K, no
 mask, f32 softmax.
 
+Tensor parallelism over ``model`` (the reference's rules: ``heads`` and
+``kv_heads`` to ``model``, as far as they divide): when ``wq`` holds this
+rank's shard of the heads (fewer than ``n_heads``; the mesh step and the
+mesh serving gather such a leaf over the other axes only), the rank
+computes its own query heads. ``wk`` and ``wv`` hold its KV heads where
+``n_kv_heads`` divides, else every KV head, and each local query head
+reads its global KV head (``_repeat_kv``); a whole ``wk`` and ``wv`` then
+take the sum of the ranks' gradients (``copy_to_model``). The input
+enters through ``copy_to_model`` and ``wo`` runs row-parallel, its
+partial sums added over ``model`` in f32 (``row_parallel``). A decode
+cache handed whole over the KV heads (``serve/mesh.py`` gathers it at
+use) is read and written at the rank's own KV heads. With whole weights
+none of this runs.
+
 ``attn_impl="flash"`` selects the reference's XLA-level flash attention on
 the train / prefill path: an online softmax over (q_block, kv_block) tiles
 with static triangular and window pruning, and a hand-written backward
@@ -47,6 +61,7 @@ from torch import nn
 
 from repro_torch.models.layers import (_normal, apply_rope, cdtype_of,
                                        dtype_of, param, rope_angles)
+from repro_torch.parallel import sharding as sh
 
 NEG_INF = -1e30
 
@@ -83,24 +98,49 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _project_qkv(p: Attention, cfg, x, positions):
-    """x (B,S,D) -> q (B,H,S,hd) roped, k/v (B,Kh,S,hd) roped."""
+    """x (B,S,D) -> q (B,H,S,hd) roped, k/v (B,Kh,S,hd) roped; H and Kh
+    this rank's heads when ``p`` holds its shard of them."""
     x = x.to(cdtype_of(cfg))
-    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    wk, wv = p.wk, p.wv
+    if p.wq.shape[1] != cfg.n_heads:           # split over model
+        x = sh.copy_to_model(x)
+        if wk.shape[1] == cfg.n_kv_heads:      # every KV head, each rank
+            wk, wv = sh.copy_to_model(wk), sh.copy_to_model(wv)
+    q, k, v = _proj(x, p.wq), _proj(x, wk), _proj(x, wv)
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
-def _repeat_kv(cfg, k: torch.Tensor) -> torch.Tensor:
+def _repeat_kv(cfg, k: torch.Tensor, n_q=None) -> torch.Tensor:
     """Each KV head repeated n_heads // n_kv_heads times (``jnp.repeat`` on
     axis 1, as an expand and a reshape: no host sync, so a CUDA graph can
-    capture it)."""
-    if cfg.n_heads == cfg.n_kv_heads:
-        return k
-    B, kh, S, hd = k.shape
+    capture it): the KV head of each of the ``n_q`` query heads (default
+    ``n_heads``). Under tensor parallelism the query heads are this
+    rank's; ``k`` holds either its own KV heads (then the same repeat) or
+    every KV head, and query head j of the rank then reads KV head
+    (rank · n_q + j) // rep."""
     rep = cfg.n_heads // cfg.n_kv_heads
+    B, kh, S, hd = k.shape
+    n_q = cfg.n_heads if n_q is None else n_q
+    if kh * rep != n_q:
+        first = sh.model_rank() * n_q
+        heads = torch.arange(first, first + n_q, device=k.device) // rep
+        return k.index_select(1, heads)
+    if rep == 1:
+        return k
     return k[:, :, None].expand(B, kh, rep, S, hd).reshape(B, kh * rep, S, hd)
+
+
+def _own_kv(cache_t: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The view of a decode cache tensor (.., Kh, S, hd) at this rank's KV
+    heads when the cache holds every KV head and ``k`` only the rank's
+    (writes through the view land in the cache)."""
+    kh = k.shape[1]
+    if cache_t.shape[1] == kh:
+        return cache_t
+    return cache_t.narrow(1, sh.model_rank() * kh, kh)
 
 
 def _softmax_attend(q, k, v, keep, out_dtype):
@@ -279,11 +319,13 @@ def sdpa_flash(q, k, v, *, causal, window, q_block=1024, kv_block=1024):
 
 
 def _out_proj(p: Attention, cfg, attn_out: torch.Tensor) -> torch.Tensor:
-    """attn_out (B,H,S,hd) -> (B,S,D)."""
+    """attn_out (B,H,S,hd) -> (B,S,D); this rank's heads' part summed over
+    ``model`` when ``p`` holds its shard of them."""
     h, hd, d = p.wo.shape
     B, _, S, _ = attn_out.shape
     flat = attn_out.transpose(1, 2).reshape(B, S, h * hd)
-    return flat @ p.wo.reshape(h * hd, d).to(cdtype_of(cfg))
+    wo = p.wo.reshape(h * hd, d).to(cdtype_of(cfg))
+    return flat @ wo if h == cfg.n_heads else sh.row_parallel(flat, wo)
 
 
 def attn_train(p: Attention, cfg, x, positions, *, causal=True, window=0,
@@ -297,7 +339,7 @@ def attn_train(p: Attention, cfg, x, positions, *, causal=True, window=0,
     ``return_cache`` the roped k and raw v (B,Kh,S,hd) for a decode cache.
     """
     q, k, v = _project_qkv(p, cfg, x, positions)
-    kf, vf = _repeat_kv(cfg, k), _repeat_kv(cfg, v)
+    kf, vf = _repeat_kv(cfg, k, q.shape[1]), _repeat_kv(cfg, v, q.shape[1])
 
     if cfg.attn_impl == "flash":
         out = sdpa_flash(q, kf, vf, causal=causal, window=window,
@@ -399,9 +441,10 @@ def attn_decode(p: Attention, cfg, x, cache: dict, pos, *, page_table=None):
     S = cache["k"].shape[2]
     positions = pos.reshape(1).to(torch.int32)
     q, k, v = _project_qkv(p, cfg, x, positions)
+    ck, cv = _own_kv(cache["k"], k), _own_kv(cache["v"], v)
     slot = positions.long() % S if is_ring else positions.long()
-    cache["k"].index_copy_(2, slot, k.to(cache["k"].dtype))
-    cache["v"].index_copy_(2, slot, v.to(cache["v"].dtype))
+    ck.index_copy_(2, slot, k.to(ck.dtype))
+    cv.index_copy_(2, slot, v.to(cv.dtype))
     if is_ring:
         kpos = cache["kpos"]
         kpos.index_copy_(0, slot, positions)
@@ -412,7 +455,7 @@ def attn_decode(p: Attention, cfg, x, cache: dict, pos, *, page_table=None):
         keep = kidx <= pos
         if cfg.window:
             keep &= pos - kidx < cfg.window
-    kf, vf = _repeat_kv(cfg, cache["k"]), _repeat_kv(cfg, cache["v"])
+    kf, vf = _repeat_kv(cfg, ck, q.shape[1]), _repeat_kv(cfg, cv, q.shape[1])
     out = _softmax_attend(q, kf, vf, keep[None, None, None, :], x.dtype)
     return _out_proj(p, cfg, out), cache
 
@@ -422,7 +465,7 @@ def _attn_decode_vec(p: Attention, cfg, x, cache: dict, pos):
     ``pos[b]`` of its own cache row; masking is per slot."""
     positions = pos[:, None].to(torch.int32)                   # (B,1)
     q, k, v = _project_qkv(p, cfg, x, positions)
-    ck, cv = cache["k"], cache["v"]
+    ck, cv = _own_kv(cache["k"], k), _own_kv(cache["v"], v)
     S = ck.shape[2]
     b = torch.arange(pos.shape[0], device=x.device)
     ck[b, :, pos.long()] = k[:, :, 0].to(ck.dtype)
@@ -432,7 +475,7 @@ def _attn_decode_vec(p: Attention, cfg, x, cache: dict, pos):
     keep = kidx[None, :] <= pos[:, None]                       # (B,S)
     if cfg.window:
         keep &= pos[:, None] - kidx[None, :] < cfg.window
-    kf, vf = _repeat_kv(cfg, ck), _repeat_kv(cfg, cv)
+    kf, vf = _repeat_kv(cfg, ck, q.shape[1]), _repeat_kv(cfg, cv, q.shape[1])
     out = _softmax_attend(q, kf, vf, keep[:, None, None, :], x.dtype)
     return _out_proj(p, cfg, out), cache
 

@@ -9,12 +9,27 @@ The functions take those modules where the reference takes dicts.
 ``init_*`` draw the reference's distributions (N(0,1)·scale in f32, cast to
 ``param_dtype``; norms ones) from a ``torch.Generator`` on the module's
 device: the draws are not JAX's bits, so the tests hand both packages the
-reference's own initialised params. ``constrain`` (a sharding hint in the
-reference) is not called: the port's mesh step runs each rank's batch
-shard with gathered weights (``train/trainer.py``). Under a mesh step a
-masked NLL sums its numerator and denominator over the batch axes
-(``parallel.sharding.batch_sum``). ``spec_*`` give each module's logical
+reference's own initialised params. ``spec_*`` give each module's logical
 axes, the reference's, for ``parallel.sharding.resolve``.
+
+Tensor parallelism over ``model`` (the reference's rules: ``vocab`` and
+``ff`` to ``model``, which GSPMD splits where ``constrain`` places them):
+a module whose weights are this rank's shard of the ``vocab`` or ``ff``
+dim (the mesh step and the mesh serving gather such a leaf over the
+other axes only; ``train/trainer.py``) computes its part, and the
+functions tell the shard from the whole by the weight's shape against
+the config's. ``embed`` looks up the rank's rows (the others give 0) and
+sums the ranks' lookups; ``unembed`` gives the rank's vocabulary slice of
+the logits (the softcap is element-wise, so per shard); ``mlp`` runs
+``w_gate`` and ``w_up`` column-parallel and ``w_down`` row-parallel, its
+partial sums added over ``model`` in f32 (``row_parallel``);
+``softmax_xent`` with ``vocab`` reduces a slice's max, sum of
+exponentials and gold logit over ``model``, so no rank holds the whole
+logits. The input of a split product enters through
+``copy_to_model``, whose backward sums the ranks' gradients
+(``parallel.sharding``). With whole weights nothing of this runs. Under a
+mesh step a masked NLL also sums its numerator and denominator over the
+batch axes (``parallel.sharding.batch_sum``).
 """
 from __future__ import annotations
 
@@ -154,11 +169,23 @@ def spec_embedding(cfg) -> dict:
 
 
 def embed(p: Embedding, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    return p.table[tokens].to(cdtype_of(cfg))
+    rows = p.table.shape[0]
+    if rows == cfg.vocab_size:
+        return p.table[tokens].to(cdtype_of(cfg))
+    # this rank's vocabulary rows: ids outside them look up 0
+    local = tokens.long() - sh.model_rank() * rows
+    inside = (local >= 0) & (local < rows)
+    x = p.table[torch.where(inside, local, 0)]
+    x = torch.where(inside[..., None], x, 0).to(cdtype_of(cfg))
+    return sh.reduce_from_model(x)
 
 
 def unembed(p: Embedding, h: torch.Tensor, cfg) -> torch.Tensor:
+    """h (..., D) -> logits (..., V), or this rank's vocabulary slice of
+    them (..., V / model) when ``p`` holds its shard."""
     table = p.head if p.head is not None else p.table.T
+    if table.shape[-1] != cfg.vocab_size:
+        h = sh.copy_to_model(h)
     logits = h @ table.to(cdtype_of(cfg))
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
@@ -232,9 +259,14 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(p: MLP, x: torch.Tensor, cfg) -> torch.Tensor:
+    split = p.w_gate.shape[1] != cfg.d_ff
+    if split:       # this rank's ff columns
+        x = sh.copy_to_model(x)
     g = x @ p.w_gate.to(x.dtype)
     u = x @ p.w_up.to(x.dtype)
     hidden = _act(cfg.act, g) * u
+    if split:
+        return sh.row_parallel(hidden, p.w_down.to(x.dtype))
     return hidden @ p.w_down.to(x.dtype)
 
 
@@ -242,12 +274,31 @@ def mlp(p: MLP, x: torch.Tensor, cfg) -> torch.Tensor:
 # Cross-entropy (fp32)
 # ----------------------------------------------------------------------------
 
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask=None):
+def _xent_terms_over_model(lf: torch.Tensor, labels: torch.Tensor):
+    """(logsumexp, gold logit) (B,S) from this rank's vocabulary slice
+    ``lf`` (B,S,V / model) of f32 logits: the max, the sum of
+    exponentials and the gold logit reduced over ``model``."""
+    rows = lf.shape[-1]
+    m = sh.max_over_model(lf.amax(dim=-1))
+    se = sh.reduce_from_model(torch.exp(lf - m[..., None]).sum(dim=-1))
+    local = labels.long() - sh.model_rank() * rows
+    inside = (local >= 0) & (local < rows)
+    gold = torch.gather(lf, -1, torch.where(inside, local, 0)[..., None])
+    gold = sh.reduce_from_model(torch.where(inside, gold[..., 0], 0.0))
+    return torch.log(se) + m, gold
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask=None, *,
+                 vocab=None):
     """logits (B,S,V), labels (B,S) int, mask (B,S) 1=count. Returns the
-    mean nll (f32 scalar)."""
+    mean nll (f32 scalar). ``vocab``: the model's vocabulary; logits of
+    fewer columns are this rank's slice over ``model`` (vocab-parallel)."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    if vocab is None or lf.shape[-1] == vocab:
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    else:
+        lse, gold = _xent_terms_over_model(lf, labels)
     nll = lse - gold
     if mask is None:
         return torch.mean(nll)

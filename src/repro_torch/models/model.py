@@ -13,6 +13,11 @@ returns a :class:`ModelApi` with
   dummy_batch(shape, generator)  -> {name: tensor}
   param_spec()                   -> {parameter name: logical axes}
   cache_spec()                   -> the cache's tree of logical axes
+  tensor_parallel(name)          -> whether the forward computes on a
+                                    rank's shard of the parameter over
+                                    ``model`` (the transformer family's
+                                    leaves but the MoE's experts; no
+                                    leaf of the other families)
 
 ``build`` serves every family: the decoder-only LMs (dense, moe, and vlm,
 whose precomputed patch embeddings ``img_embeds`` go in front of the
@@ -63,6 +68,7 @@ class ModelApi:
     decode_step: Callable         # (params, cache, tokens, pos) -> (logits, cache)
     param_spec: Callable          # () -> {parameter name: logical axes}
     cache_spec: Callable          # () -> cache tree of logical axes
+    tensor_parallel: Callable = lambda name: False   # (name) -> bool
 
     # ------------------------------------------------------------------
     def loss(self, params, batch, **kw):
@@ -73,7 +79,8 @@ class ModelApi:
         labels = batch["labels"]
         if logits.shape[1] != labels.shape[1]:
             logits = logits[:, -labels.shape[1]:]
-        nll = L.softmax_xent(logits, labels, batch.get("mask"))
+        nll = L.softmax_xent(logits, labels, batch.get("mask"),
+                             vocab=self.cfg.vocab_size)
         total = nll
         if aux:
             total = total + self.cfg.router_aux_coef * aux.get(
@@ -164,6 +171,7 @@ def _build_lm(cfg: ModelConfig) -> ModelApi:       # dense / moe / vlm
         decode_step=lambda p, c, t, pos: tf.lm_decode_step(p, cfg, c, t, pos),
         param_spec=lambda: tf.spec_lm(cfg),
         cache_spec=lambda: tf.lm_cache_logical(cfg),
+        tensor_parallel=tf.tensor_parallel,
     )
 
 

@@ -18,7 +18,11 @@ dropped pairs of jnp's ``mode="drop"`` scatter land in a trash row C of an
 The router product stays IEEE f32 on the card (``_ieee_f32``): a TF32 router
 moves the routing, and with it the tokens.
 
-Under a mesh (``train/trainer.py``) each rank routes its own batch shard,
+Under a mesh the MoE model's attention and embedding compute split over
+``model`` (``models/transformer.py``), while the experts are gathered
+whole and run replicated on the whole residual stream: expert
+parallelism is later work. Each rank (``train/trainer.py``) routes its
+own batch shard,
 whose groups are the reference's (its groups are contiguous token blocks,
 one a data-parallel shard). The load-balance loss is not linear in the
 shards, so its two terms, ``me`` and ``ce``, are summed over the mesh's

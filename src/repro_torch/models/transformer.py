@@ -17,9 +17,27 @@ checkpoint that keeps the products' outputs) or "full" (no checkpoint).
 ``scan_group=g`` checkpoints groups of g layers. Without a gradient to
 take (no_grad, or nothing that requires one) a layer runs plain, as
 ``jax.checkpoint`` is a no-op outside differentiation.
+
+Tensor parallelism over ``model`` (``tensor_parallel``): under a mesh the
+embedding, the attention and the dense MLP take this rank's shard of
+their vocabulary rows, heads and ``ff`` columns (the mesh step and the
+mesh serving gather those leaves over the other axes only). The residual
+stream stays whole on every rank: it enters each split block through
+``copy_to_model`` (the block's first product, ``layers.py`` and
+``attention.py``), and the block's row-parallel output comes back summed
+by one all-reduce (``row_parallel``, in f32): two all-reduces a layer
+forward. The norms and a whole ``wk``/``wv`` compute replicated, and
+their gradients come out whole and equal on every rank. A MoE's experts
+keep the replicated path (gathered whole, computed on the whole stream):
+expert parallelism is later work. A checkpointed layer's recompute
+issues again the all-reduces that come before its last saved tensor
+(the attention's, not the MLP's closing one), on every rank in the same
+order; it runs in the context of the forward's call, so it sees the
+same mesh wherever autograd runs it.
 """
 from __future__ import annotations
 
+import contextvars
 import itertools
 from functools import partial
 
@@ -38,7 +56,8 @@ REMAT_POLICIES = ("nothing", "dots", "full")
 # checkpoint_dots)
 _DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
                    torch.ops.aten.addmm.default,
-                   torch.ops.aten.matmul.default})
+                   torch.ops.aten.matmul.default,
+                   torch.ops.aten.mm.dtype})
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -67,12 +86,26 @@ def remat_call(remat: str, fn, *args, modules=()):
     if remat == "dots":
         kw["context_fn"] = partial(ckpt.create_selective_checkpoint_contexts,
                                    _save_dots)
-    return ckpt.checkpoint(fn, *args, use_reentrant=False,
-                           preserve_rng_state=False, **kw)
+    # the backward recomputes ``fn`` where autograd runs it: on CUDA, a
+    # thread of the engine's own, where the caller's context variables
+    # (the active mesh, the batch reduction) are unset; run it in a copy
+    # of the caller's, so that the recompute splits and sums as the
+    # forward did
+    caller = contextvars.copy_context()
+    return ckpt.checkpoint(partial(caller.run, fn), *args,
+                           use_reentrant=False, preserve_rng_state=False,
+                           **kw)
 
 
 def _is_moe(cfg) -> bool:
     return cfg.n_experts > 0
+
+
+def tensor_parallel(name: str) -> bool:
+    """Whether the forward computes on this rank's shard over ``model`` of
+    the parameter ``name`` where its spec splits it there: every leaf but
+    a MoE's experts."""
+    return ".moe." not in name
 
 
 class Layer(nn.Module):

@@ -30,6 +30,14 @@ names, no process group) or on a live ``torch.distributed`` ``DeviceMesh``
 local shards: ``local_shard`` cuts a rank's shard out of the full tensor,
 ``gather_shard`` all-gathers the full tensor back from the shards, and
 ``placements`` gives the same layout as DTensor placements.
+
+Tensor parallelism over ``model`` (the reference's "Megatron TP", which
+GSPMD derives from the rules): ``model_axis`` gives the active mesh's
+``model`` group, and ``copy_to_model`` and ``reduce_from_model`` are
+Megatron's two operators, which the models place around each layer that
+computes on a rank's shard of its weights; ``row_parallel`` is a
+row-parallel product with its reduction, its partial sums added in f32.
+Where the axis has size 1 they issue no collective.
 """
 from __future__ import annotations
 
@@ -209,9 +217,12 @@ def resolve_tree(logical_tree, shape_tree=None, mesh=None, rules=None):
 def constrain(x, *logical, rules=None):
     """The reference's sharding hint by logical axes. A no-op without an
     active mesh; with one the spec is resolved (unknown names and bad dims
-    raise as there) and ``x`` is returned: the port's mesh step runs each
-    rank's batch shard with gathered weights (``train/trainer.py``), so a
-    layout hint on an activation has nothing to move."""
+    raise as there) and ``x`` is returned. The port places nothing by
+    hint: each rank computes on its own batch rows, and a layer whose
+    weights are this rank's shard over ``model`` (heads, ``ff``, vocab)
+    computes its part and all-reduces it itself (``copy_to_model``,
+    ``reduce_from_model``), so an activation's layout is the code's, not
+    a constraint's."""
     mesh = active_mesh()
     if mesh is not None:
         resolve(logical, x.shape, mesh, rules)
@@ -248,6 +259,25 @@ def entry_axes(entry) -> tuple[str, ...]:
     if entry is None:
         return ()
     return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def without_axes(spec: Sequence, axes: Sequence[str]) -> P:
+    """``spec`` with the dims that ``axes`` split left whole: the layout
+    of a tensor that each rank of those axes holds its own shard of (a
+    tensor-parallel weight gathered over the other axes). An axis that
+    shares a dim with another one cannot be taken out alone."""
+    out = []
+    for entry in spec:
+        mine = entry_axes(entry)
+        if any(a in axes for a in mine):
+            if len(mine) > 1:
+                raise ValueError(f"spec entry {entry!r} splits one dim over "
+                                 f"{mine}: its {axes} part cannot be kept")
+            entry = None
+        out.append(entry)
+    while out and out[-1] is None:
+        out.pop()
+    return P(*out)
 
 
 def placements(spec: Sequence, mesh) -> list:
@@ -375,16 +405,25 @@ def gather_shard(local: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
 @dataclasses.dataclass
 class Layout:
     """Where a set of named tensors lives on a mesh: each name's spec and
-    its logical (unsharded) shape; a rank holds ``local_shard`` of each."""
+    its logical (unsharded) shape; a rank holds ``local_shard`` of each.
+    ``keep``: mesh axes over which the tensor in hand is already this
+    rank's shard (``without_axes``): ``gather`` then gathers over the
+    other axes only, and ``local`` cuts over them only."""
     mesh: Any
     specs: dict
     shapes: dict
 
-    def local(self, name: str, full: torch.Tensor) -> torch.Tensor:
-        return local_shard(full, self.specs[name], self.mesh)
+    def _spec(self, name: str, keep: Sequence[str]) -> P:
+        spec = self.specs[name]
+        return without_axes(spec, keep) if keep else spec
 
-    def gather(self, name: str, local: torch.Tensor) -> torch.Tensor:
-        return gather_shard(local, self.specs[name], self.mesh)
+    def local(self, name: str, full: torch.Tensor,
+              keep: Sequence[str] = ()) -> torch.Tensor:
+        return local_shard(full, self._spec(name, keep), self.mesh)
+
+    def gather(self, name: str, local: torch.Tensor,
+               keep: Sequence[str] = ()) -> torch.Tensor:
+        return gather_shard(local, self._spec(name, keep), self.mesh)
 
 
 # -- reductions over the batch axes inside a mesh step ----------------------
@@ -471,3 +510,134 @@ def own_rows(y: torch.Tensor) -> torch.Tensor:
     ``y`` itself without it."""
     active = _ROUTE.get()
     return y if active is None else local_shard(y, *active)
+
+
+# -- tensor parallelism over ``model`` (Megatron's two operators) -----------
+
+MODEL_AXIS = "model"
+
+
+def model_axis() -> tuple:
+    """(process group, size, this rank's coordinate) of the active mesh's
+    ``model`` axis; (None, 1, 0) without an active mesh, on a mesh without
+    the axis or with the axis of size 1, and on an ``AbstractMesh`` (no
+    process group: nothing is split over it)."""
+    mesh = active_mesh()
+    if mesh is None or not hasattr(mesh, "get_group"):
+        return None, 1, 0
+    size = mesh_axis_sizes(mesh).get(MODEL_AXIS, 1)
+    if size == 1:
+        return None, 1, 0
+    return (mesh.get_group(MODEL_AXIS), size,
+            mesh.get_local_rank(MODEL_AXIS))
+
+
+def model_rank() -> int:
+    """This rank's coordinate on the active mesh's ``model`` axis (0
+    without one)."""
+    return model_axis()[2]
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f: the identity forward; the backward all-reduces the
+    gradient over ``model`` (each rank's share from its own heads, ``ff``
+    columns or vocabulary rows, summed)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g: the forward all-reduces the ranks' partial results
+    over ``model``; the backward is the identity (every rank's copy of the
+    sum takes the same gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` entering a layer split over ``model``: itself, with its
+    gradient all-reduced over the axis. ``x`` itself, and no collective,
+    where the axis has size 1."""
+    group, size, _ = model_axis()
+    return x if size == 1 else _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum over ``model`` of every rank's partial ``x`` (a row-parallel
+    product's, a vocabulary shard's lookup). ``x`` itself, and no
+    collective, where the axis has size 1."""
+    group, size, _ = model_axis()
+    return x if size == 1 else _ReduceFromModel.apply(x, group)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (2-D) with an f32 result: for bf16 or f16 operands on the
+    card (and on meta) the tensor cores' f32 accumulator itself
+    (``aten.mm.dtype``), on the CPU the product of the upcast operands."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.device.type in ("cuda", "meta"):
+        return torch.ops.aten.mm.dtype(a, b, torch.float32)
+    return a.float() @ b.float()
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``x @ w`` (x (..., K), w (K, N)) with an f32 result (``_mm_f32``).
+    The backward is the plain product's, in ``x``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        y = _mm_f32(x.reshape(-1, x.shape[-1]), w)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.to(x.dtype).reshape(-1, g.shape[-1])
+        dx = (g2 @ w.T).reshape(x.shape) if ctx.needs_input_grad[0] else None
+        dw = (x.reshape(-1, x.shape[-1]).T @ g2
+              if ctx.needs_input_grad[1] else None)
+        return dx, dw
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x`` (..., K / model) times this rank's rows ``w`` (K / model, N),
+    summed over ``model`` (Megatron's row-parallel product). The ranks'
+    partial products are summed in f32 and rounded once to ``x``'s dtype,
+    as one rank's whole product rounds its f32 accumulator once: a bf16
+    sum of bf16 partials rounds each partial, and doubled the mesh step's
+    departure from one rank's (``PERF.md``). A checkpointed layer's
+    recompute stops at the product, whose operands are what the backward
+    needs, and does not all-reduce again."""
+    group, size, _ = model_axis()
+    if size == 1:
+        return x @ w
+    return reduce_from_model(_MatmulF32.apply(x, w)).to(x.dtype)
+
+
+def max_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The element-wise max over ``model`` of every rank's ``x``, without
+    a gradient (a softmax's shift)."""
+    group, size, _ = model_axis()
+    x = x.detach().clone(memory_format=torch.contiguous_format)
+    if size > 1:
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x

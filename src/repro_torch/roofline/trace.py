@@ -56,7 +56,10 @@ FREE_OPS = frozenset({
 # record keeps whether TF32 may run it
 PRODUCTS = frozenset({"aten.mm.default", "aten.addmm.default",
                       "aten.bmm.default", "aten.baddbmm.default",
-                      "aten.convolution.default"})
+                      "aten.convolution.default",
+                      # bf16 operands, an f32 result (a row-parallel
+                      # product's partial sums, parallel/sharding.py)
+                      "aten.mm.dtype"})
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,18 +2,26 @@
 the programs that the reference's ``prefill_cell`` and ``decode_cell``
 leave to GSPMD.
 
-They follow the port's ZeRO-3 design (``train/trainer.py``; a declared
-deviation, ROADMAP queue 3). Each rank holds:
+They follow the mesh step's design (``train/trainer.py``). Each rank
+holds:
 
   - its shards of the params (``param_spec``'s rules, ``shard_params``);
   - its shards of the decode cache (``cache_spec``'s rules,
     ``shard_cache``): its batch rows (``cache_batch`` over pod and data),
-    and a slice of the axis that ``model`` splits (``cache_seq`` for most
-    archs, whose KV heads do not divide 16; ``ssm_heads`` for mamba2);
+    and a slice of the axis that ``model`` splits (``cache_kv_heads``
+    where the KV heads divide, else ``cache_seq``; ``ssm_heads`` for
+    mamba2);
   - its rows of the batch (``batch`` over pod and data).
 
-A step gathers the weights whole at use (``gather_params``) and computes
-on the rank's rows; over ``model`` its compute is replicated.
+A step gathers the weights at use (``gather_params``) and computes on the
+rank's rows, under ``use_mesh``. For the transformer family the leaves
+that the rules split over ``model`` (heads, ``ff``, vocabulary;
+``trainer.tp_leaves``) are gathered over the other axes only and each
+rank computes its own heads, ``ff`` columns and vocabulary slice of the
+logits (tensor parallelism, ``models/transformer.py``); the logits are
+gathered over ``model`` at the end, so a rank returns whole rows. The
+MoE's experts and the ssm, hybrid and encdec families gather whole and
+compute replicated over ``model``.
 
 ``make_mesh_prefill``: the forward on the rank's rows, returning the
 next-token logits of each of its sequences (``logits[:, -1]``); a MoE's
@@ -24,9 +32,11 @@ dispatch groups are the reference's (``n_groups`` = dp, as its
 mesh axis splits beyond the batch rows is gathered at use, one layer at a
 time (the rank's rows, every position or head), and after the layer only
 the rank's own slice is written back: the same rule as for the weights.
-A MoE routes the global batch as one dispatch group, as the reference's
-decode step does (``parallel.sharding.global_routing``). The step returns
-the rank's logits rows and its shards of the new cache.
+A split attention layer reads and writes the rank's own KV heads of it
+where the KV heads divide. A MoE routes the global batch as one dispatch
+group, as the reference's decode step does
+(``parallel.sharding.global_routing``). The step returns the rank's
+logits rows and its shards of the new cache.
 
 A sequence-parallel decode (each rank attends over its own slice of the
 cache and the ranks merge their softmax sums) would move far fewer bytes;
@@ -127,6 +137,15 @@ class _GatheredAtUse:
         self._open = ()
 
 
+def _whole_vocab(api, mesh, logits: torch.Tensor) -> torch.Tensor:
+    """Logits (..., V) from this rank's vocabulary slice of them (a
+    gather over ``model``), or themselves when whole."""
+    if logits.shape[-1] == api.cfg.vocab_size:
+        return logits
+    spec = sh.P(*(None,) * (logits.ndim - 1), sh.MODEL_AXIS)
+    return sh.gather_shard(logits, spec, mesh)
+
+
 def make_mesh_prefill(api, mesh, layout: sh.Layout) -> Callable:
     """``fwd(params, batch) -> logits (rows, V)``: this rank's sequences'
     next-token logits, from its param shards (``layout``) and the global
@@ -138,9 +157,10 @@ def make_mesh_prefill(api, mesh, layout: sh.Layout) -> Callable:
         local = {k: sh.local_shard(v, bspecs[k], mesh)
                  for k, v in batch.items()}
         kw = tr.moe_groups(api, mesh, batch, bspecs)
-        full = tr.gather_params(params, layout)
-        logits, _ = api.forward(full, local, **kw)
-        return logits[:, -1, :]
+        full = tr.gather_params(params, layout, tr.tp_leaves(api, layout))
+        with sh.use_mesh(mesh):
+            logits, _ = api.forward(full, local, **kw)
+        return _whole_vocab(api, mesh, logits[:, -1, :])
 
     return fwd
 
@@ -157,7 +177,7 @@ def make_mesh_decode(api, mesh, layout: sh.Layout,
     def step(params, cache: dict, tokens: Any, pos):
         tspec = sh.resolve(("batch", None), tuple(tokens.shape), mesh)
         tok = sh.local_shard(tokens, tspec, mesh)
-        full = tr.gather_params(params, layout)
+        full = tr.gather_params(params, layout, tr.tp_leaves(api, layout))
         flat = _leaves(cache)
         lazy = {}
         for n, t in flat.items():
@@ -167,8 +187,9 @@ def make_mesh_decode(api, mesh, layout: sh.Layout,
                     t, rest, mesh, n.split("/")[0] in IN_PLACE_GROUPS)
             else:
                 lazy[n] = t
-        with sh.global_routing(tspec, mesh):
+        with sh.global_routing(tspec, mesh), sh.use_mesh(mesh):
             logits, new = api.decode_step(full, _nest(lazy), tok, pos)
+        logits = _whole_vocab(api, mesh, logits)
         out = {}
         for n, v in _leaves(new).items():
             if isinstance(v, _GatheredAtUse):

@@ -12,7 +12,12 @@ process group of a mesh's batch axes (one axis, or the flattened
 them: each rank brings its own gradients and keeps its own residuals.
 A leaf is the reference's: it stacks the per-layer parameters on a
 leading (L, ...) axis, so the port's ``layers.i.<leaf>`` tensors share one
-scale, the max over all L of them (``convert.reference_leaf``).
+scale, the max over all L of them (``convert.reference_leaf``). The
+reference's scale is the max over the whole leaf; where a rank holds only
+its shard of a gradient over other mesh axes (a tensor-parallel leaf's
+over ``model``, ``train/trainer.py``), the max is agreed over
+``scale_axes``, those axes and the batch axes, while the sum runs over the
+batch axes alone.
 """
 from __future__ import annotations
 
@@ -42,21 +47,25 @@ def decompress_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def make_compressed_psum(axis_names: Optional[Sequence[str]] = None, *,
-                         mesh=None):
+                         mesh=None,
+                         scale_axes: Optional[Sequence[str]] = None):
     """``cpsum(grads, residuals) -> (mean_grads, new_residuals)``: the
     int8-quantized all-reduce with error feedback over ``mesh``'s
     ``axis_names`` (their flattened process group; without a mesh, the
     world). grads and residuals are {name: tensor};
-    residuals may be None. The shared scale is the group's max of the local
-    scales, so the quantization error stays bounded on every rank; the
-    int8 values are summed as int32 and the mean is that sum × scale / n."""
+    residuals may be None. The shared scale is the max of the local scales
+    over ``scale_axes`` (default: ``axis_names``), so the quantization
+    error stays bounded on every rank; the int8 values are summed as int32
+    over ``axis_names`` and the mean is that sum × scale / n."""
     from repro_torch.convert import reference_leaf
 
-    group = None
+    group = scale_group = None
     if mesh is not None:
         from repro_torch.parallel.sharding import axis_group
 
         group = axis_group(mesh, axis_names)
+        scale_group = (group if scale_axes is None
+                       else axis_group(mesh, scale_axes))
 
     def cpsum(grads: dict, residuals: Optional[dict]):
         gfs = {}
@@ -74,7 +83,7 @@ def make_compressed_psum(axis_names: Optional[Sequence[str]] = None, *,
             local[i] = torch.maximum(local[i], torch.max(torch.abs(gf)))
         # every leaf's scale agreed in one all-reduce MAX
         scales = torch.clamp(local / 127.0, min=1e-30)
-        dist.all_reduce(scales, op=dist.ReduceOp.MAX, group=group)
+        dist.all_reduce(scales, op=dist.ReduceOp.MAX, group=scale_group)
         n = dist.get_world_size(group)
         means, new_rs = {}, {}
         for name, gf in gfs.items():

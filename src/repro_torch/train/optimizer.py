@@ -21,6 +21,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.convert import reference_ndim
@@ -60,9 +61,18 @@ def lr_schedule(cfg: TrainConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * torch.where(s < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor, in f32."""
+def global_norm(tensors, *, shards=(), group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every tensor, in f32. ``shards``:
+    tensors of which each rank of ``group`` holds its own part (a
+    tensor-parallel gradient); their squares are summed over the group (one
+    all-reduce) and added to those of ``tensors``, which every rank holds
+    whole and counts once."""
     sq = sum(torch.sum(torch.square(x.to(torch.float32))) for x in tensors)
+    if shards:
+        part = sum(torch.sum(torch.square(x.to(torch.float32)))
+                   for x in shards)
+        dist.all_reduce(part, group=group)
+        sq = sq + part
     return torch.sqrt(sq)
 
 

@@ -19,21 +19,29 @@ records each tensor's spec and logical shape. A step (ZeRO-3 style):
      its shard of each (``batch_shardings``; the reference's microbatches
      are cut from the global batch, then sharded);
   2. the weights are all-gathered at use (a leaf that no mesh axis splits
-     is used as it is);
-  3. the forward and backward run on the rank's shard; a MoE's dispatch
+     is used as it is). A leaf that the forward computes split over
+     ``model`` (``tp_leaves``: the transformer family's embedding,
+     attention and dense MLP, where the rules split the vocabulary, the
+     heads or ``ff`` there) is gathered over the other axes only, so each
+     rank holds its own heads, ``ff`` columns and vocabulary rows whole
+     over ``d_model``; every other leaf (norms, a MoE's router and
+     experts, the ssm, hybrid and encdec families) is gathered whole;
+  3. the forward and backward run on the rank's batch shard, each split
+     layer on the rank's shard of its weights (tensor parallelism:
+     ``models/transformer.py``), under ``use_mesh``; a MoE's dispatch
      groups are the reference's (``n_groups`` = the data-parallel size,
      whose groups are the batch shards), and its load-balance terms and a
      masked NLL's sums are reduced over the batch axes inside the model
      (``parallel.sharding.batch_reduction``);
   4. the gradients are averaged over the batch axes (in f32), so every
-     rank holds the reference's replica mean; with ``compress="int8"`` the
-     compressed all-reduce then runs on those identical means with the
-     full residuals, Q(mean + r), as the reference's single-program form;
-  5. the clip's norm is that of the full averaged gradients, and each
-     rank updates its own shard.
-
-Over ``model`` the compute is replicated where GSPMD would split it (a
-declared deviation, ROADMAP queue 3): the results are the same.
+     rank holds the reference's replica mean (of its ``model`` shard, for
+     a split leaf); with ``compress="int8"`` the compressed all-reduce then
+     runs on those means with the residuals gathered over the same axes
+     as their gradients, Q(mean + r), as the reference's single-program
+     form, each leaf's scale the max over the whole leaf (over ``model``
+     too);
+  5. the clip's norm counts every element once (a split leaf's squares
+     summed over ``model``), and each rank updates its own shard.
 
 The loop (``Trainer.run``) keeps the reference's contract: the data are a
 pure function of the step, a checkpoint is saved every ``ckpt_every``
@@ -283,13 +291,33 @@ def shard_params(api, params: torch.nn.Module, mesh) -> tuple:
     return specs, shapes
 
 
-def gather_params(params: torch.nn.Module, layout: sh.Layout):
-    """A module of the full parameters from this rank's shards (ZeRO-3's
-    gather at use): a parameter that no mesh axis splits is shared, not
-    copied."""
+TP_AXES = (sh.MODEL_AXIS,)
+
+
+def tp_leaves(api, layout: sh.Layout) -> frozenset:
+    """The parameters that the forward computes on this rank's shard over
+    ``model`` (``api.tensor_parallel``) and that ``layout`` splits there
+    (none where the axis has size 1)."""
+    if sh.mesh_axis_sizes(layout.mesh).get(sh.MODEL_AXIS, 1) == 1:
+        return frozenset()
+    return frozenset(
+        n for n in (k.split("/", 1)[1] for k in layout.specs
+                    if k.startswith("params/"))
+        if api.tensor_parallel(n) and any(
+            sh.MODEL_AXIS in sh.entry_axes(e)
+            for e in layout.specs[f"params/{n}"]))
+
+
+def gather_params(params: torch.nn.Module, layout: sh.Layout,
+                  split: frozenset = frozenset()):
+    """A module of the parameters gathered from this rank's shards
+    (ZeRO-3's gather at use): whole, but for the ``split`` ones
+    (``tp_leaves``), gathered over the axes other than ``model`` only. A
+    parameter that no gathered axis splits is shared, not copied."""
     memo: dict = {}
     for n, p in params.named_parameters():
-        full = layout.gather(f"params/{n}", p)
+        full = layout.gather(f"params/{n}", p,
+                             TP_AXES if n in split else ())
         memo[id(p)] = p if full is p else param(full)
     return copy.deepcopy(params, memo)
 
@@ -322,8 +350,14 @@ def _make_mesh_step(api, tcfg: TrainConfig, mesh, compress, fwd_kw):
     batch_axes = tuple(a for a in BATCH_AXES if a in sizes)
     dp = math.prod(sizes[a] for a in batch_axes)
     group = sh.axis_group(mesh, batch_axes) if batch_axes else None
-    cpsum = (gc.make_compressed_psum(batch_axes, mesh=mesh)
-             if compress == "int8" and batch_axes else None)
+    tp = sizes.get(sh.MODEL_AXIS, 1) > 1
+    model_group = mesh.get_group(sh.MODEL_AXIS) if tp else None
+    # a split leaf's int8 scale is the max over the whole leaf: over
+    # ``model`` as well as the batch axes
+    cpsum = (gc.make_compressed_psum(
+        batch_axes, mesh=mesh,
+        scale_axes=batch_axes + TP_AXES if tp else None)
+        if compress == "int8" and batch_axes else None)
 
     def shard_batch(batch: dict) -> tuple:
         mbs = [batch] if M <= 1 else _split_microbatches(batch, M)
@@ -345,10 +379,13 @@ def _make_mesh_step(api, tcfg: TrainConfig, mesh, compress, fwd_kw):
             raise ValueError("a mesh step takes a state sharded on its mesh "
                              "(Trainer(mesh=...).init_state or shard_state)")
         mbs, kw = shard_batch(batch)
-        full = gather_params(state.params, layout)
+        split = tp_leaves(api, layout)
+        keep = {n: TP_AXES if n in split else ()
+                for n, _ in state.params.named_parameters()}
+        full = gather_params(state.params, layout, split)
         ctx = (sh.batch_reduction(group, dp) if group is not None
                else contextlib.nullcontext())
-        with ctx:
+        with ctx, sh.use_mesh(mesh):
             loss, aux, grads = _compute_grads(api, full, mbs, kw)
         del full
         for n, g in grads.items():
@@ -358,15 +395,18 @@ def _make_mesh_step(api, tcfg: TrainConfig, mesh, compress, fwd_kw):
             a.float() for a in aux.values())]))
         metrics = dict(zip(names, stacked.unbind()))
         if cpsum is not None:
-            full_r = {n: layout.gather(f"residuals/{n}", r)
+            full_r = {n: layout.gather(f"residuals/{n}", r, keep[n])
                       for n, r in state.residuals.items()}
             grads, new_r = cpsum(grads, full_r)
             del full_r
             for n, r in state.residuals.items():
-                r.copy_(layout.local(f"residuals/{n}", new_r[n]))
+                r.copy_(layout.local(f"residuals/{n}", new_r[n], keep[n]))
             del new_r
-        gnorm = global_norm(grads.values())
-        local = {n: layout.local(f"params/{n}", g) for n, g in grads.items()}
+        gnorm = global_norm((g for n, g in grads.items() if n not in split),
+                            shards=[grads[n] for n in grads if n in split],
+                            group=model_group)
+        local = {n: layout.local(f"params/{n}", g, keep[n])
+                 for n, g in grads.items()}
         _, _, stats = adamw_update(tcfg, state.params, local, state.opt,
                                    gnorm=gnorm)
         del grads, local

@@ -112,8 +112,8 @@ def test_probe_train_step_payload_equals_expected(tmp_path, dryrun_dir):
     assert "== analytic probe: gemma_2b train_4k [16x16]" in text
     assert "TPU" not in text
     assert re.search(r"^The compute term dominates the full-scale cell "
-                     r"\(Tc=3541\.7 ms, Tm=2652\.4 ms, Ti=52\.8 ms\) -> "
-                     r"predicted \[compute\]", text, re.MULTILINE), text
+                     r"\(Tc=2526\.2 ms, Tm=1895\.9 ms, Ti=69\.2 ms\) -> "
+                     r"predicted \[mixed\]", text, re.MULTILINE), text
 
 
 def test_serve_lm_serves_every_request(tmp_path):

@@ -7,9 +7,11 @@ the reference in one JAX subprocess with four forced host devices
 (``tests/torch_mesh_ref.py``), both at the same time, from the same
 inputs (the reference's f32 smoke params from PRNGKey(0), a prompt of
 64 x 32 tokens, a cache of 32 positions filled with N(0, 0.25) values,
-decode tokens and position 9), on a (2, 1), (1, 2) and (2, 2)
-(data, model) mesh, for gemma-2b (its one KV head: the cache's sequence
-split over ``model``), qwen3-moe-30b-a3b (the MoE's dispatch groups:
+decode tokens and position 9), on a (2, 1), (1, 2), (2, 2) and (1, 4)
+(data, model) mesh (the attention, dense MLP and vocabulary computed
+split over ``model`` where it is 2 or 4, the logits gathered at the end),
+for gemma-2b (its one KV head: the cache's sequence split over
+``model``), qwen3-moe-30b-a3b (the MoE's dispatch groups:
 dp in the prefill, the global batch in the decode; at a capacity factor
 of 0.5, so that pairs are dropped and a rank routing only its own rows
 would drop others) and mamba2-780m (the ``ssm_heads`` cache over
@@ -58,8 +60,8 @@ def runs(tmp_path_factory):
         common = {"archs": inputs, "capacity": ref.SERVE_CAPACITY}
         w2 = ranks.spawn(2, "serve_steps", dict(
             common, meshes=[(2, 1), (1, 2)]), os.path.join(tmp, "w2"))
-        w4 = ranks.spawn(4, "serve_steps", dict(common, meshes=[(2, 2)]),
-                         os.path.join(tmp, "w4"))
+        w4 = ranks.spawn(4, "serve_steps", dict(
+            common, meshes=[(2, 2), (1, 4)]), os.path.join(tmp, "w4"))
         _, err = proc.communicate(timeout=REF_TIMEOUT_S)
     finally:
         if proc.poll() is None:

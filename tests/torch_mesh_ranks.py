@@ -352,3 +352,153 @@ def _torch_tree(tree):
     if isinstance(tree, dict):
         return {k: _torch_tree(v) for k, v in tree.items()}
     return torch.from_numpy(np.asarray(tree).copy())
+
+
+def tensor_parallel(rank: int, world: int, args: dict) -> dict:
+    """gemma-2b's f32 smoke config on a (1, world) (data, model) mesh, its
+    attention, MLP and vocabulary split over ``model``: every
+    ``gather_shard`` call of a mesh step, prefill and decode recorded (the
+    params it gathered and over which axes); the split step's gradients
+    (the replicated leaves' bitwise equality across the ranks, the split
+    leaves gathered against the one-rank whole gradients); the all-reduces
+    of one forward; the replicated params after the step; the mesh
+    prefill's and decode's logits against one rank's; and the
+    vocab-parallel ``softmax_xent`` (value and gradient) against the
+    plain one on ``args["xent"]``'s logits."""
+    import threading
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import build
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.roofline.trace import OpTrace
+    from repro_torch.serve import mesh as sm
+    from repro_torch.train import trainer as tr
+
+    cfg = f32_smoke("gemma-2b")
+    api = build(cfg)
+    mesh = _mesh((1, world), ("data", "model"))
+    tcfg = TrainConfig(**TCFG)
+    batch = api.dummy_batch(ShapeConfig("tp", "train", 16, 4), device="cpu")
+    calls: list = []
+    real = sh.gather_shard
+
+    def record(local, spec, m):
+        calls.append((id(local), [sh.entry_axes(e) for e in spec]))
+        return real(local, spec, m)
+
+    def over_model(params) -> dict:
+        """{param name: times gathered over ``model``} of ``calls``."""
+        ids = {id(p): n for n, p in params.named_parameters()}
+        out = {n: 0 for n in ids.values()}
+        for i, axes in calls:
+            if i in ids and any(sh.MODEL_AXIS in a for a in axes):
+                out[ids[i]] += 1
+        return out
+
+    def all_equal(t: torch.Tensor) -> bool:
+        pieces = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(pieces, t.contiguous())
+        return all(torch.equal(pieces[0], q) for q in pieces)
+
+    out: dict = {}
+    sh.gather_shard = record
+    try:
+        trainer = tr.Trainer(api, tcfg, mesh=mesh, device="cpu")
+        state = trainer.init_state()
+        layout = state.layout
+        split = tr.tp_leaves(api, layout)
+        out["split"] = sorted(split)
+        # the split step's gradients
+        full = tr.gather_params(state.params, layout, split)
+        with sh.use_mesh(mesh):
+            _, _, grads = tr.loss_and_grads(api, full, batch)
+            with OpTrace() as trace, tr._requires_grad(full):
+                api.loss(full, batch, remat="nothing")
+        out["forward_all_reduces"] = sum(
+            r.name.startswith("c10d.allreduce") for r in trace.ops)
+        # the backward on a thread of its own, as CUDA's autograd engine
+        # runs it (the caller's context variables unset there): the
+        # remat's recompute must still see the mesh
+        named = dict(full.named_parameters())
+        box: dict = {}
+        with sh.use_mesh(mesh), tr._requires_grad(full):
+            loss, _ = api.loss(full, batch, remat="nothing")
+            worker = threading.Thread(target=lambda: box.update(
+                g=torch.autograd.grad(loss, list(named.values()))))
+            worker.start()
+            worker.join()
+        out["thread_equal"] = {n: torch.equal(g, grads[n])
+                               for n, g in zip(named, box["g"])}
+        whole = api.init(tcfg.seed, "cpu")
+        _, _, want = tr.loss_and_grads(api, whole, batch)
+        out["replicated_equal"] = {n: all_equal(g) for n, g in grads.items()
+                                   if n not in split}
+        out["split_err"] = {}
+        for n in sorted(split):     # one order on every rank
+            g = layout.gather(f"params/{n}", grads[n])
+            top = float(want[n].abs().max())
+            out["split_err"][n] = float((g - want[n]).abs().max()) / top
+        del full, grads
+        calls.clear()
+        state, _ = trainer._step(state, batch)
+        out["step_over_model"] = over_model(state.params)
+        out["params_equal"] = {n: all_equal(p) for n, p in
+                               state.params.named_parameters()
+                               if n not in split}
+        # the mesh prefill and decode
+        params = api.init(0, "cpu")
+        one = api.init(0, "cpu")
+        B, S = 4, 16
+        prompt = {"tokens": batch["tokens"][:B]}
+        cache = api.decode_init(params, {"tokens": prompt["tokens"][:, :1],
+                                         "max_seq": S})
+        for t in cache["kv"].values():
+            t.copy_(torch.randn(t.shape, generator=torch.Generator()
+                                .manual_seed(5)))
+        one_cache = {"kv": {k: v.clone() for k, v in cache["kv"].items()}}
+        specs, shapes = tr.shard_params(api, params, mesh)
+        players = sm.param_layout(specs, shapes, mesh)
+        cache, clayout = sm.shard_cache(api, cache, mesh)
+        tokens = batch["tokens"][:B, :1].contiguous()
+        pos = torch.tensor(9, dtype=torch.int32)
+        calls.clear()
+        with torch.no_grad():
+            pre = sm.make_mesh_prefill(api, mesh, players)(params, prompt)
+            out["prefill_over_model"] = over_model(params)
+            calls.clear()
+            dl, _ = sm.make_mesh_decode(api, mesh, players, clayout)(
+                params, cache, tokens, pos)
+            out["decode_over_model"] = over_model(params)
+            want_pre, _ = api.forward(one, prompt)
+            want_dl, _ = api.decode_step(one, one_cache, tokens, pos)
+        out["prefill_err"] = float((pre - want_pre[:, -1]).abs().max())
+        out["decode_err"] = float((dl - want_dl).abs().max())
+        out["logits_top"] = float(want_pre[:, -1].abs().max())
+    finally:
+        sh.gather_shard = real
+    # the vocab-parallel cross-entropy
+    x = args["xent"]
+    logits = torch.from_numpy(x["logits"].copy())
+    labels = torch.from_numpy(x["labels"].copy())
+    V = logits.shape[-1]
+    rows = V // world
+    r = dist.get_rank()
+    out["xent"] = {}
+    for masked in (False, True):
+        mask = torch.from_numpy(x["mask"].copy()) if masked else None
+        plain = logits.clone().requires_grad_(True)
+        want_v = L.softmax_xent(plain, labels, mask)
+        want_v.backward()
+        mine = logits[..., r * rows:(r + 1) * rows].clone()
+        mine.requires_grad_(True)
+        with sh.use_mesh(mesh):
+            got = L.softmax_xent(mine, labels, mask, vocab=V)
+            got.backward()
+        out["xent"][masked] = {
+            "value": abs(float(got.detach()) - float(want_v.detach())),
+            "grad": float((mine.grad - plain.grad[
+                ..., r * rows:(r + 1) * rows]).abs().max())}
+    return out

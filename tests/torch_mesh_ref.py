@@ -11,7 +11,8 @@ IN.pkl holds the inputs, made by the test (``train_inputs``,
 ``train``: for gemma-2b and qwen3-moe-30b-a3b at their f32 smoke configs,
 plain and with int8 compression, the state and metrics after ONE pjit'd
 ``make_train_step`` from the given params (fresh AdamW state) on the given
-global batch, on a real (2, 1), (4, 1) and (2, 2) (data, model) CPU mesh
+global batch, on a real (2, 1), (4, 1), (2, 2) and (1, 4) (data, model)
+CPU mesh
 with the trainer's ``state_shardings`` / ``batch_shardings``; and
 ``make_compressed_psum`` inside ``shard_map`` with a different gradient on
 every device, over ("data",) on 2 and 4 devices and ("pod", "data") on a
@@ -23,8 +24,8 @@ of a (2,) and a (4,) mesh, and on a ("data",) mesh that lacks the axis.
 ``serve``: for gemma-2b, qwen3-moe-30b-a3b (capacity factor 0.5) and
 mamba2-780m at their f32 smoke configs, the reference's own ``launch.steps.prefill_cell`` and
 ``decode_cell`` programs, jitted with their shardings on a real (2, 1),
-(1, 2) and (2, 2) (data, model) CPU mesh, from the given params, prompt
-tokens, cache, decode tokens and position: the prefill's last-position
+(1, 2), (2, 2) and (1, 4) (data, model) CPU mesh, from the given params,
+prompt tokens, cache, decode tokens and position: the prefill's last-position
 logits, the decode step's logits and its updated cache.
 
 The results are pickled as numpy trees.
@@ -50,13 +51,13 @@ from repro.train.trainer import (TrainState, batch_shardings,
                                  make_train_step, state_shardings)
 
 ARCHS = ("gemma-2b", "qwen3-moe-30b-a3b")
-MESHES = ((2, 1), (4, 1), (2, 2))
+MESHES = ((2, 1), (4, 1), (2, 2), (1, 4))
 TCFG = dict(lr=1e-3, warmup_steps=1)
 SHAPE = ShapeConfig("mesh_test", "train", 16, 8)
 ICI_SCALE = noise.NoiseScale(ici_kib=1)
 ICI_K = 3
 SERVE_ARCHS = ("gemma-2b", "qwen3-moe-30b-a3b", "mamba2-780m")
-SERVE_MESHES = ((2, 1), (1, 2), (2, 2))
+SERVE_MESHES = ((2, 1), (1, 2), (2, 2), (1, 4))
 # 64 sequences, and a MoE capacity factor of 0.5, so that the decode's
 # dispatch drops (token, choice) pairs: the global batch's one group and a
 # rank's own rows then drop different pairs
